@@ -7,18 +7,43 @@ Phases, each printed as JSON lines:
 
   1. device   the card's name and power limit (nvidia-smi) and the time to
               build the CUDA kernel library from src/repro_torch/csrc/;
-  2. kernel   the cascade_tiered CUDA kernel against its plain PyTorch
-              version on the card, at the fig12 shapes (sim_2tier, W=5376,
-              N=4, Hf=2, B=2), the default three_tier shapes (2,081 links,
-              Hf=4) and a ragged case (W not a multiple of 32, -1 hops),
-              with the kernel's and the plain version's times;
+  2. kernel   each CUDA kernel against its plain PyTorch version on the
+              card, with the kernel's, the plain version's and (where one
+              PyTorch call computes the same function) the library call's
+              times and the bound:
+              - cascade_tiered at the fig12 shapes (sim_2tier, W=5376,
+                N=4, Hf=2, B=2), the default three_tier shapes (2,081
+                links, Hf=4) and a ragged case (W not a multiple of 32,
+                -1 hops);
+              - cascade_flat (the flat cascade) on the same routes in the
+                flat layout (n = W * N sub-flows of H = Hf + 2 hops), and
+                the tiered kernel held against it;
+              - linkload at bench_kernels' n=8192, hops=6, L=512 and at
+                the fig12 flat shape;
+              - flash_attention at the full width of qwen3-32b and
+                gemma2-2b in bfloat16 with q scaled so that the scores
+                reach the softcap's range, and a float32 case: elementwise
+                within tests/test_kernels.py's tolerances and every output
+                row within FLASH_ROW_REL of the plain version, a limit that
+                the plain version with the window one block short or
+                without the softcap is shown to break; the cases without
+                a softcap also against F.scaled_dot_product_attention;
+              each kernel is one Spec record driven by one loop; each new
+              kernel's entry point (dataplane.cascade, ops.linkload,
+              ops.flash_attention) is driven once with the launch counts
+              set to 0 and read back;
   3. sweep    the fig12 fast sweep (5 schemes x 4 cases, sim_2tier, 10 ms
               horizon) through repro_torch.netsim.sweep.run_jobs, checking
               0 spill and that the kernel ran every step of the four
               schemes that use it;
   4. agree    the sweep's FCT stats against the JAX package's, recorded in
               src/repro_torch/netsim/fig12_fast_reference.json;
-  5. profile  32 steps of the SeqBalance alistorage batch under
+  5. dense    the dense oracle repro_torch.netsim.engine.simulate on the
+              same traces, through the tiered kernel: its FCT stats
+              against the sweep's and the JAX package's under the gates
+              of phase 4, its wall time, us per step and the speedup of
+              the sweep over it;
+  6. profile  32 steps of the SeqBalance alistorage batch under
               torch.profiler: host ms per step and per phase, the device's
               idle share, the kernels with the most device time.
 
@@ -34,14 +59,17 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
+DEVICE = "cuda"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
 # tests/test_netsim_compact.py:182-185, in the order arrival, queue, mark, thr
 TOLS = ({"rtol": 2e-5, "atol": 1e-3}, {"rtol": 1e-4, "atol": 1.0},
         {"rtol": 0.0, "atol": 1e-6}, {"rtol": 2e-5, "atol": 1e-2})
@@ -50,6 +78,17 @@ OUTPUTS = ("arrival", "queue", "mark", "thr")
 GATES = {"completion_rate": 1e-3, "avg_slowdown": 5e-3, "p99_slowdown": 2e-2}
 FIG12_SCHEMES = ("drill", "ecmp", "seqbalance", "letflow", "conga")
 FIG12_CASES = [(wl, load) for wl in ("alistorage", "websearch") for load in (0.5, 0.8)]
+# the target of ROADMAP.md for the port against the oracle, reported beside the gates
+TARGET = 1e-4
+# tests/test_kernels.py: flash attention fp32 2e-5, with a softcap 3e-5, bf16 2e-2
+FLASH_TOL = {"float32": 2e-5, "float32_softcap": 3e-5, "bfloat16": 2e-2}
+# the largest ||got - want|| / ||want|| of an output row: bf16 output rounding
+# alone gives up to about 2e-3; the kernel's float32 arithmetic adds little
+FLASH_ROW_REL = {"bfloat16": 1e-2, "float32": 1e-4}
+# tests/test_kernels.py::test_linkload_sweep, in the order load, queue, mark
+LINKLOAD_TOLS = ({"rtol": 1e-5, "atol": 0.0}, {"rtol": 1e-4, "atol": 1.0},
+                 {"rtol": 0.0, "atol": 1e-6})
+KW = dict(kmin=400e3, kmax=1600e3, pmax=0.2, dt=10e-6)
 
 
 class SmokeFailure(Exception):
@@ -86,6 +125,35 @@ def time_ms(fn, reps: int = 20, rounds: int = 7, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernel_wrappers():
+    """name -> the wrapper that counts the kernel's launches."""
+    from repro_torch.kernels import cascade_tiered as ct, flash_attention as fa, linkload as ll
+
+    return {"cascade_tiered": ct.cascade_tiered, "cascade_flat": ll.linkload_cascade,
+            "linkload": ll.linkload, "flash_attention": fa.flash_attention}
+
+
+def reset_counts() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def close_enough(name: str, outs, got, want, tols) -> dict:
+    """Max abs error per output; fails unless |got - want| <= atol + rtol |want|."""
+    errs = {}
+    for out, g, w, tol in zip(outs, got, want, tols):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        errs[out] = float(err.max())
+        ok = bool((err <= tol["atol"] + tol["rtol"] * w.abs()).all())
+        check(ok, f"{name}: {out} disagrees (max abs err {errs[out]}, tolerance {tol})")
+    return errs
+
+
 def phase_device():
     from repro_torch.kernels import build
 
@@ -96,11 +164,12 @@ def phase_device():
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.time()
-    lib = build.library_path("cascade_tiered")
-    rebuilt = not lib.exists()
-    build.load("cascade_tiered")
+    missing = [k for k in build.KERNELS if not build.library_path(k).exists()]
+    build.build_many(build.KERNELS)  # one nvcc per source, all at once
+    for k in build.KERNELS:
+        build.load(k)
     emit({"phase": "device", "nvidia_smi": card, "build_s": time.time() - t0,
-          "built": rebuilt})
+          "built": missing})
 
 
 def kernel_inputs(topo, B: int, W: int, N: int, seed: int, absent_frac: float = 0.0):
@@ -128,67 +197,369 @@ def kernel_inputs(topo, B: int, W: int, N: int, seed: int, absent_frac: float = 
             topo.capacity, dataplane.queue_mask_for(topo))
 
 
-def bound_ms(args) -> tuple[float, str]:
-    """Least time for one call on an H100: each input read once and each
-    output written once at the HBM rate, against the float32 operations at
-    the float32 peak; the larger wins."""
+def flat_layout(args):
+    """The tiered inputs' routes in the flat layout: lid [B, W * N, Hf + 2]
+    of [host_tx, fabric hops..., host_rx] per sub-flow, rates [B, W * N]."""
+    import torch
+
     fab, tx, rx, rates, queue, cap, qmask = args
     B, W, N, hf = fab.shape
+    lid = torch.cat([tx[:, :, None, None].expand(B, W, N, 1), fab,
+                     rx[:, :, None, None].expand(B, W, N, 1)], -1)
+    return (lid.reshape(B, W * N, hf + 2).contiguous(), rates.reshape(B, W * N).contiguous(),
+            queue, cap, qmask)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, flop_per_s: float = FP32_FLOP_PER_S):
+    """Least time in ms for one call on an H100: the bytes each input read
+    once and each output written once at the HBM rate, against the
+    operations at the peak for their type; the larger wins."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / flop_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tiered_bound(case):
+    fab, tx, rx, rates, queue, cap, qmask = case.args
+    B, W, N, hf = fab.shape
     L1 = queue.shape[-1]
-    n_in = sum(t.numel() * t.element_size() for t in args)
-    n_out = 3 * B * L1 * 4 + rates.numel() * 4
     # per sub-flow: the tx/rx adds and multiplies plus an add and a multiply
     # per fabric hop; per link and pass: max, divide, min and the arrival
     # add; per link once: the queue update and the RED ramp (about 10)
     ops = B * (W * N * (4 + 2 * hf) + L1 * (4 * (hf + 2) + 10))
-    t_bytes = (n_in + n_out) / HBM_BYTES_PER_S
-    t_ops = ops / FP32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes(*case.args) + 3 * B * L1 * 4 + rates.numel() * 4, ops)
 
 
-def phase_kernel():
+def flat_bound(case):
+    lid, rates, queue, cap, qmask = case.args
+    B, n, H = lid.shape
+    L1 = queue.shape[-1]
+    # per sub-flow and hop an add and a multiply; per link and hop max,
+    # divide, min and the arrival add; per link once about 10
+    ops = B * (n * 2 * H + L1 * (4 * H + 10))
+    return bound(nbytes(*case.args) + 3 * B * L1 * 4 + rates.numel() * 4, ops)
+
+
+def linkload_bound(case):
+    lid, rates, queue, cap = case.args
+    L = queue.shape[0]
+    return bound(nbytes(*case.args) + 3 * L * 4, lid.numel() + 10 * L)
+
+
+def flash_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the mask keeps, in one head."""
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    hi = i + 1 if causal else np.full(S, S)
+    return int((hi - lo).sum())
+
+
+def flash_bound(case):
+    """Two products of 2 * hd operations per kept (query, key) pair, at
+    the bf16 tensor-core peak for bf16 inputs and the float32 peak
+    (outside the tensor cores) for float32 inputs."""
     import torch
 
-    from repro_torch.kernels import cascade_tiered as ct
+    q, k, v = case.args
+    B, S, H, hd = q.shape
+    ops = 4 * hd * flash_pairs(S, case.kw["causal"], case.kw.get("window", 0)) * B * H
+    bf16 = q.dtype == torch.bfloat16
+    ms, by = bound(nbytes(q, k, v, q), ops, BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
+    return ms, by, "bf16 tensor-core peak" if bf16 else "float32 non-tensor peak"
+
+
+class Case(NamedTuple):
+    """One input of a kernel."""
+
+    name: str
+    args: tuple  # to the kernel and its plain version, with kw
+    kw: dict
+    info: dict  # shapes, into the printed row
+    main: bool = False  # the entry point is driven here; the "kernels" line reports it
+    aux: object = None  # whatever a further check needs
+
+
+class Spec(NamedTuple):
+    """A kernel as phase 2 drives it."""
+
+    name: str  # its wrapper's key in kernel_wrappers() and its csrc/<name>.cu
+    replaces: tuple  # (the JAX function, "file:line" of the TPU kernel)
+    kernel: Callable  # the wrapper, which counts its launches
+    plain: Callable  # its plain PyTorch version
+    outputs: tuple  # the names of its outputs
+    tols: Callable  # case -> one {"rtol", "atol"} per output
+    cases: Callable  # () -> [Case], built on the card when the phase reaches it
+    bound: Callable  # case -> (ms, "bytes" | "operations"[, the peak used])
+    # (name, case -> None): the entry point, driven once at the main case
+    # with the counts at 0; None where the sweep is the entry point
+    entry: tuple | None = None
+    # (name, case -> a no-argument call or None): one PyTorch call that
+    # computes the same function, timed beside the kernel
+    library: tuple | None = None
+    more: Callable | None = None  # (case, got, want) -> more row fields; fails itself
+    reps: tuple = ({}, {})  # time_ms's keywords: the kernel's, the plain version's
+
+
+def cascade_shapes():
+    """(name, topology, B, W, N, share of absent fabric hops, main)."""
+    import torch
+
     from repro_torch.netsim import topology
 
-    dev = torch.device("cuda")
-    kw = dict(kmin=400e3, kmax=1600e3, pmax=0.2, dt=10e-6, qmax_bytes=8e6)
-    cases = [
-        ("fig12", topology.sim_2tier(device=dev), 2, 5376, 4, 0.0),
-        ("three_tier", topology.three_tier(device=dev), 2, 2048, 4, 0.0),
-        ("ragged", topology.sim_2tier(device=dev), 3, 1000, 4, 0.1),
+    dev = torch.device(DEVICE)
+    return [
+        ("fig12", topology.sim_2tier(device=dev), 2, 5376, 4, 0.0, True),
+        ("three_tier", topology.three_tier(device=dev), 2, 2048, 4, 0.0, False),
+        ("ragged", topology.sim_2tier(device=dev), 3, 1000, 4, 0.1, False),
+        # what the dense engine gives the kernel: every flow of the fig12
+        # alistorage 0.8 trace in one simulation
+        ("dense", topology.sim_2tier(device=dev), 1, 56116, 4, 0.0, False),
     ]
-    fig12 = None
-    for i, (name, topo, B, W, N, absent) in enumerate(cases):
-        args = kernel_inputs(topo, B, W, N, seed=i, absent_frac=absent)
-        got = ct.cascade_tiered(*args, **kw)
-        want = ct.cascade_tiered_torch(*args, **kw)
+
+
+def tiered_cases():
+    return [Case(name, kernel_inputs(topo, B, W, N, seed=i, absent_frac=absent),
+                 dict(KW, qmax_bytes=8e6),
+                 {"B": B, "W": W, "N": N, "Hf": topo.n_fabric_hops, "links": topo.n_links},
+                 main)
+            for i, (name, topo, B, W, N, absent, main) in enumerate(cascade_shapes())]
+
+
+def flat_cases():
+    """The tiered cases' routes in the flat layout; ``aux`` keeps the
+    tiered inputs so that the tiered kernel is held against the flat one."""
+    cases = []
+    for c in tiered_cases():
+        args = flat_layout(c.args)
+        cases.append(c._replace(args=args, aux=c.args, info={
+            "B": c.info["B"], "n": int(args[0].shape[1]), "H": int(args[0].shape[2]),
+            "links": c.info["links"], "absent_hops": int((args[0] < 0).sum())}))
+    return cases
+
+
+def tiered_vs_flat(case, got, want):
+    from repro_torch.kernels import cascade_tiered as ct
+
+    B = case.info["B"]
+    tiered = ct.cascade_tiered(*case.aux, **case.kw)
+    return {"tiered_vs_flat_max_abs_err": close_enough(
+        f"tiered vs flat {case.name}", OUTPUTS, tiered[:3] + (tiered[3].reshape(B, -1),),
+        got, TOLS)}
+
+
+def linkload_cases():
+    """linkload at bench_kernels' shapes (ids in [-1, L)) and at the fig12
+    flat shape (the first simulation's routes, with -1 and ids past L
+    mixed in)."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(12)
+    n, L = 8192, 512
+    bench = (rng.integers(-1, L, (n, 6)), rng.uniform(0, 1e9, n), np.zeros(L),
+             np.full(L, 1e11))
+    name, topo, B, W, N, absent, _ = cascade_shapes()[0]
+    flat = flat_layout(kernel_inputs(topo, B, W, N, seed=0))
+    lid = flat[0][0].cpu().numpy().copy()
+    L12 = topo.n_links
+    lid[rng.random(lid.shape) < 0.05] = -1
+    lid[rng.random(lid.shape) < 0.01] = L12 + 3
+    fig12 = (lid, flat[1][0].cpu().numpy(), rng.uniform(0, 2e6, L12), np.full(L12, 1e11))
+    cases = []
+    for name, raw in (("bench_kernels", bench), ("fig12_flat", fig12)):
+        args = tuple(torch.as_tensor(a, dtype=d, device=dev).contiguous() for a, d in
+                     zip(raw, (torch.int32, torch.float32, torch.float32, torch.float32)))
+        cases.append(Case(name, args, dict(KW), {
+            "n": int(args[0].shape[0]), "hops": int(args[0].shape[1]),
+            "links": int(args[2].shape[0])}, main=name == "fig12_flat"))
+    return cases
+
+
+# full widths of two of the repo's configurations (src/repro/configs/), and
+# the factor q is scaled by (see flash_cases)
+FLASH_CASES = [
+    ("qwen3-32b", 1, 4096, 64, 8, 128, "bfloat16", dict(causal=True), 10.0),
+    ("gemma2-2b", 1, 8192, 8, 4, 256, "bfloat16",
+     dict(causal=True, window=4096, softcap=50.0), 10.0),
+    ("float32", 1, 2048, 16, 4, 128, "float32", dict(causal=True), 1.0),
+]
+
+
+def flash_cases():
+    """In bf16 q is scaled by 10, so the scores have a standard deviation
+    of about 10 and reach the softcap's range: each row's softmax is
+    peaked on a few keys and the outputs are of order 1, against which a
+    bf16 limit means something.  The float32 case keeps unscaled scores:
+    its elementwise limit (2e-5) is already 1e-3 of its typical output of
+    0.05, and at scores of deviation 10 the float32 rounding of the scores
+    alone moves an output by about 3e-5 (the plain version against
+    float64), past that limit for any float32 kernel."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    cases = []
+    for name, B, S, H, K, hd, dtype, kw, q_scale in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device=dev).manual_seed(S + H)
+        q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev) for h in (H, K, K))
+        cases.append(Case(name, ((q * q_scale).to(dt), k.to(dt), v.to(dt)),
+                          dict(kw, window=kw.get("window", 0), softcap=kw.get("softcap", 0.0)),
+                          {"dtype": dtype, "B": B, "S": S, "H": H, "K": K, "hd": hd,
+                           "q_scale": q_scale}, main=name == "qwen3-32b"))
+    return cases
+
+
+def flash_tols(case):
+    dtype = case.info["dtype"]
+    tol = FLASH_TOL[dtype + ("_softcap" if dtype == "float32" and case.kw["softcap"] else "")]
+    return ({"rtol": tol, "atol": tol},)
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over the output rows (one
+    query of one head)."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def flash_rows(case, got, want):
+    """Each output row within FLASH_ROW_REL of the plain version's; and
+    the plain version itself with the window one 64-key block short, or
+    without the softcap, outside that limit, so that a kernel with either
+    fault would fail here."""
+    from repro_torch.kernels import flash_attention as fa
+
+    limit = FLASH_ROW_REL[case.info["dtype"]]
+    err = row_rel_err(got[0], want[0])
+    check(err <= limit, f"flash_attention {case.name}: a row is {err} off (limit {limit})")
+    faults = {}
+    if case.kw["window"]:
+        faults["window one block short"] = dict(case.kw, window=case.kw["window"] - 64)
+    if case.kw["softcap"]:
+        faults["no softcap"] = dict(case.kw, softcap=0.0)
+    seen = {}
+    for what, kw in faults.items():
+        seen[what] = row_rel_err(fa.flash_attention_torch(*case.args, **kw), want[0])
+        check(seen[what] > limit, f"flash_attention {case.name}: {what} is only "
+              f"{seen[what]} off, inside the limit {limit}")
+    return {"row_rel_err": err, "row_rel_limit": limit, "faults_row_rel_err": seen}
+
+
+def sdpa_call(case):
+    """F.scaled_dot_product_attention in the kernel's layout, where it
+    computes the same function: no softcap, no window; float32 products in
+    full float32."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    if case.kw["softcap"] or case.kw["window"]:
+        return None
+    qt, kt, vt = (x.transpose(1, 2) for x in case.args)
+
+    def sdpa():
+        with fa.full_fp32_matmul():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=case.kw["causal"],
+                                                  enable_gqa=True).transpose(1, 2)
+    return sdpa
+
+
+def kernel_specs():
+    from repro_torch.kernels import cascade_tiered as ct, flash_attention as fa
+    from repro_torch.kernels import linkload as ll, ops
+    from repro_torch.netsim import dataplane
+
+    cascade_tols = lambda case: TOLS  # noqa: E731
+    LL = "src/repro/kernels/linkload.py"
+    return [
+        Spec("cascade_tiered", ("linkload_cascade_tiered", f"{LL}:288"),
+             ct.cascade_tiered, ct.cascade_tiered_torch, OUTPUTS,
+             cascade_tols, tiered_cases, tiered_bound),
+        Spec("cascade_flat", ("linkload_cascade", f"{LL}:372"),
+             ll.linkload_cascade, ll.linkload_cascade_torch, OUTPUTS,
+             cascade_tols, flat_cases, flat_bound,
+             entry=("dataplane.cascade(backend='cuda')",
+                    lambda c: dataplane.cascade(*c.args, n_links=c.info["links"],
+                                                backend="cuda", **c.kw)),
+             more=tiered_vs_flat),
+        Spec("linkload", ("linkload", f"{LL}:61"),
+             ll.linkload, ll.linkload_torch, ("load", "queue", "mark"),
+             lambda case: LINKLOAD_TOLS, linkload_cases, linkload_bound,
+             entry=("ops.linkload",
+                    lambda c: ops.linkload(*c.args, n_links=c.info["links"], **c.kw))),
+        Spec("flash_attention", ("flash_attention", "src/repro/kernels/flash_attention.py:75"),
+             fa.flash_attention, fa.flash_attention_torch, ("out",),
+             flash_tols, flash_cases, flash_bound,
+             entry=("ops.flash_attention", lambda c: ops.flash_attention(*c.args, **c.kw)),
+             library=("F.scaled_dot_product_attention(is_causal, enable_gqa)", sdpa_call),
+             more=flash_rows,
+             reps=(dict(reps=5, rounds=5, warmup=2), dict(reps=2, rounds=3, warmup=1))),
+    ]
+
+
+def kernel_row(spec: Spec, case: Case) -> dict:
+    """The kernel against its plain version at one case, both timed, and
+    at the main case its entry point driven with the counts at 0."""
+    import torch
+
+    def run(fn):
+        out = fn(*case.args, **case.kw)
+        return out if isinstance(out, tuple) else (out,)
+
+    path = {}
+    if case.main and spec.entry:
+        where, drive = spec.entry
+        reset_counts()
+        drive(case)
         torch.cuda.synchronize()
-        errs = {}
-        for out, g, w, tol in zip(OUTPUTS, got, want, TOLS):
-            err = (g - w).abs()
-            errs[out] = float(err.max())
-            ok = bool((err <= tol["atol"] + tol["rtol"] * w.abs()).all())
-            check(ok, f"kernel {name}: {out} disagrees with the plain version "
-                      f"(max abs err {errs[out]})")
-        ms = time_ms(lambda: ct.cascade_tiered(*args, **kw))
-        plain = time_ms(lambda: ct.cascade_tiered_torch(*args, **kw))
-        bound, by = bound_ms(args)
-        row = {"phase": "kernel", "case": name, "B": B, "W": W, "N": N,
-               "Hf": int(args[0].shape[-1]), "links": topo.n_links,
-               "max_abs_err": errs, "tolerances": dict(zip(OUTPUTS, TOLS)),
-               "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
-        emit(row)
-        if name == "fig12":
-            fig12 = row
-    return fig12
+        counts = read_counts()
+        check(counts[spec.name] == 1 and sum(counts.values()) == 1,
+              f"{where} launched {counts}")
+        path = {"path": where, "path_launches": counts[spec.name]}
+    got, want = run(spec.kernel), run(spec.plain)
+    tols = spec.tols(case)
+    errs = close_enough(f"{spec.name} {case.name}", spec.outputs, got, want, tols)
+    more = spec.more(case, got, want) if spec.more else {}
+    library = {"library_ms": None}
+    call = spec.library[1](case) if spec.library else None
+    if call is not None:
+        lib_err = float((call().float() - want[0].float()).abs().max())
+        library = {"library": spec.library[0], "library_ms": time_ms(call, **spec.reps[0]),
+                   "library_max_abs_err": lib_err}
+    del want
+    ms = time_ms(lambda: spec.kernel(*case.args, **case.kw), **spec.reps[0])
+    plain = time_ms(lambda: spec.plain(*case.args, **case.kw), **spec.reps[1])
+    bound_ms, by, *peak = spec.bound(case)
+    row = {"phase": "kernel", "kernel": spec.name, "case": case.name, **case.info,
+           **{k: v for k, v in case.kw.items() if k not in KW and k != "qmax_bytes"},
+           "max_abs_err": errs, "tolerances": dict(zip(spec.outputs, tols)), **more,
+           "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
+           **({"bound_peak": peak[0]} if peak else {}), **library}
+    emit(row)
+    torch.cuda.empty_cache()
+    return dict(row, **path)
+
+
+def phase_kernel() -> dict:
+    """Every kernel at each of its cases; returns each kernel's main row."""
+    rows = {}
+    for spec in kernel_specs():
+        for case in spec.cases():
+            row = kernel_row(spec, case)
+            if case.main:
+                rows[spec.name] = dict(row, jax_name=spec.replaces[0],
+                                       replaces=spec.replaces[1])
+    return rows
 
 
 def fig12_traces():
     from repro_torch.netsim import topology, workloads
 
-    topo = topology.sim_2tier(device="cuda")
+    topo = topology.sim_2tier(device=DEVICE)
     fabric = topo.n_leaf * topo.n_paths * 100e9
     traces = [workloads.poisson_trace(workloads.TraceConfig(
         workload=wl, load=load, duration_s=2.5e-3, n_hosts=topo.n_hosts, host_bw=100e9,
@@ -202,16 +573,15 @@ def phase_sweep():
     fast sweep through the port's run_jobs."""
     import torch
 
-    from repro_torch.kernels import cascade_tiered as ct
     from repro_torch.netsim import engine, metrics, sweep
 
     topo, traces = fig12_traces()
     stats, expected, walls = {}, 0, {}
-    ct.cascade_tiered.launches = 0
+    reset_counts()
     for scheme in FIG12_SCHEMES:
         cfg = engine.SimConfig(scheme=scheme, duration_s=10e-3, uplink_sample_every=10)
         t0 = time.time()
-        (results, _), = sweep.run_jobs([(topo, cfg, traces)], device="cuda")
+        (results, _), = sweep.run_jobs([(topo, cfg, traces)], device=DEVICE)
         torch.cuda.synchronize()
         walls[scheme] = time.time() - t0
         buckets = {}
@@ -230,29 +600,95 @@ def phase_sweep():
         if scheme != "drill":
             expected += sum(buckets.values())
         emit({"phase": "sweep", "scheme": scheme, "wall_s": walls[scheme]})
-    launches = ct.cascade_tiered.launches
-    emit({"phase": "sweep", "wall_s": sum(walls.values()), "kernel_launches": launches,
+    counts = read_counts()
+    launches = counts["cascade_tiered"]
+    emit({"phase": "sweep", "wall_s": sum(walls.values()), "kernel_launches": counts,
           "steps_needing_the_kernel": expected})
     check(launches >= expected > 0,
           f"cascade_tiered launched {launches} times for {expected} steps")
-    return stats, launches
+    return stats, counts, walls
+
+
+def stat_diffs(s, r) -> dict:
+    return {"completion_rate": abs(s["completion_rate"] - r["completion_rate"]),
+            "avg_slowdown": abs(s["avg_slowdown"] / r["avg_slowdown"] - 1.0),
+            "p99_slowdown": abs(s["p99_slowdown"] / r["p99_slowdown"] - 1.0)}
+
+
+def compare_stats(phase: str, stats, ref_stats, against: str) -> dict:
+    """Per-cell differences of ``stats`` from ``ref_stats[(scheme, case)]``;
+    fails past GATES; returns the largest of each."""
+    worst = {k: 0.0 for k in GATES}
+    for key, s in stats.items():
+        diffs = stat_diffs(s, ref_stats[key])
+        for k, v in diffs.items():
+            worst[k] = max(worst[k], v)
+        emit({"phase": phase, "against": against, "scheme": key[0], "case": key[1], **diffs})
+    emit({"phase": phase, "against": against, "max_diff": worst, "gates": GATES,
+          "target": TARGET, "target_held": all(v <= TARGET for v in worst.values())})
+    for k, v in worst.items():
+        check(v <= GATES[k], f"{phase}: {k} differs from {against} by {v} > {GATES[k]}")
+    return worst
+
+
+def reference_stats():
+    ref = json.loads((SRC / "repro_torch" / "netsim" / "fig12_fast_reference.json").read_text())
+    return ref, {(scheme, case): r for scheme, cases in ref["stats"].items()
+                 for case, r in cases.items()}
 
 
 def phase_agree(stats):
-    ref = json.loads((SRC / "repro_torch" / "netsim" / "fig12_fast_reference.json").read_text())
-    worst = {k: 0.0 for k in GATES}
-    for (scheme, case), s in stats.items():
-        r = ref["stats"][scheme][case]
-        diffs = {"completion_rate": abs(s["completion_rate"] - r["completion_rate"]),
-                 "avg_slowdown": abs(s["avg_slowdown"] / r["avg_slowdown"] - 1.0),
-                 "p99_slowdown": abs(s["p99_slowdown"] / r["p99_slowdown"] - 1.0)}
-        for k, v in diffs.items():
-            worst[k] = max(worst[k], v)
-        emit({"phase": "agree", "scheme": scheme, "case": case, **diffs})
-    emit({"phase": "agree", "max_diff": worst, "gates": GATES,
-          "reference_commit": ref["commit"], "reference_backend": ref["backend"]})
-    for k, v in worst.items():
-        check(v <= GATES[k], f"{k} differs from the JAX package by {v} > {GATES[k]}")
+    ref, ref_stats = reference_stats()
+    emit({"phase": "agree", "reference_commit": ref["commit"],
+          "reference_backend": ref["backend"]})
+    compare_stats("agree", stats, ref_stats, "jax_reference")
+
+
+def phase_dense(compact_stats, compact_walls):
+    """The dense oracle engine.simulate, one simulation per trace, 1000
+    steps each, on the sweep's traces; its stats against the sweep's and
+    the JAX package's."""
+    import types
+
+    import torch
+
+    from repro_torch.netsim import engine, metrics
+
+    topo, traces = fig12_traces()
+    stats, walls, steps = {}, {}, 0
+    reset_counts()
+    for scheme in FIG12_SCHEMES:
+        cfg = engine.SimConfig(scheme=scheme, duration_s=10e-3, uplink_sample_every=10)
+        walls[scheme] = 0.0
+        for (wl, load), trace in zip(FIG12_CASES, traces):
+            t0 = time.time()
+            st, outs = engine.simulate(topo, cfg, trace, device=DEVICE)
+            finish = st.finish.cpu().numpy()
+            wall = time.time() - t0
+            walls[scheme] += wall
+            n = int(st.step)
+            steps += n
+            s = metrics.fct_stats(types.SimpleNamespace(finish=finish), trace, topo, 100e9)
+            check(bool(torch.isfinite(outs.goodput_total).all()) and n == 1000,
+                  f"dense {scheme} {wl} {load}: {n} of 1000 steps, or goodput not finite")
+            stats[(scheme, f"{wl}_{load}")] = s
+            emit({"phase": "dense", "scheme": scheme, "case": f"{wl}_{load}",
+                  "flows": len(trace.sizes), "wall_s": wall, "us_per_step": wall / n * 1e6,
+                  "avg_slowdown": s["avg_slowdown"], "p99_slowdown": s["p99_slowdown"],
+                  "completion_rate": s["completion_rate"]})
+    counts = read_counts()
+    expected = 1000 * len(FIG12_CASES) * (len(FIG12_SCHEMES) - 1)  # all but DRILL
+    total = sum(walls.values())
+    emit({"phase": "dense", "wall_s": total, "wall_s_by_scheme": walls,
+          "steps": steps, "us_per_step": total / steps * 1e6, "kernel_launches": counts,
+          "steps_needing_the_kernel": expected,
+          "speedup_compact_over_dense": total / sum(compact_walls.values()),
+          "speedup_by_scheme": {k: walls[k] / compact_walls[k] for k in walls}})
+    check(counts["cascade_tiered"] == expected,
+          f"dense: cascade_tiered launched {counts['cascade_tiered']} times for {expected}")
+    compare_stats("dense", stats, compact_stats, "compact_sweep")
+    compare_stats("dense", stats, reference_stats()[1], "jax_reference")
+    return counts
 
 
 def phase_profile(warm_steps: int = 100, steps: int = 32):
@@ -320,20 +756,32 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     try:
         phase_device()
-        fig12 = phase_kernel()
-        stats, launches = phase_sweep()
+        rows = phase_kernel()
+        stats, sweep_counts, walls = phase_sweep()
         phase_agree(stats)
+        dense_counts = phase_dense(stats, walls)
         phase_profile()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
-    emit({"kernels": [{
-        "name": "linkload_cascade_tiered", "route": "cuda",
-        "source": "src/repro_torch/csrc/cascade_tiered.cu",
-        "replaces": "src/repro/kernels/linkload.py:288",
-        "launches": launches, "max_abs_err": max(fig12["max_abs_err"].values()),
-        "ms": fig12["ms"], "plain_ms": fig12["plain_ms"], "bound_ms": fig12["bound_ms"],
-        "bound_by": fig12["bound_by"], "library_ms": None}]})
+    kernels = []
+    for src_name, row in rows.items():
+        by_path = {"fig12_sweep": sweep_counts[src_name],
+                   "dense_engine": dense_counts[src_name]}
+        if src_name == "cascade_tiered":
+            launches = sweep_counts[src_name]  # the main path: the fig12 sweep
+        else:  # not on the fig12 path (0 there): the count of its own entry point
+            by_path[row["path"]] = row["path_launches"]
+            launches = row["path_launches"]
+        err = row["max_abs_err"]
+        kernels.append({
+            "name": row["jax_name"], "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src_name}.cu",
+            "replaces": row["replaces"], "launches": launches, "launches_by_path": by_path,
+            "case": row["case"], "max_abs_err": max(err.values()), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

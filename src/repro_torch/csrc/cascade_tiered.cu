@@ -37,21 +37,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cascade_common.cuh"
+
 namespace {
 
-__device__ __forceinline__ void scale_pass(float* load, float* arr, const float* cap,
-                                           int L1) {
-  // load -> arrival += load (sentinel excluded); load <- min(1, cap / max(load, 1))
-  for (int l = threadIdx.x; l < L1; l += blockDim.x) {
-    float v = load[l];
-    if (l < L1 - 1) arr[l] += v;
-    load[l] = fminf(1.0f, cap[l] / fmaxf(v, 1.0f));
-  }
-}
-
-__device__ __forceinline__ void zero(float* buf, int L1) {
-  for (int l = threadIdx.x; l < L1; l += blockDim.x) buf[l] = 0.0f;
-}
+using cascade::scale_pass;
+using cascade::slot;
+using cascade::zero;
 
 __global__ void cascade_tiered_kernel(
     const int32_t* __restrict__ fab,    // [B, W, N, Hf]
@@ -71,7 +63,6 @@ __global__ void cascade_tiered_kernel(
   float* load = smem;       // [L1] this pass's link load, then its scale
   float* arr = smem + L1;   // [L1] running arrival
   const int b = blockIdx.x;
-  const int sentinel = L1 - 1;
   fab += (size_t)b * W * N * Hf;
   tx += (size_t)b * W;
   rx += (size_t)b * W;
@@ -108,14 +99,14 @@ __global__ void cascade_tiered_kernel(
     __syncthreads();
     for (int i = threadIdx.x; i < WN; i += blockDim.x) {
       int lid = fab[i * Hf + h];
-      atomicAdd(&load[lid < 0 ? sentinel : lid], thr[i]);
+      atomicAdd(&load[slot(lid, L1)], thr[i]);
     }
     __syncthreads();
     scale_pass(load, arr, cap, L1);
     __syncthreads();
     for (int i = threadIdx.x; i < WN; i += blockDim.x) {
       int lid = fab[i * Hf + h];
-      thr[i] *= load[lid < 0 ? sentinel : lid];
+      thr[i] *= load[slot(lid, L1)];
     }
     __syncthreads();
   }
@@ -137,16 +128,8 @@ __global__ void cascade_tiered_kernel(
   }
 
   // ---- queue integration and RED mark (arr is final since the rx scale pass)
-  for (int l = threadIdx.x; l < L1; l += blockDim.x) {
-    float a = arr[l];
-    float q = queue[l] + (a - cap[l]) * dt / 8.0f;
-    q = fminf(fmaxf(q, 0.0f), qmax) * qmask[l];
-    float ramp = (q - kmin) / (kmax - kmin);
-    float m = q < kmin ? 0.0f : (q > kmax ? 1.0f : ramp * pmax);
-    arrival[l] = a;
-    new_queue[l] = q;
-    p_mark[l] = l == sentinel ? 0.0f : m;
-  }
+  cascade::finish_links(arr, queue, cap, qmask, arrival, new_queue, p_mark, L1,
+                        kmin, kmax, pmax, dt, qmax);
 }
 
 }  // namespace

@@ -20,13 +20,14 @@ with ``arrival[:, L] == 0`` and ``p_mark[:, L] == 0``.
 from __future__ import annotations
 
 import ctypes
-import functools
-import threading
 
 import torch
 
-_MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
-_COUNT_LOCK = threading.Lock()
+from repro_torch.kernels import build
+
+MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = (_p,) * 11 + (_i,) * 5 + (_f,) * 5 + (_p,)
 
 
 def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -90,15 +91,6 @@ def cascade_tiered_torch(fab, tx, rx, rates, queue, capacity, queue_mask, *,
     return arrival, new_queue, p_mark, thr
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def cascade_tiered(fab, tx, rx, rates, queue, capacity, queue_mask, *,
                    kmin: float, kmax: float, pmax: float, dt: float,
                    qmax_bytes: float):
@@ -115,25 +107,21 @@ def cascade_tiered(fab, tx, rx, rates, queue, capacity, queue_mask, *,
     B, W, N = rates.shape
     hf = fab.shape[-1]
     L1 = queue.shape[-1]
-    _check("fab", fab, torch.int32, (B, W, N, hf))
-    _check("tx", tx, torch.int32, (B, W))
-    _check("rx", rx, torch.int32, (B, W))
-    _check("rates", rates, torch.float32, (B, W, N))
-    _check("queue", queue, torch.float32, (B, L1))
-    _check("capacity", capacity, torch.float32, (L1,))
-    _check("queue_mask", queue_mask, torch.float32, (L1,))
-    for name, t in (("fab", fab), ("tx", tx), ("rx", rx), ("queue", queue),
-                    ("capacity", capacity), ("queue_mask", queue_mask)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, rates on {dev}")
-    if 2 * L1 * 4 > _MAX_SMEM:
+    for name, t, dtype, shape in (
+            ("fab", fab, torch.int32, (B, W, N, hf)), ("tx", tx, torch.int32, (B, W)),
+            ("rx", rx, torch.int32, (B, W)), ("rates", rates, torch.float32, (B, W, N)),
+            ("queue", queue, torch.float32, (B, L1)),
+            ("capacity", capacity, torch.float32, (L1,)),
+            ("queue_mask", queue_mask, torch.float32, (L1,))):
+        build.check(name, t, dtype, shape, dev)
+    if 2 * L1 * 4 > MAX_SMEM:
         raise ValueError(f"{L1} links need {2 * L1 * 4} B of shared memory; "
-                         f"a block has {_MAX_SMEM}")
+                         f"a block has {MAX_SMEM}")
     arrival = torch.empty((B, L1), dtype=torch.float32, device=dev)
     new_queue = torch.empty_like(arrival)
     p_mark = torch.empty_like(arrival)
     thr = torch.empty((B, W, N), dtype=torch.float32, device=dev)
-    fn = _library().cascade_tiered_launch
+    fn = build.entry("cascade_tiered", "cascade_tiered_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(fab.data_ptr(), tx.data_ptr(), rx.data_ptr(), rates.data_ptr(),
@@ -141,23 +129,9 @@ def cascade_tiered(fab, tx, rx, rates, queue, capacity, queue_mask, *,
                  arrival.data_ptr(), new_queue.data_ptr(), p_mark.data_ptr(),
                  thr.data_ptr(), B, W, N, hf, L1, kmin, kmax, pmax, dt,
                  qmax_bytes, stream)
-    if err != 0:
-        raise RuntimeError(f"cascade_tiered kernel launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        cascade_tiered.launches += 1
+    build.raise_on(err, "cascade_tiered")
+    build.count_launch(cascade_tiered)
     return arrival, new_queue, p_mark, thr
 
 
 cascade_tiered.launches = 0
-
-
-@functools.cache
-def _library():
-    """Build (once per process, if the hashed library is missing) and load."""
-    from repro_torch.kernels import build
-
-    lib = build.load("cascade_tiered")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cascade_tiered_launch.argtypes = [p] * 11 + [i] * 5 + [f] * 5 + [p]
-    lib.cascade_tiered_launch.restype = ctypes.c_int
-    return lib

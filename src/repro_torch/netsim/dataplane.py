@@ -11,15 +11,15 @@ per-simulation tensor (the JAX package's ``vmap``).
   p_mark[l]    = RED ramp on queue (kmin/kmax/pmax)
 
 Link vectors carry a sentinel slot ``n_links`` (capacity 1e30) onto which
-absent (-1) hops land.  ``cascade_nic``, the NIC-tiered form, is what the
-engine runs; ``cascade``, the flat form, is kept in plain PyTorch as the
-oracle it is checked against.
+absent (-1) hops land.  ``cascade_nic``, the NIC-tiered form, is what
+both engines run; ``cascade``, the flat form, is the oracle it is checked
+against.
 
-Backends of ``cascade_nic``: the device of the tensors decides.  CUDA
-tensors launch the hand-written kernel and CPU tensors run its plain
-version; ``"auto"`` picks that, while ``"cuda"`` and ``"torch"`` only
-assert it, so a configuration can never send CUDA tensors through the
-plain version.
+Backends of both forms: the device of the tensors decides.  CUDA tensors
+launch the hand-written kernel (``csrc/cascade_tiered.cu``,
+``csrc/cascade_flat.cu``) and CPU tensors run its plain version;
+``"auto"`` picks that, while ``"cuda"`` and ``"torch"`` only assert it, so
+a configuration can never send CUDA tensors through the plain version.
 
 DRILL's spray splits one sub-flow over all paths, so its 2-tier dataplane
 (``drill_spray``) lives here too.  Its one-hot [n, L] products are plain
@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import baselines, gbn
-from repro_torch.kernels import cascade_tiered as ct
+from repro_torch.kernels import cascade_tiered as ct, linkload as ll
 from repro_torch.netsim.topology import Topology
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -63,29 +63,27 @@ def take_rows(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def cascade(links, rates, queue, capacity, queue_mask, *, n_links: int,
-            kmin: float, kmax: float, pmax: float, dt: float, qmax_bytes: float):
+            kmin: float, kmax: float, pmax: float, dt: float, qmax_bytes: float,
+            backend: str = "auto"):
     """Flat hop cascade, the oracle layout: links i32[B, ..., H] (-1 = absent),
-    rates f32[B, ...], queue f32[B, n_links + 1].  Returns (arrival,
-    new_queue, p_mark) f32[B, n_links + 1] and thr f32[B, ...]."""
+    rates f32[B, ...], queue f32[B, n_links + 1], capacity and queue_mask
+    f32[n_links + 1].  Returns (arrival, new_queue, p_mark) f32[B, n_links + 1]
+    and thr f32[B, ...]."""
+    backend = resolve_backend(backend, rates.device)
     B = rates.shape[0]
-    L1 = n_links + 1
     hops = links.shape[-1]
-    lid = torch.where(links >= 0, links, torch.full_like(links, n_links))
-    lid = lid.reshape(B, -1, hops)
-    r = rates.reshape(B, -1)
-    arrival = torch.zeros((B, L1), dtype=torch.float32, device=rates.device)
-    for h in range(hops):
-        lh = lid[:, :, h]
-        load = ct._segment_sum(r, lh, L1)
-        load_real = load.clone()
-        load_real[:, n_links] = 0.0
-        arrival = arrival + load_real
-        r = r * ct._gather(ct._scale(load, capacity), lh)
-    new_queue = torch.clamp(queue + (arrival - capacity) * dt / 8.0, 0.0,
-                            qmax_bytes) * queue_mask
-    p_mark = ct.red_mark(new_queue, kmin, kmax, pmax)
-    p_mark[:, n_links] = 0.0
-    return arrival, new_queue, p_mark, r.reshape(rates.shape)
+    if queue.shape != (B, n_links + 1):
+        raise ValueError(f"queue must be [B, n_links + 1] = {(B, n_links + 1)}, "
+                         f"got {tuple(queue.shape)}")
+    args = (links.reshape(B, -1, hops).to(torch.int32).contiguous(),
+            rates.reshape(B, -1).contiguous(), queue.contiguous(),
+            capacity.contiguous(), queue_mask.contiguous())
+    kw = dict(kmin=kmin, kmax=kmax, pmax=pmax, dt=dt, qmax_bytes=qmax_bytes)
+    if backend == "cuda":
+        arrival, new_queue, p_mark, thr = ll.linkload_cascade(*args, **kw)
+    else:
+        arrival, new_queue, p_mark, thr = ll.linkload_cascade_torch(*args, **kw)
+    return arrival, new_queue, p_mark, thr.reshape(rates.shape)
 
 
 def cascade_nic(fab_links, tx_link, rx_link, rates, queue, capacity, queue_mask, *,
@@ -116,6 +114,18 @@ def cascade_nic(fab_links, tx_link, rx_link, rates, queue, capacity, queue_mask,
     else:
         arrival, new_queue, p_mark, thr = ct.cascade_tiered_torch(*args, **kw)
     return arrival, new_queue, p_mark, thr.reshape(rates.shape)
+
+
+def subflow_mark_probs(links, p_mark, n_links: int):
+    """(p_sub, p_sub_fabric) f32[B, ...] of the flat layout links
+    i32[B, ..., H]: the probability that a packet of the sub-flow is marked
+    on any hop / on any fabric hop (hops 1..H-2)."""
+    present = links >= 0
+    lid = torch.where(present, links, torch.full_like(links, n_links))
+    hop_mark = torch.where(present, take(p_mark, lid), 0.0)
+    p_sub = 1.0 - torch.prod(1.0 - hop_mark, -1)
+    p_sub_fabric = 1.0 - torch.prod(1.0 - hop_mark[..., 1:-1], -1)
+    return p_sub, p_sub_fabric
 
 
 def subflow_mark_probs_nic(fab_links, tx_link, rx_link, p_mark, n_links: int):

@@ -152,7 +152,8 @@ def test_unported_features_raise():
         te.SimConfig(adaptive=True)
     with pytest.raises(NotImplementedError):
         te.SimConfig(scheme="flowlet_timeout")
+    _, ttopo, trace = _setup(0.5, dur=1e-4)
     with pytest.raises(NotImplementedError):
-        te.simulate(None, None, None)
+        te.simulate(ttopo, te.SimConfig(duration_s=1e-4), trace, reorder=1.0, device="cpu")
     with pytest.raises(NotImplementedError):
         carry.config_from_dict({"adaptive": True})

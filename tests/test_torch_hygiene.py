@@ -7,6 +7,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,7 +32,8 @@ def test_no_jax_or_repro_import(path):
 
 
 def test_importing_the_sweep_leaves_jax_out():
-    code = ("import sys; import repro_torch.netsim.sweep, repro_torch.netsim.carry; "
+    code = ("import sys; import repro_torch.netsim.sweep, repro_torch.netsim.carry, "
+            "repro_torch.netsim.engine, repro_torch.kernels.ops; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -44,6 +46,7 @@ def test_importing_the_sweep_leaves_jax_out():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch.kernels import ops
     from repro_torch.netsim import compact, engine, sweep, topology, workloads
 
     topo = topology.leaf_spine(2, 4, 4, 100e9, device="cpu")
@@ -59,6 +62,14 @@ def test_entry_points_default_to_cuda():
         compact.simulate_compact(topo, cfg, trace)
     with pytest.raises(RuntimeError, match="CUDA"):
         topology.sim_2tier()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.simulate(topo, cfg, trace)
+    q = np.zeros((1, 64, 2, 16), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.linkload(np.zeros((4, 2), np.int32), np.ones(4, np.float32),
+                     np.zeros(3, np.float32), np.ones(3, np.float32), n_links=3)
     with pytest.raises(NotImplementedError):
         sweep.run_one(topo, cfg, trace, device="cpu", capacity=topo.capacity)
 

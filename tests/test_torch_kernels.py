@@ -1,0 +1,201 @@
+"""The plain PyTorch versions of the port's kernels against the JAX
+package's oracles, on the same numpy inputs.
+
+The JAX package's Pallas kernels that use ``pl.load`` do not run in
+interpret mode on the installed JAX, so the cascades and flash attention
+are held against ``repro.kernels.ref`` and ``dataplane`` ``backend="xla"``;
+the ``pl.load``-free ``linkload`` kernel runs in interpret mode too.
+Tolerances: the linkload and flash attention ones of tests/test_kernels.py
+(load rtol 1e-5, queue rtol 1e-4 / atol 1, mark atol 1e-6; flash fp32
+2e-5, softcap 3e-5, bf16 2e-2), the cascade ones of
+tests/test_netsim_compact.py:182-185 (segment sums in another order).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import linkload as jll, ref as jref  # noqa: E402
+from repro.netsim import dataplane as jd, topology as jt  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa, linkload as tll  # noqa: E402
+from repro_torch.kernels import ops, ref as tref  # noqa: E402
+from repro_torch.netsim import dataplane as td, topology as tt  # noqa: E402
+
+CASCADE_TOLS = [dict(rtol=2e-5, atol=1e-3), dict(rtol=1e-4, atol=1.0), dict(atol=1e-6),
+                dict(rtol=2e-5, atol=1e-2)]
+LINKLOAD_TOLS = [dict(rtol=1e-5), dict(rtol=1e-4, atol=1.0), dict(atol=1e-6)]
+RED = (400e3, 1600e3, 0.2)
+
+
+def _close(want, got, tols):
+    assert len(want) == len(got)
+    for w, g, tol in zip(want, got, tols):
+        np.testing.assert_allclose(np.asarray(w), np.asarray(g), **tol)
+
+
+# ------------------------------------------------------------- linkload
+@pytest.mark.parametrize("n,hops,L", [(100, 2, 50), (1000, 6, 200), (513, 4, 300)])
+def test_linkload_plain_matches_reference(n, hops, L):
+    """The shapes of tests/test_kernels.py::test_linkload_sweep, with ids up
+    to L + 4: ids at or past L are dropped, as -1 is."""
+    rng = np.random.default_rng(n)
+    lid = rng.integers(-1, L + 5, (n, hops)).astype(np.int32)
+    rates = (rng.random(n) * 1e9).astype(np.float32)
+    queue = (rng.random(L) * 2e6).astype(np.float32)
+    cap = np.full(L, 4e10, np.float32)
+    j = jnp.asarray
+    want = jref.linkload_ref(j(lid), j(rates), L, *RED, j(queue), j(cap), 10e-6)
+    interp = jll.linkload(j(lid), j(rates), j(queue), j(cap), n_links=L, interpret=True)
+    got = tref.linkload_ref(torch.as_tensor(lid), torch.as_tensor(rates), L, *RED,
+                            torch.as_tensor(queue), torch.as_tensor(cap), 10e-6)
+    _close(want, got, LINKLOAD_TOLS)
+    _close(interp, got, LINKLOAD_TOLS)
+    # the entry point with numpy arguments on the CPU, and the wrapper
+    entry = ops.linkload(lid, rates, queue, cap, n_links=L, device="cpu")
+    wrapped = tll.linkload(torch.as_tensor(lid), torch.as_tensor(rates),
+                           torch.as_tensor(queue), torch.as_tensor(cap),
+                           kmin=RED[0], kmax=RED[1], pmax=RED[2], dt=10e-6)
+    for a, b, c in zip(got, entry, wrapped):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(a.numpy(), c.numpy())
+
+
+def test_linkload_drops_absent_hops():
+    """tests/test_kernels.py::test_linkload_drop_sentinel: -1 hops add
+    nothing anywhere."""
+    load, _, _ = ops.linkload(np.array([[0, -1], [1, -1]], np.int32),
+                              np.array([5.0, 7.0], np.float32), np.zeros(3, np.float32),
+                              np.full(3, 1e12, np.float32), n_links=3, device="cpu")
+    np.testing.assert_allclose(load.numpy(), [5.0, 7.0, 0.0], atol=1e-6)
+
+
+# --------------------------------------------------------- flat cascade
+@pytest.mark.parametrize("n,hops,L", [(100, 6, 50), (513, 4, 30), (64, 2, 5)])
+def test_flat_cascade_plain_matches_reference(n, hops, L):
+    """The shapes of tests/test_netsim_compact.py::
+    test_linkload_cascade_kernel_vs_ref."""
+    rng = np.random.default_rng(n)
+    lid = rng.integers(-1, L, (n, hops)).astype(np.int32)
+    rates = (rng.random(n) * 1e9).astype(np.float32)
+    queue = (rng.random(L) * 2e6).astype(np.float32)
+    cap = np.full(L, 4e9, np.float32)
+    qmask = np.ones(L, np.float32)
+    qmask[:2] = 0.0
+    j = jnp.asarray
+    want = jref.linkload_cascade_ref(j(lid), j(rates), L, *RED, j(queue), j(cap),
+                                     j(qmask), 10e-6)
+    got = tref.linkload_cascade_ref(torch.as_tensor(lid), torch.as_tensor(rates), L, *RED,
+                                    torch.as_tensor(queue), torch.as_tensor(cap),
+                                    torch.as_tensor(qmask), 10e-6)
+    _close(want, got, CASCADE_TOLS)
+    # the dataplane's flat cascade in the sentinel layout, against the
+    # reference's backend="xla"
+    q1 = np.append(queue, 0.0).astype(np.float32)
+    c1 = np.append(cap, 1e30).astype(np.float32)
+    m1 = np.append(qmask, 0.0).astype(np.float32)
+    kw = dict(n_links=L, kmin=RED[0], kmax=RED[1], pmax=RED[2], dt=10e-6, qmax_bytes=8e6)
+    xla = jd.cascade(j(lid), j(rates), j(q1), j(c1), j(m1), backend="xla", **kw)
+    flat = td.cascade(torch.as_tensor(lid)[None], torch.as_tensor(rates)[None],
+                      torch.as_tensor(q1)[None], torch.as_tensor(c1), torch.as_tensor(m1),
+                      backend="torch", **kw)
+    _close(xla, [f[0] for f in flat], CASCADE_TOLS)
+    assert float(flat[0][0, L]) == 0.0 and float(flat[2][0, L]) == 0.0
+
+
+def _topos(kind):
+    if kind == "leaf_spine":
+        return jt.leaf_spine(2, 4, 4, 100e9), tt.leaf_spine(2, 4, 4, 100e9, device="cpu")
+    kw = dict(bw_tor_agg=400e9, bw_agg_core=100e9)
+    return jt.three_tier(4, 4, 2, 3, **kw), tt.three_tier(4, 4, 2, 3, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kind,seed", [("leaf_spine", 0), ("three_tier", 1)])
+def test_tiered_matches_flat_on_routes(kind, seed):
+    """The two cascade layouts on the same routes, in the port (tiered and
+    flat plain versions, mark probabilities of both layouts) and against the
+    reference's flat oracle; same-leaf flows give absent fabric hops."""
+    jtopo, topo = _topos(kind)
+    rng = np.random.default_rng(seed)
+    n, N = 256, 4
+    src = rng.integers(0, topo.n_hosts, n)
+    dst = rng.integers(0, topo.n_hosts, n)
+    path = rng.integers(0, topo.n_paths, (n, N))
+    hpl = topo.hosts_per_leaf
+    links = topo.subflow_links(torch.as_tensor(src)[:, None], torch.as_tensor(dst)[:, None],
+                               torch.as_tensor(path))
+    tx, rx = topo.nic_links(torch.as_tensor(src), torch.as_tensor(dst))
+    fab = topo.fabric_links(torch.as_tensor(src // hpl)[:, None],
+                            torch.as_tensor(dst // hpl)[:, None], torch.as_tensor(path))
+    assert bool((fab < 0).any())
+    rates = (rng.random((n, N)) * 50e9).astype(np.float32)
+    queue = (rng.random(topo.n_links) * 2e6).astype(np.float32)
+    cap = topo.capacity[:-1]
+    qmask = td.queue_mask_for(topo)[:-1]
+    args = (topo.n_links, *RED, torch.as_tensor(queue), cap, qmask, 10e-6)
+    flat = tref.linkload_cascade_ref(links.reshape(n * N, -1),
+                                     torch.as_tensor(rates).reshape(-1), *args)
+    tiered = tref.linkload_cascade_tiered_ref(fab, tx, rx, torch.as_tensor(rates), *args)
+    _close(flat[:3] + (flat[3].reshape(n, N),), tiered, CASCADE_TOLS)
+    jflat = jref.linkload_cascade_ref(
+        jnp.asarray(links.reshape(n * N, -1).numpy()), jnp.asarray(rates.reshape(-1)),
+        topo.n_links, *RED, jnp.asarray(queue), jtopo.capacity[:-1],
+        jd.queue_mask_for(jtopo)[:-1], 10e-6)
+    _close(jflat, flat, CASCADE_TOLS)
+    pm = torch.as_tensor(np.append(rng.random(topo.n_links) * 0.3, 0.0).astype(np.float32))
+    ps_flat = td.subflow_mark_probs(links[None], pm[None], topo.n_links)
+    ps_nic = td.subflow_mark_probs_nic(fab[None], tx[None], rx[None], pm[None],
+                                       topo.n_links)
+    jps = jd.subflow_mark_probs(jnp.asarray(links.numpy()), jnp.asarray(pm.numpy()),
+                                topo.n_links)
+    for a, b, c in zip(ps_flat, ps_nic, jps):
+        np.testing.assert_allclose(a[0].numpy(), b[0].numpy(), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(np.asarray(c), a[0].numpy(), rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------------ flash attention
+def _qkv(seed, B, S, H, K, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((B, S, h, hd)).astype(np.float32)
+                 for h in (H, K, K))
+
+
+def _flash_pair(arrays, dtype, **kw):
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = jref.flash_attention_ref(*(jnp.asarray(a).astype(jdt) for a in arrays), **kw)
+    got = tfa.flash_attention(*(torch.as_tensor(a).to(tdt) for a in arrays), **kw)
+    assert got.dtype == tdt
+    return np.asarray(want, np.float32), got.to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("S,H,K,hd", [(128, 4, 4, 32), (256, 4, 2, 64), (256, 8, 1, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_shapes_dtypes(S, H, K, hd, dtype):
+    want, got = _flash_pair(_qkv(0, 2, S, H, K, hd), dtype)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [0, 32, 100])
+def test_flash_plain_window(window):
+    want, got = _flash_pair(_qkv(1, 1, 256, 2, 2, 32), "float32", window=window)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 10.0, 50.0])
+def test_flash_plain_softcap(softcap):
+    want, got = _flash_pair(_qkv(2, 1, 128, 2, 2, 32), "float32", softcap=softcap)
+    np.testing.assert_allclose(got, want, atol=3e-5, rtol=3e-5)
+
+
+def test_flash_entry_point_on_the_cpu():
+    """ops.flash_attention with numpy arguments and device="cpu", on a
+    ragged length (S not a multiple of the kernel's 64) with a window, a
+    softcap and non-causal GQA."""
+    arrays = _qkv(3, 1, 200, 4, 2, 16)
+    for kw in (dict(window=48, softcap=30.0), dict(causal=False)):
+        want = jref.flash_attention_ref(*(jnp.asarray(a) for a in arrays), **kw)
+        got = ops.flash_attention(*arrays, device="cpu", **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=3e-5)

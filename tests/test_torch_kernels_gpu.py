@@ -1,5 +1,5 @@
-"""Tests of the port that need the card: the CUDA kernel against its plain
-version, and the engine on the card against the engine on the CPU.  They
+"""Tests of the port that need the card: each CUDA kernel against its plain
+version, and the engines on the card against the engines on the CPU.  They
 import neither JAX nor the JAX package, so they run on a GPU machine
 without JAX:
 
@@ -12,7 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import cascade_tiered as ct  # noqa: E402
+from repro_torch.kernels import cascade_tiered as ct, flash_attention as fa  # noqa: E402
+from repro_torch.kernels import linkload as ll, ops  # noqa: E402
 from repro_torch.netsim import compact, dataplane, engine, topology, workloads  # noqa: E402
 
 # tests/test_netsim_compact.py:182-185: arrival, queue, mark, thr
@@ -70,6 +71,131 @@ def test_plain_backend_refuses_cuda_tensors(cuda):
                               topo.capacity, dataplane.queue_mask_for(topo),
                               n_links=topo.n_links, backend="torch", **KW)
     assert ct.cascade_tiered.launches == before
+    before = ll.linkload_cascade.launches
+    with pytest.raises(ValueError, match="torch"):
+        dataplane.cascade(fab[..., 0, :], torch.ones((1, 8), device=cuda),
+                          torch.zeros((1, topo.n_links + 1), device=cuda),
+                          topo.capacity, dataplane.queue_mask_for(topo),
+                          n_links=topo.n_links, backend="torch", **KW)
+    assert ll.linkload_cascade.launches == before
+
+
+def _close(want, got, tols):
+    for w, g, tol in zip(want, got, tols):
+        np.testing.assert_allclose(w.cpu().numpy(), g.cpu().numpy(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,H,L", [(1, 100, 2, 5), (2, 1000, 4, 50), (3, 4097, 6, 2080)])
+def test_flat_cascade_kernel_matches_plain_on_the_card(cuda, B, n, H, L):
+    """csrc/cascade_flat.cu against its plain version, with -1 hops and a
+    ragged n (not a multiple of the block)."""
+    rng = np.random.default_rng(n)
+    lid = torch.as_tensor(rng.integers(-1, L, (B, n, H)), dtype=torch.int32, device=cuda)
+    rates = torch.as_tensor(rng.random((B, n)) * 1e9, dtype=torch.float32, device=cuda)
+    queue = torch.as_tensor(rng.random((B, L + 1)) * 2e6, dtype=torch.float32, device=cuda)
+    cap = torch.full((L + 1,), 4e9, device=cuda)
+    cap[L] = 1e30
+    qmask = torch.ones(L + 1, device=cuda)
+    qmask[:2] = 0.0
+    qmask[L] = 0.0
+    before = ll.linkload_cascade.launches
+    got = ll.linkload_cascade(lid, rates, queue, cap, qmask, **KW)
+    assert ll.linkload_cascade.launches == before + 1
+    _close(ll.linkload_cascade_torch(lid, rates, queue, cap, qmask, **KW), got, TOLS)
+    assert float(got[0][:, L].abs().max()) == 0.0 and float(got[2][:, L].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,hops,L", [(100, 2, 50), (8192, 6, 512), (513, 4, 300)])
+def test_linkload_kernel_matches_plain_on_the_card(cuda, n, hops, L):
+    """csrc/linkload.cu against its plain version; ids of -1 and past L are
+    dropped (tests/test_kernels.py tolerances)."""
+    rng = np.random.default_rng(n)
+    lid = rng.integers(-1, L + 5, (n, hops)).astype(np.int32)
+    rates = (rng.random(n) * 1e9).astype(np.float32)
+    queue = (rng.random(L) * 2e6).astype(np.float32)
+    cap = np.full(L, 4e10, np.float32)
+    before = ll.linkload.launches
+    got = ops.linkload(lid, rates, queue, cap, n_links=L, device=cuda)
+    assert ll.linkload.launches == before + 1
+    want = ops.linkload(lid, rates, queue, cap, n_links=L, device="cpu")
+    _close(want, got, [dict(rtol=1e-5), dict(rtol=1e-4, atol=1.0), dict(atol=1e-6)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,S,H,K,hd,kw", [
+    ("float32", 128, 4, 4, 32, {}),
+    ("float32", 200, 4, 2, 64, dict(window=48, softcap=30.0)),
+    ("float32", 256, 8, 1, 128, dict(causal=False)),
+    ("bfloat16", 256, 4, 2, 64, {}),
+    ("bfloat16", 192, 8, 4, 256, dict(window=100, softcap=50.0)),
+])
+def test_flash_kernel_matches_plain_on_the_card(cuda, dtype, S, H, K, hd, kw):
+    """csrc/flash_attention.cu against its plain version (true float32
+    products) in the working type: fp32 2e-5 (3e-5 with a softcap), bf16
+    2e-2, the tolerances of tests/test_kernels.py."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((2, S, h, hd), generator=g, device=cuda).to(dt)
+               for h in (H, K, K))
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    tol = 2e-2 if dtype == "bfloat16" else (3e-5 if kw.get("softcap") else 2e-5)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+def _row_rel_err(got, want):
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,limit", [("float32", 1e-4), ("bfloat16", 1e-2)])
+def test_flash_kernel_peaked_scores_on_the_card(cuda, dtype, limit):
+    """Scores of standard deviation 10 (q scaled), so the softmax is peaked
+    and the softcap matters: every output row within ``limit`` of the plain
+    version relative to its norm, a limit that the plain version with the
+    window one 64-key block short, or without the softcap, breaks."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    S, H, K, hd = 512, 4, 2, 128
+    q, k, v = (torch.randn((1, S, h, hd), generator=g, device=cuda) for h in (H, K, K))
+    q, k, v = (q * 10.0).to(dt), k.to(dt), v.to(dt)
+    kw = dict(causal=True, window=256, softcap=50.0)
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    assert _row_rel_err(ops.flash_attention(q, k, v, **kw), want) <= limit
+    for fault in (dict(kw, window=192), dict(kw, softcap=0.0)):
+        assert _row_rel_err(fa.flash_attention_torch(q, k, v, **fault), want) > limit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["leaf_spine", "three_tier"])
+def test_tiered_kernel_matches_flat_kernel_on_the_card(cuda, kind):
+    """The two cascade kernels on the same routes in both layouts."""
+    topo = (topology.leaf_spine(2, 4, 4, 100e9, device=cuda) if kind == "leaf_spine"
+            else topology.three_tier(device=cuda))
+    rng = np.random.default_rng(7)
+    n, N = 3000, 4
+    src = torch.as_tensor(rng.integers(0, topo.n_hosts, n), device=cuda)
+    dst = torch.as_tensor(rng.integers(0, topo.n_hosts, n), device=cuda)
+    path = torch.as_tensor(rng.integers(0, topo.n_paths, (n, N)), device=cuda)
+    hpl = topo.hosts_per_leaf
+    links = topo.subflow_links(src[:, None], dst[:, None], path)
+    tx, rx = topo.nic_links(src, dst)
+    fab = topo.fabric_links((src // hpl)[:, None], (dst // hpl)[:, None], path)
+    rates = torch.as_tensor(rng.random((1, n, N)) * 50e9, dtype=torch.float32, device=cuda)
+    queue = torch.as_tensor(rng.random((1, topo.n_links + 1)) * 2e6, dtype=torch.float32,
+                            device=cuda)
+    args = (queue, topo.capacity, dataplane.queue_mask_for(topo))
+    kw = dict(n_links=topo.n_links, backend="cuda", **KW)
+    flat = dataplane.cascade(links[None], rates, *args, **kw)
+    tiered = dataplane.cascade_nic(fab[None], tx[None], rx[None], rates, *args, **kw)
+    _close(flat, tiered, TOLS)
 
 
 def _trace(topo):
@@ -116,3 +242,24 @@ def test_default_window_spills_on_the_card_as_on_the_cpu(cuda):
     assert gpu.window_slots == cpu.window_slots
     assert gpu.spill_steps == cpu.spill_steps > 0
     np.testing.assert_array_equal(np.isfinite(gpu.finish), np.isfinite(cpu.finish))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["seqbalance", "ecmp", "drill"])
+def test_dense_engine_on_the_card_matches_the_cpu(cuda, scheme):
+    """engine.simulate on the card (the tiered CUDA kernel every step but
+    for DRILL) against the CPU: the same finished flows, and at least 99 %
+    of finish times on the same dt step."""
+    topo = topology.leaf_spine(2, 4, 4, 100e9, device="cpu")
+    trace = _trace(topo)
+    cfg = engine.SimConfig(scheme=scheme, duration_s=6e-3)
+    before = ct.cascade_tiered.launches
+    gpu, outs = engine.simulate(topo, cfg, trace, device=cuda)
+    assert ct.cascade_tiered.launches - before == (0 if scheme == "drill" else 600)
+    cpu, _ = engine.simulate(topo, cfg, trace, device="cpu")
+    assert outs.goodput_total.shape == (600,) and outs.goodput_total.is_cuda
+    gf, cf = gpu.finish.cpu().numpy(), cpu.finish.numpy()
+    np.testing.assert_array_equal(np.isfinite(gf), np.isfinite(cf))
+    done = np.isfinite(cf)
+    assert done.sum() > 500
+    assert (np.abs(gf[done] - cf[done]) <= 1e-6).mean() >= 0.99
