@@ -2,19 +2,21 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cluster-sweep
 
 Phases, each printed as JSON lines:
 
   1. device   the card's name and power limit (nvidia-smi) and the time to
-              build the CUDA kernel library from src/repro_torch/csrc/;
+              build the CUDA kernel libraries from src/repro_torch/csrc/;
   2. kernel   each CUDA kernel against its plain PyTorch version on the
               card, with the kernel's, the plain version's and (where one
               PyTorch call computes the same function) the library call's
               times and the bound:
               - cascade_tiered at the fig12 shapes (sim_2tier, W=5376,
                 N=4, Hf=2, B=2), the default three_tier shapes (2,081
-                links, Hf=4) and a ragged case (W not a multiple of 32,
-                -1 hops);
+                links, Hf=4), a ragged case (W not a multiple of 32,
+                -1 hops) and the dense engine's shape, each row with the
+                cluster size C it ran with;
               - cascade_flat (the flat cascade) on the same routes in the
                 flat layout (n = W * N sub-flows of H = Hf + 2 hops), and
                 the tiered kernel held against it;
@@ -22,7 +24,10 @@ Phases, each printed as JSON lines:
                 the fig12 flat shape;
               - flash_attention at the full width of qwen3-32b and
                 gemma2-2b in bfloat16 with q scaled so that the scores
-                reach the softcap's range, and a float32 case: elementwise
+                reach the softcap's range (the "wgmma" route,
+                csrc/flash_attention_sm90.cu), and a float32 case (the
+                "simt" route, csrc/flash_attention.cu), each row with the
+                route it ran on, checked against the case's: elementwise
                 within tests/test_kernels.py's tolerances and every output
                 row within FLASH_ROW_REL of the plain version, a limit that
                 the plain version with the window one block short or
@@ -43,13 +48,22 @@ Phases, each printed as JSON lines:
               against the sweep's and the JAX package's under the gates
               of phase 4, its wall time, us per step and the speedup of
               the sweep over it;
-  6. profile  32 steps of the SeqBalance alistorage batch under
-              torch.profiler: host ms per step and per phase, the device's
-              idle share, the kernels with the most device time.
+  6. profile  32 steps of the SeqBalance alistorage batch of the compact
+              sweep, and 32 steps of the dense engine on the alistorage
+              0.8 trace, under torch.profiler: host ms per step (and per
+              phase, compact), the device's busy and idle share, the
+              kernels with the most device time.
 
 Then a "kernels" line and, last, {"ok": true, "device": {...}}.  Any
 failure exits non-zero before that line; so does a machine without CUDA
 or a directory without the repository.
+
+With --cluster-sweep it runs only the measurement behind
+kernels/cascade_tiered.py::cluster_size instead: the tiered kernel at each
+of its phase 2 shapes launched on clusters of 1, 2, 4, 8 and 16 CTAs
+through the library's C entry (past the wrapper, so these launches are not
+counted), each held against the plain version, with the card's cluster
+occupancy for each size.
 """
 from __future__ import annotations
 
@@ -133,13 +147,28 @@ def kernel_wrappers():
             "linkload": ll.linkload, "flash_attention": fa.flash_attention}
 
 
+def tallies() -> dict:
+    """name -> the launch counts a wrapper keeps by route or cluster size."""
+    from repro_torch.kernels import cascade_tiered as ct, flash_attention as fa
+
+    return {"cascade_tiered": ct.cascade_tiered.cluster_launches,
+            "flash_attention": fa.flash_attention.route_launches}
+
+
 def reset_counts() -> None:
     for w in kernel_wrappers().values():
         w.launches = 0
+    for t in tallies().values():
+        for key in t:
+            t[key] = 0
 
 
 def read_counts() -> dict:
     return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def read_tallies() -> dict:
+    return {k: {key: n for key, n in t.items() if n} for k, t in tallies().items()}
 
 
 def close_enough(name: str, outs, got, want, tols) -> dict:
@@ -269,7 +298,7 @@ def flash_bound(case):
     ops = 4 * hd * flash_pairs(S, case.kw["causal"], case.kw.get("window", 0)) * B * H
     bf16 = q.dtype == torch.bfloat16
     ms, by = bound(nbytes(q, k, v, q), ops, BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
-    return ms, by, "bf16 tensor-core peak" if bf16 else "float32 non-tensor peak"
+    return ms, by, "bf16 tensor-core peak" if bf16 else "float32 non-tensor peak", ops
 
 
 class Case(NamedTuple):
@@ -281,6 +310,8 @@ class Case(NamedTuple):
     info: dict  # shapes, into the printed row
     main: bool = False  # the entry point is driven here; the "kernels" line reports it
     aux: object = None  # whatever a further check needs
+    library: str = ""  # the csrc library that serves the case, where a kernel has several
+    ran_as: object = None  # the key the wrapper's tally must show for the case
 
 
 class Spec(NamedTuple):
@@ -293,7 +324,7 @@ class Spec(NamedTuple):
     outputs: tuple  # the names of its outputs
     tols: Callable  # case -> one {"rtol", "atol"} per output
     cases: Callable  # () -> [Case], built on the card when the phase reaches it
-    bound: Callable  # case -> (ms, "bytes" | "operations"[, the peak used])
+    bound: Callable  # case -> (ms, "bytes" | "operations"[, the peak used, operations])
     # (name, case -> None): the entry point, driven once at the main case
     # with the counts at 0; None where the sweep is the entry point
     entry: tuple | None = None
@@ -302,6 +333,9 @@ class Spec(NamedTuple):
     library: tuple | None = None
     more: Callable | None = None  # (case, got, want) -> more row fields; fails itself
     reps: tuple = ({}, {})  # time_ms's keywords: the kernel's, the plain version's
+    # the row field for the key of the wrapper's tally (tallies()) that a
+    # launch moved: "route" or "C"; None where the wrapper keeps no tally
+    ran_as: str | None = None
 
 
 def cascade_shapes():
@@ -379,14 +413,15 @@ def linkload_cases():
     return cases
 
 
-# full widths of two of the repo's configurations (src/repro/configs/), and
-# the factor q is scaled by (see flash_cases)
+# full widths of two of the repo's configurations (src/repro/configs/), the
+# factor q is scaled by (see flash_cases) and the route that must serve each
 FLASH_CASES = [
-    ("qwen3-32b", 1, 4096, 64, 8, 128, "bfloat16", dict(causal=True), 10.0),
+    ("qwen3-32b", 1, 4096, 64, 8, 128, "bfloat16", dict(causal=True), 10.0, "wgmma"),
     ("gemma2-2b", 1, 8192, 8, 4, 256, "bfloat16",
-     dict(causal=True, window=4096, softcap=50.0), 10.0),
-    ("float32", 1, 2048, 16, 4, 128, "float32", dict(causal=True), 1.0),
+     dict(causal=True, window=4096, softcap=50.0), 10.0, "wgmma"),
+    ("float32", 1, 2048, 16, 4, 128, "float32", dict(causal=True), 1.0, "simt"),
 ]
+FLASH_LIBRARY = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
 
 
 def flash_cases():
@@ -402,14 +437,16 @@ def flash_cases():
 
     dev = torch.device(DEVICE)
     cases = []
-    for name, B, S, H, K, hd, dtype, kw, q_scale in FLASH_CASES:
+    for name, B, S, H, K, hd, dtype, kw, q_scale, route in FLASH_CASES:
         dt = getattr(torch, dtype)
         g = torch.Generator(device=dev).manual_seed(S + H)
         q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev) for h in (H, K, K))
         cases.append(Case(name, ((q * q_scale).to(dt), k.to(dt), v.to(dt)),
                           dict(kw, window=kw.get("window", 0), softcap=kw.get("softcap", 0.0)),
                           {"dtype": dtype, "B": B, "S": S, "H": H, "K": K, "hd": hd,
-                           "q_scale": q_scale}, main=name == "qwen3-32b"))
+                           "q_scale": q_scale},
+                          main=name in ("qwen3-32b", "float32"),
+                          library=FLASH_LIBRARY[route], ran_as=route))
     return cases
 
 
@@ -478,7 +515,7 @@ def kernel_specs():
     return [
         Spec("cascade_tiered", ("linkload_cascade_tiered", f"{LL}:288"),
              ct.cascade_tiered, ct.cascade_tiered_torch, OUTPUTS,
-             cascade_tols, tiered_cases, tiered_bound),
+             cascade_tols, tiered_cases, tiered_bound, ran_as="C"),
         Spec("cascade_flat", ("linkload_cascade", f"{LL}:372"),
              ll.linkload_cascade, ll.linkload_cascade_torch, OUTPUTS,
              cascade_tols, flat_cases, flat_bound,
@@ -497,7 +534,8 @@ def kernel_specs():
              entry=("ops.flash_attention", lambda c: ops.flash_attention(*c.args, **c.kw)),
              library=("F.scaled_dot_product_attention(is_causal, enable_gqa)", sdpa_call),
              more=flash_rows,
-             reps=(dict(reps=5, rounds=5, warmup=2), dict(reps=2, rounds=3, warmup=1))),
+             reps=(dict(reps=5, rounds=5, warmup=2), dict(reps=2, rounds=3, warmup=1)),
+             ran_as="route"),
     ]
 
 
@@ -519,8 +557,21 @@ def kernel_row(spec: Spec, case: Case) -> dict:
         counts = read_counts()
         check(counts[spec.name] == 1 and sum(counts.values()) == 1,
               f"{where} launched {counts}")
-        path = {"path": where, "path_launches": counts[spec.name]}
-    got, want = run(spec.kernel), run(spec.plain)
+        path = {"path": where, "path_launches": counts[spec.name],
+                "path_tally": read_tallies().get(spec.name)}
+        check(case.ran_as is None or path["path_tally"] == {case.ran_as: 1},
+              f"{where} at {case.name} ran as {path['path_tally']}, not {case.ran_as}")
+    tally = tallies().get(spec.name)
+    before = dict(tally or {})
+    got = run(spec.kernel)
+    ran = {}
+    if spec.ran_as:
+        moved = [k for k, n in tally.items() if n != before.get(k, 0)]
+        check(len(moved) == 1, f"{spec.name} {case.name}: the launch moved {moved}")
+        check(case.ran_as is None or moved[0] == case.ran_as,
+              f"{spec.name} {case.name} ran as {moved[0]}, not {case.ran_as}")
+        ran = {spec.ran_as: moved[0]}
+    want = run(spec.plain)
     tols = spec.tols(case)
     errs = close_enough(f"{spec.name} {case.name}", spec.outputs, got, want, tols)
     more = spec.more(case, got, want) if spec.more else {}
@@ -534,11 +585,13 @@ def kernel_row(spec: Spec, case: Case) -> dict:
     ms = time_ms(lambda: spec.kernel(*case.args, **case.kw), **spec.reps[0])
     plain = time_ms(lambda: spec.plain(*case.args, **case.kw), **spec.reps[1])
     bound_ms, by, *peak = spec.bound(case)
-    row = {"phase": "kernel", "kernel": spec.name, "case": case.name, **case.info,
+    row = {"phase": "kernel", "kernel": spec.name, "case": case.name, **case.info, **ran,
+           **({"library_source": f"csrc/{case.library}.cu"} if case.library else {}),
            **{k: v for k, v in case.kw.items() if k not in KW and k != "qmax_bytes"},
            "max_abs_err": errs, "tolerances": dict(zip(spec.outputs, tols)), **more,
            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
-           **({"bound_peak": peak[0]} if peak else {}), **library}
+           **({"bound_peak": peak[0], "tflop_per_s": peak[1] / ms / 1e9} if peak else {}),
+           **library}
     emit(row)
     torch.cuda.empty_cache()
     return dict(row, **path)
@@ -550,9 +603,9 @@ def phase_kernel() -> dict:
     for spec in kernel_specs():
         for case in spec.cases():
             row = kernel_row(spec, case)
-            if case.main:
-                rows[spec.name] = dict(row, jax_name=spec.replaces[0],
-                                       replaces=spec.replaces[1])
+            if case.main:  # one per csrc library
+                rows[case.library or spec.name] = dict(row, jax_name=spec.replaces[0],
+                                                       replaces=spec.replaces[1])
     return rows
 
 
@@ -600,13 +653,13 @@ def phase_sweep():
         if scheme != "drill":
             expected += sum(buckets.values())
         emit({"phase": "sweep", "scheme": scheme, "wall_s": walls[scheme]})
-    counts = read_counts()
+    counts, by = read_counts(), read_tallies()
     launches = counts["cascade_tiered"]
     emit({"phase": "sweep", "wall_s": sum(walls.values()), "kernel_launches": counts,
-          "steps_needing_the_kernel": expected})
+          "launches_by_route_or_cluster": by, "steps_needing_the_kernel": expected})
     check(launches >= expected > 0,
           f"cascade_tiered launched {launches} times for {expected} steps")
-    return stats, counts, walls
+    return stats, (counts, by), walls
 
 
 def stat_diffs(s, r) -> dict:
@@ -676,41 +729,29 @@ def phase_dense(compact_stats, compact_walls):
                   "flows": len(trace.sizes), "wall_s": wall, "us_per_step": wall / n * 1e6,
                   "avg_slowdown": s["avg_slowdown"], "p99_slowdown": s["p99_slowdown"],
                   "completion_rate": s["completion_rate"]})
-    counts = read_counts()
+    counts, by = read_counts(), read_tallies()
     expected = 1000 * len(FIG12_CASES) * (len(FIG12_SCHEMES) - 1)  # all but DRILL
     total = sum(walls.values())
     emit({"phase": "dense", "wall_s": total, "wall_s_by_scheme": walls,
           "steps": steps, "us_per_step": total / steps * 1e6, "kernel_launches": counts,
-          "steps_needing_the_kernel": expected,
+          "launches_by_route_or_cluster": by, "steps_needing_the_kernel": expected,
           "speedup_compact_over_dense": total / sum(compact_walls.values()),
           "speedup_by_scheme": {k: walls[k] / compact_walls[k] for k in walls}})
     check(counts["cascade_tiered"] == expected,
           f"dense: cascade_tiered launched {counts['cascade_tiered']} times for {expected}")
     compare_stats("dense", stats, compact_stats, "compact_sweep")
     compare_stats("dense", stats, reference_stats()[1], "jax_reference")
-    return counts
+    return counts, by
 
 
-def phase_profile(warm_steps: int = 100, steps: int = 32):
-    """Where a step's time goes: the SeqBalance alistorage batch (B = 2,
-    the sweep's largest kernel shapes) stepped ``warm_steps`` into its
-    congested part, then ``steps`` steps under torch.profiler.  Reports
-    the host wall per step, the device's busy and idle shares, the host
-    time of each phase (record_function ranges in compact.step_fn) and the
-    kernels that took the most device time."""
+def profile_steps(step, st, warm_steps: int, steps: int):
+    """``warm_steps`` steps, then ``steps`` under torch.profiler: the host
+    wall per step, the device's busy and idle share, the kernels that took
+    the most device time, and the profiler's events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.netsim import compact, engine, sweep
-
-    topo, traces = fig12_traces()
-    cfg = engine.SimConfig(scheme="seqbalance", duration_s=10e-3, uplink_sample_every=10)
-    prepped = [compact.sort_trace(t) for t in traces[:2]]  # the alistorage cases
-    F_pad, W, A, padded = sweep.plan_group(topo, cfg, prepped)  # as the sweep plans it
-    init, step = compact.build_compact_sim(
-        topo, cfg, sweep.stack_group(padded, [0, 1], topo.device), W, F_pad, A)
-    st = init()
     for _ in range(warm_steps):
         st, _ = step(st)
     torch.cuda.synchronize()
@@ -720,27 +761,93 @@ def phase_profile(warm_steps: int = 100, steps: int = 32):
             st, _ = step(st)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device work: the kernel and copy events themselves; the phase ranges
-    # also appear on the device as annotations spanning their kernels,
-    # which are not device work
+    # device work: the kernel and copy events themselves; record_function
+    # ranges also appear on the device as annotations spanning their
+    # kernels, which are not device work
     events = prof.events()
-    names = ("admit", "cascade", "dcqcn", "finish")
     by_kernel: dict = {}
     for e in events:
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_kernel.values())
+    check(busy_us > 0, "the profiler saw no device work")
+    top = sorted(((k, v / steps / 1e3) for k, v in by_kernel.items()),
+                 key=lambda kv: -kv[1])[:6]
+    return {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "top_device_ms_per_step": dict(top)}, events
+
+
+def phase_profile(warm_steps: int = 100, steps: int = 32):
+    """Where a step's time goes, ``steps`` steps after ``warm_steps`` into
+    the congested part of the run: the compact sweep's SeqBalance
+    alistorage batch (B = 2, the sweep's largest kernel shapes), with the
+    host time of each phase (record_function ranges in compact.step_fn),
+    and the dense engine on the alistorage 0.8 trace (B = 1, a window of
+    every flow), whose step has no admission."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels import cascade_tiered as ct
+    from repro_torch.netsim import compact, engine, sweep
+
+    topo, traces = fig12_traces()
+    cfg = engine.SimConfig(scheme="seqbalance", duration_s=10e-3, uplink_sample_every=10)
+    prepped = [compact.sort_trace(t) for t in traces[:2]]  # the alistorage cases
+    F_pad, W, A, padded = sweep.plan_group(topo, cfg, prepped)  # as the sweep plans it
+    init, step = compact.build_compact_sim(
+        topo, cfg, sweep.stack_group(padded, [0, 1], topo.device), W, F_pad, A)
+    row, events = profile_steps(step, init(), warm_steps, steps)
+    names = ("admit", "cascade", "dcqcn", "finish")
     phases = {n: sum(e.cpu_time_total for e in events
                      if e.device_type == DeviceType.CPU and e.name == n) / steps / 1e3
               for n in names}
-    top = sorted(((k, v / steps / 1e3) for k, v in by_kernel.items()),
-                 key=lambda kv: -kv[1])[:6]
-    emit({"phase": "profile", "scheme": cfg.scheme, "B": 2, "W": W, "A": A,
-          "steps": steps, "wall_ms_per_step": wall / steps * 1e3,
-          "device_busy_ms_per_step": busy_us / steps / 1e3,
-          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-          "host_ms_per_step_by_phase": phases,
-          "top_device_ms_per_step": dict(top)})
+    emit({"phase": "profile", "engine": "compact", "scheme": cfg.scheme, "B": 2, "W": W,
+          "A": A, "C": ct.cluster_size(W, 4, topo.n_links + 1), **row,
+          "host_ms_per_step_by_phase": phases})
+    trace = traces[1]  # alistorage 0.8, the largest
+    init, step = engine.build_sim(topo, cfg, trace)
+    row, _ = profile_steps(step, init(), warm_steps, steps)
+    W = len(trace.sizes)
+    emit({"phase": "profile", "engine": "dense", "scheme": cfg.scheme, "case": "alistorage_0.8",
+          "B": 1, "W": W, "C": ct.cluster_size(W, 4, topo.n_links + 1), **row})
+
+
+def cluster_sweep() -> None:
+    """The tiered kernel's time at each phase 2 shape on clusters of 1 to
+    16 CTAs (the measurement cluster_size is fitted to)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build, cascade_tiered as ct
+
+    fn = build.entry("cascade_tiered", "cascade_tiered_launch", ct._ARGTYPES)
+    occupancy = build.entry("cascade_tiered", "cascade_tiered_max_clusters",
+                            (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    sizes = (1, 2, 4, 8, 16)
+    for case in tiered_cases():
+        fab, tx, rx, rates, queue, cap, qmask = case.args
+        B, W, N = rates.shape
+        L1 = queue.shape[-1]
+        want = ct.cascade_tiered_torch(*case.args, **case.kw)
+        row = {}
+        for C in sizes:
+            count = ctypes.c_int(0)
+            build.raise_on(occupancy(C, L1, ctypes.byref(count)), "cascade_tiered occupancy")
+            outs = [torch.empty_like(want[0]) for _ in range(3)] + [torch.empty_like(rates)]
+
+            def launch():
+                build.raise_on(fn(*(t.data_ptr() for t in (*case.args, *outs)), B, W, N,
+                                  fab.shape[-1], L1, C, *(case.kw[k] for k in (
+                                      "kmin", "kmax", "pmax", "dt", "qmax_bytes")),
+                                  torch.cuda.current_stream().cuda_stream), "cascade_tiered")
+            launch()
+            torch.cuda.synchronize()
+            close_enough(f"cascade_tiered {case.name} C={C}", OUTPUTS, outs, want, TOLS)
+            row[C] = {"ms": time_ms(launch), "max_active_clusters": count.value}
+        emit({"phase": "cluster_sweep", "case": case.name, **case.info,
+              "cluster_size": ct.cluster_size(W, N, L1), "by_cluster": row})
 
 
 def main() -> int:
@@ -754,6 +861,14 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:] == ["--cluster-sweep"]:
+        try:
+            phase_device()
+            cluster_sweep()
+        except SmokeFailure as e:
+            print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
     try:
         phase_device()
         rows = phase_kernel()
@@ -765,20 +880,25 @@ def main() -> int:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
-    for src_name, row in rows.items():
-        by_path = {"fig12_sweep": sweep_counts[src_name],
-                   "dense_engine": dense_counts[src_name]}
-        if src_name == "cascade_tiered":
-            launches = sweep_counts[src_name]  # the main path: the fig12 sweep
+    (sweep_counts, sweep_by), (dense_counts, dense_by) = sweep_counts, dense_counts
+    for lib, row in rows.items():
+        name = row["kernel"]  # the wrapper's, which may serve several libraries
+        by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
+        extra = {}
+        if name == "cascade_tiered":
+            launches = sweep_counts[name]  # the main path: the fig12 sweep
+            extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]
             launches = row["path_launches"]
+            if name == "flash_attention":
+                extra = {"flash_route": row["route"]}
         err = row["max_abs_err"]
         kernels.append({
             "name": row["jax_name"], "route": "cuda",
-            "source": f"src/repro_torch/csrc/{src_name}.cu",
+            "source": f"src/repro_torch/csrc/{lib}.cu",
             "replaces": row["replaces"], "launches": launches, "launches_by_path": by_path,
-            "case": row["case"], "max_abs_err": max(err.values()), "ms": row["ms"],
+            "case": row["case"], **extra, "max_abs_err": max(err.values()), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     emit({"kernels": kernels})

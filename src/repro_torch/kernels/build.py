@@ -25,7 +25,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # every library of the port, in the order chip_smoke.py reports them
-KERNELS = ("cascade_tiered", "cascade_flat", "linkload", "flash_attention")
+KERNELS = ("cascade_tiered", "cascade_flat", "linkload", "flash_attention",
+           "flash_attention_sm90")
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
@@ -134,8 +135,12 @@ def raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, tally: dict | None = None, key=None) -> None:
     """Add one to ``wrapper.launches``, the launch count a kernel's wrapper
-    carries (called where the wrapper launches its kernel, and nowhere else)."""
+    carries, and to ``tally[key]`` where the wrapper also counts by route
+    or shape (called where the wrapper launches its kernel, and nowhere
+    else)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if tally is not None:
+            tally[key] = tally.get(key, 0) + 1

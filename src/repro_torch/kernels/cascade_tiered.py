@@ -5,6 +5,9 @@ DRILL runs once per ``dt`` step.
 ``csrc/cascade_tiered.cu`` (it replaces the JAX package's Pallas kernel
 ``kernels/linkload.py::linkload_cascade_tiered``) on CUDA tensors, and
 runs ``cascade_tiered_torch``, its plain PyTorch version, on CPU tensors.
+The kernel spreads each simulation over a thread-block cluster of
+``cluster_size(W, N, L + 1)`` CTAs; ``cascade_tiered.cluster_launches`` counts
+the launches by that size.
 
 Layout (the sentinel layout of ``netsim.dataplane.cascade_nic``): B
 simulations, W flows of N sub-flows, Hf fabric hops, L real links plus a
@@ -20,14 +23,41 @@ with ``arrival[:, L] == 0`` and ``p_mark[:, L] == 0``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from repro_torch.kernels import build
 
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+MAX_CLUSTER = 16  # a non-portable cluster size, which the H100 admits (PERF.md)
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_p,) * 11 + (_i,) * 5 + (_f,) * 5 + (_p,)
+_ARGTYPES = (_p,) * 11 + (_i,) * 6 + (_f,) * 5 + (_p,)
+
+
+def cluster_size(W: int, N: int, n_links: int) -> int:
+    """CTAs per simulation for W flows of N sub-flows on ``n_links`` link
+    slots: the power of two nearest 2 sqrt(W N / n_links), in [1,
+    MAX_CLUSTER].  A pass costs each CTA about W N / C scattered sub-flows
+    plus C n_links partial loads summed over the cluster, which this
+    balances (the factor 2 fits the H100's times in PERF.md).  fig12's
+    batch (5,376 x 4 on 449 slots) and the dense shape get 16, the
+    default three_tier (2,048 x 4 on 2,081) gets 4."""
+    c = 2.0 * math.sqrt(W * N / n_links)
+    return 1 if c <= 1.0 else min(MAX_CLUSTER, 2 ** round(math.log2(c)))
+
+
+@functools.lru_cache(maxsize=None)
+def _check_cluster(device_index: int, C: int, L1: int) -> None:
+    """Raise unless the card can schedule a cluster of C CTAs of L1 links."""
+    fn = build.entry("cascade_tiered", "cascade_tiered_max_clusters", (_i, _i, _p))
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.raise_on(fn(C, L1, ctypes.byref(count)), "cascade_tiered occupancy")
+    if count.value < 1:
+        raise RuntimeError(f"cascade_tiered: the card cannot schedule a cluster of {C} CTAs "
+                           f"with {L1} links")
 
 
 def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -114,9 +144,11 @@ def cascade_tiered(fab, tx, rx, rates, queue, capacity, queue_mask, *,
             ("capacity", capacity, torch.float32, (L1,)),
             ("queue_mask", queue_mask, torch.float32, (L1,))):
         build.check(name, t, dtype, shape, dev)
-    if 2 * L1 * 4 > MAX_SMEM:
-        raise ValueError(f"{L1} links need {2 * L1 * 4} B of shared memory; "
+    if 3 * L1 * 4 > MAX_SMEM:
+        raise ValueError(f"{L1} links need {3 * L1 * 4} B of shared memory; "
                          f"a block has {MAX_SMEM}")
+    C = cluster_size(W, N, L1)
+    _check_cluster(dev.index if dev.index is not None else torch.cuda.current_device(), C, L1)
     arrival = torch.empty((B, L1), dtype=torch.float32, device=dev)
     new_queue = torch.empty_like(arrival)
     p_mark = torch.empty_like(arrival)
@@ -127,11 +159,12 @@ def cascade_tiered(fab, tx, rx, rates, queue, capacity, queue_mask, *,
         err = fn(fab.data_ptr(), tx.data_ptr(), rx.data_ptr(), rates.data_ptr(),
                  queue.data_ptr(), capacity.data_ptr(), queue_mask.data_ptr(),
                  arrival.data_ptr(), new_queue.data_ptr(), p_mark.data_ptr(),
-                 thr.data_ptr(), B, W, N, hf, L1, kmin, kmax, pmax, dt,
+                 thr.data_ptr(), B, W, N, hf, L1, C, kmin, kmax, pmax, dt,
                  qmax_bytes, stream)
-    build.raise_on(err, "cascade_tiered")
-    build.count_launch(cascade_tiered)
+    build.raise_on(err, f"cascade_tiered (cluster of {C})")
+    build.count_launch(cascade_tiered, cascade_tiered.cluster_launches, C)
     return arrival, new_queue, p_mark, thr
 
 
 cascade_tiered.launches = 0
+cascade_tiered.cluster_launches = {}

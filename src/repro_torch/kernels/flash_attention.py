@@ -1,15 +1,23 @@
 """Causal grouped-query flash attention with an optional sliding window and
-tanh softcap, as a hand-written CUDA kernel with its plain PyTorch version.
+tanh softcap, as two hand-written CUDA kernels with their plain PyTorch
+version.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` (it replaces the
-JAX package's Pallas kernel ``kernels/flash_attention.py::
-flash_attention``) on CUDA tensors and runs ``flash_attention_torch`` on
-CPU tensors.  Layout, the JAX package's: q [B, S, H, hd], k and v
-[B, S, K, hd] with H a multiple of K (query head h reads KV head
-h // (H / K)); float32 or bfloat16; the output has q's dtype.  The
-softmax runs in float32.  The kernel tiles 64 queries by 64 keys and masks
-a ragged edge itself, so S need not be a multiple of a block; it takes
-hd in {16, 32, 64, 128, 256}.
+``flash_attention`` replaces the JAX package's Pallas kernel
+``kernels/flash_attention.py::flash_attention``.  On CUDA tensors it
+launches one of two kernels, chosen by ``flash_route`` from the dtype and
+the head dim alone:
+
+  "wgmma"  ``csrc/flash_attention_sm90.cu``: bfloat16 at hd 64, 128 or 256
+           (the repo's model widths), on the tensor cores, fed by TMA;
+  "simt"   ``csrc/flash_attention.cu``: float32 at any hd, and bfloat16 at
+           hd 16 or 32, on the fp32 CUDA cores.
+
+On CPU tensors it runs ``flash_attention_torch``.  Layout, the JAX
+package's: q [B, S, H, hd], k and v [B, S, K, hd] with H a multiple of K
+(query head h reads KV head h // (H / K)); the output has q's dtype.  The
+softmax runs in float32.  Both kernels mask a ragged edge themselves, so
+S need not be a multiple of a block.  ``flash_attention.launches`` counts
+every launch and ``flash_attention.route_launches`` each route's.
 """
 from __future__ import annotations
 
@@ -22,10 +30,27 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30  # the finite mask value of the JAX kernel (see the CUDA source)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_p,) * 4 + (_i,) * 8 + (_f,) * 2 + (_p,)
+# route -> (library, C entry, its argument types)
+_ENTRIES = {
+    "simt": ("flash_attention", "flash_attention_launch",
+             (_p,) * 4 + (_i,) * 8 + (_f,) * 2 + (_p,)),
+    "wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch",
+              (_p,) * 4 + (_i,) * 7 + (_f,) * 2 + (_p,)),
+}
+
+
+def flash_route(dtype, hd: int) -> str:
+    """The kernel that serves (dtype, head dim): "wgmma" for bfloat16 at the
+    model widths, "simt" for the rest; raises for what neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, not {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
 
 
 @contextlib.contextmanager
@@ -67,8 +92,8 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
-    """Flash attention: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  ``flash_attention.launches`` counts the launches."""
+    """Flash attention: the CUDA kernel of ``flash_route`` for CUDA tensors,
+    the plain version for CPU tensors."""
     dev = q.device
     kw = dict(causal=causal, window=window, softcap=softcap)
     if dev.type == "cpu":
@@ -77,10 +102,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {dev}")
     B, S, H, hd = q.shape
     K = k.shape[2]
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, not {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    route = flash_route(q.dtype, hd)
     if K < 1 or H % K:
         raise ValueError(f"{H} query heads do not split into {K} KV heads")
     if window < 0 or softcap < 0:
@@ -89,15 +111,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     build.check("k", k, q.dtype, (B, S, K, hd), dev)
     build.check("v", v, q.dtype, (B, S, K, hd), dev)
     out = torch.empty_like(q)
-    fn = build.entry("flash_attention", "flash_attention_launch", _ARGTYPES)
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("the wgmma route's TMA needs 16-byte aligned q, k and v")
+    lib, name, argtypes = _ENTRIES[route]
+    fn = build.entry(lib, name, argtypes)
+    shape = (B, S, H, K, hd, int(causal), int(window), float(softcap), hd ** -0.5)
+    dtype = () if route == "wgmma" else (_DTYPES[q.dtype],)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-                 B, S, H, K, hd, int(causal), int(window), float(softcap), hd ** -0.5,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dtype, *shape,
                  stream)
-    build.raise_on(err, "flash_attention")
-    build.count_launch(flash_attention)
+    build.raise_on(err, f"flash_attention ({route})")
+    build.count_launch(flash_attention, flash_attention.route_launches, route)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "simt": 0}

@@ -86,3 +86,18 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              cwd=cwd, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_every_kernel_source_is_built_and_reached():
+    """Each csrc/*.cu is a library of build.KERNELS, and a wrapper of
+    kernels/ reaches each library's C entry through build.entry."""
+    from repro_torch.kernels import build
+
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(build.KERNELS)
+    wrappers = "".join(p.read_text() for p in (ROOT / "src" / "repro_torch" / "kernels")
+                       .glob("*.py"))
+    for name in build.KERNELS:
+        entry = f"{name}_launch"
+        assert f'extern "C" int {entry}(' in (csrc / f"{name}.cu").read_text()
+        assert f'"{entry}"' in wrappers, f"no wrapper reaches {entry}"

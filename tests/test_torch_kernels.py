@@ -199,3 +199,61 @@ def test_flash_entry_point_on_the_cpu():
         want = jref.flash_attention_ref(*(jnp.asarray(a) for a in arrays), **kw)
         got = ops.flash_attention(*arrays, device="cpu", **kw)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=3e-5)
+
+
+# ------------------------------------------------- routes and cluster sizes
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_route_by_dtype_and_head_dim(dtype, hd):
+    """bf16 at the model widths goes to the wgmma kernel, the rest to the
+    simt one; the route depends on nothing else."""
+    route = tfa.flash_route(getattr(torch, dtype), hd)
+    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128, 256) else "simt"
+    assert route == want
+    assert tfa._ENTRIES[route][0] in ("flash_attention_sm90", "flash_attention")
+
+
+@pytest.mark.parametrize("dtype,hd,err", [
+    (torch.float16, 128, TypeError), (torch.float64, 64, TypeError),
+    (torch.bfloat16, 48, ValueError), (torch.float32, 512, ValueError),
+    (torch.bfloat16, 8, ValueError)])
+def test_flash_route_refuses_what_neither_kernel_takes(dtype, hd, err):
+    with pytest.raises(err):
+        tfa.flash_route(dtype, hd)
+
+
+def test_flash_on_the_cpu_counts_no_launch():
+    """CPU tensors take the plain version: no route's count moves."""
+    before = dict(tfa.flash_attention.route_launches), tfa.flash_attention.launches
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
+    tfa.flash_attention(q, q, q)
+    assert (tfa.flash_attention.route_launches, tfa.flash_attention.launches) == before
+
+
+@pytest.mark.parametrize("n_links", [51, 449, 2081])
+def test_cluster_size_monotone_and_bounded(n_links):
+    """cluster_size grows with W * N on a fixed link count and stays in
+    [1, MAX_CLUSTER]; the fig12 shapes get the sizes PERF.md measured."""
+    from repro_torch.kernels import cascade_tiered as tct
+
+    sizes = [tct.cluster_size(W, N, n_links) for W in (1, 3, 10, 100, 1000, 5376, 56116)
+             for N in (1, 4)]
+    products = [W * N for W in (1, 3, 10, 100, 1000, 5376, 56116) for N in (1, 4)]
+    order = np.argsort(products, kind="stable")
+    ranked = [sizes[i] for i in order]
+    assert ranked == sorted(ranked)
+    assert all(1 <= c <= tct.MAX_CLUSTER for c in sizes)
+    assert all(c & (c - 1) == 0 for c in sizes)  # powers of two
+    if n_links == 449:
+        assert tct.cluster_size(5376, 4, 449) == 16  # the fig12 batch
+        assert tct.cluster_size(56116, 4, 449) == 16  # the dense engine
+        assert tct.cluster_size(1000, 4, 449) == 8
+
+
+def test_cluster_size_balances_links():
+    """More link slots to sum over the cluster mean fewer CTAs."""
+    from repro_torch.kernels import cascade_tiered as tct
+
+    assert tct.cluster_size(2048, 4, 2081) == 4
+    assert tct.cluster_size(2048, 4, 449) == 8
+    assert tct.cluster_size(5, 4, 51) == 1

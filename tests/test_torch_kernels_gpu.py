@@ -173,6 +173,96 @@ def test_flash_kernel_peaked_scores_on_the_card(cuda, dtype, limit):
         assert _row_rel_err(fa.flash_attention_torch(q, k, v, **fault), want) > limit
 
 
+def _route_delta(before):
+    now = fa.flash_attention.route_launches
+    return {k: now[k] - before.get(k, 0) for k in now if now[k] != before.get(k, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,K,hd,kw", [
+    (200, 8, 8, 64, dict(causal=False)),
+    (333, 8, 1, 64, {}),
+    (200, 8, 1, 128, dict(window=77)),
+    (333, 4, 4, 128, dict(causal=False, softcap=50.0)),
+    (333, 8, 1, 256, dict(window=100, softcap=50.0)),
+    (200, 2, 2, 256, dict(causal=False, window=150)),
+    (512, 16, 2, 128, dict(window=300, softcap=50.0)),
+])
+def test_flash_wgmma_route_matches_plain_on_the_card(cuda, S, H, K, hd, kw):
+    """csrc/flash_attention_sm90.cu (bf16 at the model widths) against its
+    plain version: S not a multiple of 64 or 128, causal and not, windows
+    that end inside a key tile, softcap 50, G = H / K of 1 and 8.  2e-2
+    elementwise at unit scores, and every output row within 1e-2 at peaked
+    scores (q scaled by 10), the limits of the tests above."""
+    assert fa.flash_route(torch.bfloat16, hd) == "wgmma"
+    g = torch.Generator(device=cuda).manual_seed(S + hd)
+    q, k, v = (torch.randn((2, S, h, hd), generator=g, device=cuda) for h in (H, K, K))
+    for q_scale, check in ((1.0, "elementwise"), (10.0, "rows")):
+        qq, kk, vv = (q * q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
+        before = dict(fa.flash_attention.route_launches)
+        got = ops.flash_attention(qq, kk, vv, **kw)
+        assert _route_delta(before) == {"wgmma": 1}
+        assert got.dtype == torch.bfloat16 and got.shape == qq.shape
+        want = fa.flash_attention_torch(qq, kk, vv, **kw)
+        if check == "elementwise":
+            np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                       atol=2e-2, rtol=2e-2)
+        else:
+            assert _row_rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd", [("float32", 64), ("float32", 256), ("bfloat16", 32)])
+def test_flash_simt_route_on_the_card(cuda, dtype, hd):
+    """float32 at any head dim, and bf16 below 64, stay on
+    csrc/flash_attention.cu."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn((1, 130, h, hd), generator=g, device=cuda).to(dt) for h in (4, 2, 2))
+    before = dict(fa.flash_attention.route_launches)
+    got = ops.flash_attention(q, k, v, window=40)
+    assert _route_delta(before) == {"simt": 1}
+    want = fa.flash_attention_torch(q, k, v, window=40)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,W,N,L,C", [
+    (2, 5, 4, 50, 1),         # C = 1
+    (2, 101, 4, 50, 4),       # an intermediate C, W not a multiple of it
+    (1, 3001, 4, 50, 16),     # the largest C, W not a multiple of it
+    (3, 3, 200, 50, 8),       # W < C: some CTAs own no flow
+    (2, 2049, 4, 2080, 4),    # three_tier's link count
+])
+def test_tiered_cluster_sizes_on_the_card(cuda, B, W, N, L, C):
+    """The tiered kernel over clusters of 1 to 16 CTAs against its plain
+    version, with absent hops; the wrapper launches the cluster size that
+    cluster_size gives and counts it."""
+    assert ct.cluster_size(W, N, L + 1) == C
+    rng = np.random.default_rng(W)
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    fab = t(rng.integers(-1, L, (B, W, N, 2)), torch.int32)
+    tx = t(rng.integers(0, L, (B, W)), torch.int32)
+    rx = t(rng.integers(0, L, (B, W)), torch.int32)
+    rates = t(rng.random((B, W, N)) * 1e9, torch.float32)
+    queue = t(rng.random((B, L + 1)) * 2e6, torch.float32)
+    cap = torch.full((L + 1,), 4e9, device=cuda)
+    cap[L] = 1e30
+    qmask = torch.ones(L + 1, device=cuda)
+    qmask[L] = 0.0
+    before = dict(ct.cascade_tiered.cluster_launches)
+    got = ct.cascade_tiered(fab, tx, rx, rates, queue, cap, qmask, **KW)
+    now = ct.cascade_tiered.cluster_launches
+    assert {k: now[k] - before.get(k, 0) for k in now if now[k] != before.get(k, 0)} == {C: 1}
+    _close(ct.cascade_tiered_torch(fab, tx, rx, rates, queue, cap, qmask, **KW), got, TOLS)
+    assert float(got[0][:, L].abs().max()) == 0.0 and float(got[2][:, L].abs().max()) == 0.0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["leaf_spine", "three_tier"])
 def test_tiered_kernel_matches_flat_kernel_on_the_card(cuda, kind):
