@@ -9,9 +9,14 @@ Phases, each printed as JSON lines:
   1. device   the card's name and power limit (nvidia-smi) and the time to
               build the CUDA kernel libraries from src/repro_torch/csrc/;
   2. kernel   each CUDA kernel against its plain PyTorch version on the
-              card, with the kernel's, the plain version's and (where one
-              PyTorch call computes the same function) the library call's
-              times and the bound:
+              card, with the kernel's time ("ms": back-to-back launches
+              through its library's C entry, outputs allocated once,
+              replayed from a CUDA graph, so no host work sets the pace),
+              the same launches called from the host ("c_entry_ms"), the
+              wrapper's ("wrapper_ms": its checks, allocations and
+              launch), the plain version's and
+              (where one PyTorch call computes the same function) the
+              library call's times, and the bound:
               - cascade_tiered at the fig12 shapes (sim_2tier, W=5376,
                 N=4, Hf=2, B=2), the default three_tier shapes (2,081
                 links, Hf=4), a ragged case (W not a multiple of 32,
@@ -19,9 +24,9 @@ Phases, each printed as JSON lines:
                 cluster size C it ran with;
               - cascade_flat (the flat cascade) on the same routes in the
                 flat layout (n = W * N sub-flows of H = Hf + 2 hops), and
-                the tiered kernel held against it;
+                the tiered kernel held against it, each row with its C;
               - linkload at bench_kernels' n=8192, hops=6, L=512 and at
-                the fig12 flat shape;
+                the fig12 flat shape, each row with its C;
               - flash_attention at the full width of qwen3-32b and
                 gemma2-2b in bfloat16 with q scaled so that the scores
                 reach the softcap's range (the "wgmma" route,
@@ -59,11 +64,12 @@ failure exits non-zero before that line; so does a machine without CUDA
 or a directory without the repository.
 
 With --cluster-sweep it runs only the measurement behind
-kernels/cascade_tiered.py::cluster_size instead: the tiered kernel at each
-of its phase 2 shapes launched on clusters of 1, 2, 4, 8 and 16 CTAs
-through the library's C entry (past the wrapper, so these launches are not
-counted), each held against the plain version, with the card's cluster
-occupancy for each size.
+kernels/cascade_common.py::cluster_size instead: the three cluster
+kernels (tiered and flat cascades, linkload) at each of their phase 2
+shapes launched on clusters of 1, 2, 4, 8 and 16 CTAs through the
+library's C entry (past the wrapper, so these launches are not counted;
+timed as phase 2's "ms"), each held against the plain version, with the card's cluster occupancy
+for each size, the size cluster_size picks and the fastest.
 """
 from __future__ import annotations
 
@@ -139,6 +145,21 @@ def time_ms(fn, reps: int = 20, rounds: int = 7, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(launch, reps: int = 20, rounds: int = 7, warmup: int = 5) -> float:
+    """Per-launch time of a kernel alone: ``reps`` back-to-back calls of
+    ``launch`` (one launch through the library's C entry each) captured
+    in a CUDA graph, whose replays time_ms times, so that the host's work
+    per launch (the ctypes call, the launch API) does not set the pace."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: a launch sets its kernel's attributes, which global capture refuses
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            launch()
+    return time_ms(graph.replay, reps=1, rounds=rounds, warmup=warmup) / reps
+
+
 def kernel_wrappers():
     """name -> the wrapper that counts the kernel's launches."""
     from repro_torch.kernels import cascade_tiered as ct, flash_attention as fa, linkload as ll
@@ -149,9 +170,11 @@ def kernel_wrappers():
 
 def tallies() -> dict:
     """name -> the launch counts a wrapper keeps by route or cluster size."""
-    from repro_torch.kernels import cascade_tiered as ct, flash_attention as fa
+    from repro_torch.kernels import cascade_tiered as ct, flash_attention as fa, linkload as ll
 
     return {"cascade_tiered": ct.cascade_tiered.cluster_launches,
+            "cascade_flat": ll.linkload_cascade.cluster_launches,
+            "linkload": ll.linkload.cluster_launches,
             "flash_attention": fa.flash_attention.route_launches}
 
 
@@ -336,6 +359,13 @@ class Spec(NamedTuple):
     # the row field for the key of the wrapper's tally (tallies()) that a
     # launch moved: "route" or "C"; None where the wrapper keeps no tally
     ran_as: str | None = None
+    # (case, preallocated outputs, C) -> a no-argument call that launches the
+    # kernel once through its library's C entry, past the wrapper (so not
+    # counted): what the "ms" column times; C is the cluster size, None for
+    # a kernel without clusters
+    launch: Callable | None = None
+    # case -> the cluster size the wrapper asks for; None without clusters
+    cluster: Callable | None = None
 
 
 def cascade_shapes():
@@ -505,6 +535,90 @@ def sdpa_call(case):
     return sdpa
 
 
+def c_entry(library: str, fn: str, argtypes: tuple, tensors, ints, floats):
+    """A no-argument call that launches ``fn`` of ``csrc/<library>.cu``
+    once on the current stream with these tensors' pointers and these
+    numbers, and raises on a CUDA error."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    entry = build.entry(library, fn, argtypes)
+    args = (*(t.data_ptr() for t in tensors), *ints, *floats)
+
+    def launch():
+        build.raise_on(entry(*args, torch.cuda.current_stream().cuda_stream), library)
+    return launch
+
+
+CASCADE_FLOATS = ("kmin", "kmax", "pmax", "dt", "qmax_bytes")
+
+
+def tiered_cluster(case) -> int:
+    from repro_torch.kernels import cascade_tiered as ct
+
+    fab, tx, rx, rates, queue, cap, qmask = case.args
+    B, W, N = rates.shape
+    return ct.cluster_size(W, N, queue.shape[-1])
+
+
+def tiered_launch(case, outs, C):
+    from repro_torch.kernels import cascade_tiered as ct
+
+    fab = case.args[0]
+    B, W, N, hf = fab.shape
+    return c_entry("cascade_tiered", "cascade_tiered_launch", ct._ARGTYPES, (*case.args, *outs),
+                   (B, W, N, hf, case.args[4].shape[-1], C),
+                   [case.kw[k] for k in CASCADE_FLOATS])
+
+
+def flat_cluster(case) -> int:
+    from repro_torch.kernels import cascade_common as cc
+
+    lid, rates, queue, cap, qmask = case.args
+    return cc.cluster_size(lid.shape[1], 1, queue.shape[-1])
+
+
+def flat_launch(case, outs, C):
+    from repro_torch.kernels import linkload as ll
+
+    lid, rates, queue, cap, qmask = case.args
+    B, n, H = lid.shape
+    return c_entry("cascade_flat", "cascade_flat_launch", ll._CASCADE_ARGTYPES,
+                   (*case.args, *outs), (B, n, H, queue.shape[-1], C),
+                   [case.kw[k] for k in CASCADE_FLOATS])
+
+
+def linkload_cluster(case) -> int:
+    from repro_torch.kernels import cascade_common as cc
+
+    lid, rates, queue, cap = case.args
+    return cc.cluster_size(lid.shape[0], lid.shape[1], queue.shape[0])
+
+
+def linkload_launch(case, outs, C):
+    from repro_torch.kernels import linkload as ll
+
+    lid, rates, queue, cap = case.args
+    n, hops = lid.shape
+    return c_entry("linkload", "linkload_launch", ll._LINKLOAD_ARGTYPES, (*case.args, *outs),
+                   (n, hops, queue.shape[0], C),
+                   [case.kw[k] for k in ("kmin", "kmax", "pmax", "dt")])
+
+
+def flash_launch(case, outs, C=None):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = case.args
+    B, S, H, hd = q.shape
+    route = fa.flash_route(q.dtype, hd)
+    lib, fn, argtypes = fa._ENTRIES[route]
+    dtype = () if route == "wgmma" else (fa._DTYPES[q.dtype],)
+    return c_entry(lib, fn, argtypes, (q, k, v, *outs),
+                   (*dtype, B, S, H, k.shape[2], hd, int(case.kw["causal"]), case.kw["window"]),
+                   (float(case.kw["softcap"]), hd ** -0.5))
+
+
 def kernel_specs():
     from repro_torch.kernels import cascade_tiered as ct, flash_attention as fa
     from repro_torch.kernels import linkload as ll, ops
@@ -515,19 +629,21 @@ def kernel_specs():
     return [
         Spec("cascade_tiered", ("linkload_cascade_tiered", f"{LL}:288"),
              ct.cascade_tiered, ct.cascade_tiered_torch, OUTPUTS,
-             cascade_tols, tiered_cases, tiered_bound, ran_as="C"),
+             cascade_tols, tiered_cases, tiered_bound, ran_as="C",
+             launch=tiered_launch, cluster=tiered_cluster),
         Spec("cascade_flat", ("linkload_cascade", f"{LL}:372"),
              ll.linkload_cascade, ll.linkload_cascade_torch, OUTPUTS,
              cascade_tols, flat_cases, flat_bound,
              entry=("dataplane.cascade(backend='cuda')",
                     lambda c: dataplane.cascade(*c.args, n_links=c.info["links"],
                                                 backend="cuda", **c.kw)),
-             more=tiered_vs_flat),
+             more=tiered_vs_flat, ran_as="C", launch=flat_launch, cluster=flat_cluster),
         Spec("linkload", ("linkload", f"{LL}:61"),
              ll.linkload, ll.linkload_torch, ("load", "queue", "mark"),
              lambda case: LINKLOAD_TOLS, linkload_cases, linkload_bound,
              entry=("ops.linkload",
-                    lambda c: ops.linkload(*c.args, n_links=c.info["links"], **c.kw))),
+                    lambda c: ops.linkload(*c.args, n_links=c.info["links"], **c.kw)),
+             ran_as="C", launch=linkload_launch, cluster=linkload_cluster),
         Spec("flash_attention", ("flash_attention", "src/repro/kernels/flash_attention.py:75"),
              fa.flash_attention, fa.flash_attention_torch, ("out",),
              flash_tols, flash_cases, flash_bound,
@@ -535,7 +651,7 @@ def kernel_specs():
              library=("F.scaled_dot_product_attention(is_causal, enable_gqa)", sdpa_call),
              more=flash_rows,
              reps=(dict(reps=5, rounds=5, warmup=2), dict(reps=2, rounds=3, warmup=1)),
-             ran_as="route"),
+             ran_as="route", launch=flash_launch),
     ]
 
 
@@ -571,25 +687,39 @@ def kernel_row(spec: Spec, case: Case) -> dict:
         check(case.ran_as is None or moved[0] == case.ran_as,
               f"{spec.name} {case.name} ran as {moved[0]}, not {case.ran_as}")
         ran = {spec.ran_as: moved[0]}
+    C = spec.cluster(case) if spec.cluster else None
+    check(C is None or ran.get("C") == C,
+          f"{spec.name} {case.name}: the wrapper ran on clusters of {ran.get('C')}, not {C}")
     want = run(spec.plain)
     tols = spec.tols(case)
     errs = close_enough(f"{spec.name} {case.name}", spec.outputs, got, want, tols)
     more = spec.more(case, got, want) if spec.more else {}
+    # the C entry that "ms" times (replayed from a CUDA graph) and
+    # "c_entry_ms" (called back to back from the host), with its outputs
+    # allocated once, held against the plain version too
+    outs = tuple(torch.empty_like(g) for g in got)
+    launch = spec.launch(case, outs, C)
+    launch()
+    torch.cuda.synchronize()
+    close_enough(f"{spec.name} {case.name} through the C entry", spec.outputs, outs, want, tols)
     library = {"library_ms": None}
     call = spec.library[1](case) if spec.library else None
     if call is not None:
         lib_err = float((call().float() - want[0].float()).abs().max())
         library = {"library": spec.library[0], "library_ms": time_ms(call, **spec.reps[0]),
                    "library_max_abs_err": lib_err}
-    del want
-    ms = time_ms(lambda: spec.kernel(*case.args, **case.kw), **spec.reps[0])
+    del want, got
+    ms = kernel_ms(launch, **spec.reps[0])
+    c_entry = time_ms(launch, **spec.reps[0])
+    wrapper = time_ms(lambda: spec.kernel(*case.args, **case.kw), **spec.reps[0])
     plain = time_ms(lambda: spec.plain(*case.args, **case.kw), **spec.reps[1])
     bound_ms, by, *peak = spec.bound(case)
     row = {"phase": "kernel", "kernel": spec.name, "case": case.name, **case.info, **ran,
            **({"library_source": f"csrc/{case.library}.cu"} if case.library else {}),
            **{k: v for k, v in case.kw.items() if k not in KW and k != "qmax_bytes"},
            "max_abs_err": errs, "tolerances": dict(zip(spec.outputs, tols)), **more,
-           "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
+           "ms": ms, "c_entry_ms": c_entry, "wrapper_ms": wrapper, "plain_ms": plain,
+           "bound_ms": bound_ms, "bound_by": by,
            **({"bound_peak": peak[0], "tflop_per_s": peak[1] / ms / 1e9} if peak else {}),
            **library}
     emit(row)
@@ -814,40 +944,41 @@ def phase_profile(warm_steps: int = 100, steps: int = 32):
 
 
 def cluster_sweep() -> None:
-    """The tiered kernel's time at each phase 2 shape on clusters of 1 to
-    16 CTAs (the measurement cluster_size is fitted to)."""
+    """Each cluster kernel (tiered, flat, linkload) at each of its phase 2
+    shapes on clusters of 1 to 16 CTAs through its C entry, held against
+    its plain version, with the card's cluster occupancy for each size:
+    the measurement cluster_size is fitted to."""
     import ctypes
 
     import torch
 
-    from repro_torch.kernels import build, cascade_tiered as ct
+    from repro_torch.kernels import build
 
-    fn = build.entry("cascade_tiered", "cascade_tiered_launch", ct._ARGTYPES)
-    occupancy = build.entry("cascade_tiered", "cascade_tiered_max_clusters",
-                            (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
     sizes = (1, 2, 4, 8, 16)
-    for case in tiered_cases():
-        fab, tx, rx, rates, queue, cap, qmask = case.args
-        B, W, N = rates.shape
-        L1 = queue.shape[-1]
-        want = ct.cascade_tiered_torch(*case.args, **case.kw)
-        row = {}
-        for C in sizes:
-            count = ctypes.c_int(0)
-            build.raise_on(occupancy(C, L1, ctypes.byref(count)), "cascade_tiered occupancy")
-            outs = [torch.empty_like(want[0]) for _ in range(3)] + [torch.empty_like(rates)]
-
-            def launch():
-                build.raise_on(fn(*(t.data_ptr() for t in (*case.args, *outs)), B, W, N,
-                                  fab.shape[-1], L1, C, *(case.kw[k] for k in (
-                                      "kmin", "kmax", "pmax", "dt", "qmax_bytes")),
-                                  torch.cuda.current_stream().cuda_stream), "cascade_tiered")
-            launch()
-            torch.cuda.synchronize()
-            close_enough(f"cascade_tiered {case.name} C={C}", OUTPUTS, outs, want, TOLS)
-            row[C] = {"ms": time_ms(launch), "max_active_clusters": count.value}
-        emit({"phase": "cluster_sweep", "case": case.name, **case.info,
-              "cluster_size": ct.cluster_size(W, N, L1), "by_cluster": row})
+    for spec in kernel_specs():
+        if spec.cluster is None:
+            continue
+        occupancy = build.entry(spec.name, f"{spec.name}_max_clusters",
+                                (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+        for case in spec.cases():
+            want = spec.plain(*case.args, **case.kw)
+            n_links = want[0].shape[-1]
+            row = {}
+            for C in sizes:
+                count = ctypes.c_int(0)
+                build.raise_on(occupancy(C, n_links, ctypes.byref(count)),
+                               f"{spec.name} occupancy")
+                outs = tuple(torch.empty_like(w) for w in want)
+                launch = spec.launch(case, outs, C)
+                launch()
+                torch.cuda.synchronize()
+                close_enough(f"{spec.name} {case.name} C={C}", spec.outputs, outs, want,
+                             spec.tols(case))
+                row[C] = {"ms": kernel_ms(launch), "max_active_clusters": count.value}
+            emit({"phase": "cluster_sweep", "kernel": spec.name, "case": case.name, **case.info,
+                  "cluster_size": spec.cluster(case),
+                  "fastest": min(row, key=lambda c: row[c]["ms"]), "by_cluster": row})
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -884,23 +1015,23 @@ def main() -> int:
     for lib, row in rows.items():
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
-        extra = {}
         if name == "cascade_tiered":
             launches = sweep_counts[name]  # the main path: the fig12 sweep
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]
             launches = row["path_launches"]
-            if name == "flash_attention":
-                extra = {"flash_route": row["route"]}
+            extra = ({"flash_route": row["route"]} if name == "flash_attention"
+                     else {"clusters": row["path_tally"]})
         err = row["max_abs_err"]
         kernels.append({
             "name": row["jax_name"], "route": "cuda",
             "source": f"src/repro_torch/csrc/{lib}.cu",
             "replaces": row["replaces"], "launches": launches, "launches_by_path": by_path,
             "case": row["case"], **extra, "max_abs_err": max(err.values()), "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "wrapper_ms": row["wrapper_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,14 @@
-// Pieces shared by the hop-cascade kernels (cascade_tiered.cu,
-// cascade_flat.cu).  Block level: one CTA owns one simulation; `load` and
-// `arr` are shared-memory link vectors of L1 = L + 1 floats, slot L the
-// sentinel (capacity 1e30) onto which absent hops land.  Cluster level
-// (the tiered kernel): one simulation spread over the C CTAs of a
-// thread-block cluster, each with its own partial link load, summed over
-// the cluster through distributed shared memory.
+// Pieces shared by the link-load kernels (cascade_tiered.cu,
+// cascade_flat.cu, linkload.cu).  Link vectors live in shared memory:
+// L1 = L + 1 floats in the cascades, slot L the sentinel (capacity 1e30)
+// onto which absent hops land.  One simulation spreads over the C CTAs of
+// a thread-block cluster, each with its own partial link load, summed over
+// the cluster through distributed shared memory; the host side below
+// configures, sizes and launches such clusters.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cascade {
@@ -18,16 +19,6 @@ __device__ __forceinline__ void zero(float* buf, int L1) {
 
 // A link id of the sentinel layout: absent (-1) hops land on slot L1 - 1.
 __device__ __forceinline__ int slot(int lid, int L1) { return lid < 0 ? L1 - 1 : lid; }
-
-// load -> arrival += load (sentinel excluded); load <- min(1, cap / max(load, 1))
-__device__ __forceinline__ void scale_pass(float* load, float* arr, const float* cap,
-                                           int L1) {
-  for (int l = threadIdx.x; l < L1; l += blockDim.x) {
-    float v = load[l];
-    if (l < L1 - 1) arr[l] += v;
-    load[l] = fminf(1.0f, cap[l] / fmaxf(v, 1.0f));
-  }
-}
 
 // RED/ECN ramp on the queue bytes.
 __device__ __forceinline__ float red_mark(float q, float kmin, float kmax, float pmax) {
@@ -40,7 +31,7 @@ __device__ __forceinline__ float red_mark(float q, float kmin, float kmax, float
 __device__ __forceinline__ void finish_links(
     const float* arr, const float* queue, const float* cap, const float* qmask,
     float* arrival, float* new_queue, float* p_mark, int L1,
-    float kmin, float kmax, float pmax, float dt, float qmax, int rank = 0, int C = 1) {
+    float kmin, float kmax, float pmax, float dt, float qmax, int rank, int C) {
   // CTA `rank` of a cluster of C writes the links l = rank (mod C)
   for (int l = rank + C * threadIdx.x; l < L1; l += C * blockDim.x) {
     float a = arr[l];
@@ -81,6 +72,88 @@ __device__ __forceinline__ void cluster_scale_pass(cooperative_groups::cluster_g
   cluster.sync();
   zero(partial, L1);
   __syncthreads();
+}
+
+// One hop h of a cascade over the cluster: the CTA's sub-flows [i_lo, i_hi)
+// of link ids lid [., H] scatter their running rates thr into its partial,
+// cluster_scale_pass sums the partials, and each rate takes its link's
+// scale.  thr entries are read and written only by the CTA that owns them,
+// and each thread rereads only those it wrote.
+__device__ __forceinline__ void cluster_hop_pass(
+    cooperative_groups::cluster_group& cluster, int C, const int32_t* __restrict__ lid,
+    int H, int h, float* __restrict__ thr, int i_lo, int i_hi, float* partial,
+    float* scale, float* arr, const float* cap, int L1) {
+  for (int i = i_lo + threadIdx.x; i < i_hi; i += blockDim.x)
+    atomicAdd(&partial[slot(lid[i * H + h], L1)], thr[i]);
+  cluster_scale_pass(cluster, C, partial, scale, arr, cap, L1);
+  for (int i = i_lo + threadIdx.x; i < i_hi; i += blockDim.x)
+    thr[i] *= scale[slot(lid[i * H + h], L1)];
+}
+
+// ---- host side: launches on clusters of 1 <= C <= kMaxCluster CTAs (above
+// 8 only where the card admits a non-portable cluster size)
+
+constexpr int kMaxCluster = 16;
+
+// Allow `smem` bytes of dynamic shared memory and, above 8, a non-portable
+// cluster size; returns 0 or a CUDA error.
+template <typename Kernel>
+inline int configure(Kernel kernel, int C, size_t smem) {
+  if (C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// A grid of `clusters` clusters of C CTAs of `threads` threads.
+inline cudaLaunchConfig_t cluster_config(int clusters, int C, int threads, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of C CTAs the card can hold at once, into *count;
+// returns 0 or a CUDA error.  0 clusters means that a launch of that size
+// cannot be scheduled.
+template <typename Kernel>
+inline int max_clusters(Kernel kernel, int C, int threads, size_t smem, int* count) {
+  int err = configure(kernel, C, smem);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, C, threads, smem, 0, attr);
+  return (int)cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+}
+
+// Launch `kernel` on `clusters` clusters of C CTAs; returns 0 or a CUDA
+// error (a cluster that does not schedule is one: nothing falls back).
+template <typename... Params, typename... Args>
+inline int launch_clusters(void (*kernel)(Params...), int clusters, int C, int threads,
+                           size_t smem, void* stream, Args... args) {
+  int err = configure(kernel, C, smem);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(clusters, C, threads, smem, (cudaStream_t)stream,
+                                          attr);
+  cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (launched != cudaSuccess) return (int)launched;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace cascade

@@ -29,23 +29,24 @@
 //
 // What the design does about it: the TPU kernel's one-hot matrix products
 // are a device of the TPU's matrix unit and are not carried over.  One
-// simulation spreads over a cluster of C CTAs (kernels/cascade_tiered.py::
+// simulation spreads over a cluster of C CTAs (kernels/cascade_common.py::
 // cluster_size balances the sub-flows each CTA scatters against the C
 // partial link vectors each sums, up to the non-portable size 16: the
 // fig12 batch of 21,504 sub-flows a simulation on 449 link slots gets 16,
-// as does the dense shape), so a B = 2 batch occupies 32 SMs.  CTA r
-// owns flows [r W / C, (r + 1) W / C) and
-// their thr entries (the running rates, updated in place each pass, read
-// and written by that CTA only).  Per pass each CTA scatters its flows
-// into its own shared-memory partial link load with shared atomics; then
-// cascade_common.cuh::cluster_scale_pass sums the C partials through
-// distributed shared memory in rank order between two cluster barriers,
-// so every CTA derives the same scales and running arrival bit for bit,
-// and applies them to its own flows.  The queue and mark of link l are
-// written by CTA l mod C.  Float atomics within a CTA make the summation
-// order vary from run to run, so results agree with the plain version to
-// float round-off.  A cluster that does not schedule is a launch error:
-// nothing falls back to fewer CTAs.
+// as does the dense shape), so a B = 2 batch occupies 32 SMs.  CTA r owns
+// flows [r W / C, (r + 1) W / C) and their thr entries (the running rates,
+// updated in place each pass, read and written by that CTA only).  Per
+// pass each CTA scatters its flows into its own shared-memory partial link
+// load with shared atomics; then cascade_common.cuh::cluster_scale_pass
+// sums the C partials through distributed shared memory in rank order
+// between two cluster barriers, so every CTA derives the same scales and
+// running arrival bit for bit, and applies them to its own flows (a fabric
+// hop is cascade_common.cuh::cluster_hop_pass, which the flat kernel
+// shares).  The queue and mark of link l are written by CTA l mod C.
+// Float atomics within a CTA make the summation order vary from run to
+// run, so results agree with the plain version to float round-off.  A
+// cluster that does not schedule is a launch error: nothing falls back to
+// fewer CTAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,7 +56,6 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using cascade::slot;
 using cascade::zero;
 
 constexpr int kThreads = 1024;
@@ -111,14 +111,10 @@ __global__ void __launch_bounds__(kThreads) cascade_tiered_kernel(
   }
   __syncthreads();
 
-  // ---- fabric hops, per sub-flow (each thread rereads only what it wrote)
-  for (int h = 0; h < Hf; ++h) {
-    for (int i = i_lo + threadIdx.x; i < i_hi; i += blockDim.x)
-      atomicAdd(&partial[slot(fab[i * Hf + h], L1)], thr[i]);
-    cascade::cluster_scale_pass(cluster, C, partial, scale, arr, cap, L1);
-    for (int i = i_lo + threadIdx.x; i < i_hi; i += blockDim.x)
-      thr[i] *= scale[slot(fab[i * Hf + h], L1)];
-  }
+  // ---- fabric hops, per sub-flow
+  for (int h = 0; h < Hf; ++h)
+    cascade::cluster_hop_pass(cluster, C, fab, Hf, h, thr, i_lo, i_hi, partial, scale, arr,
+                              cap, L1);
   __syncthreads();
 
   // ---- host_rx: pre-reduced again
@@ -138,54 +134,17 @@ __global__ void __launch_bounds__(kThreads) cascade_tiered_kernel(
                         kmin, kmax, pmax, dt, qmax, rank, C);
 }
 
-int configure(int C, size_t smem) {
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(cascade_tiered_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (C > 8) {
-    err = cudaFuncSetAttribute(cascade_tiered_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-cudaLaunchConfig_t launch_config(int B, int C, size_t smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * C, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
+size_t smem_bytes(int L1) { return 3 * (size_t)L1 * sizeof(float); }
 
 }  // namespace
 
 // How many clusters of C CTAs (with L1 links each) the card can hold at
-// once, into *count; returns 0 or a CUDA error.  0 clusters means that a
-// launch of that size cannot be scheduled.
+// once, into *count; returns 0 or a CUDA error.
 extern "C" int cascade_tiered_max_clusters(int C, int L1, int* count) {
-  if (C < 1 || C > 16) return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * (size_t)L1 * sizeof(float);
-  int err = configure(C, smem);
-  if (err != 0) return err;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = launch_config(1, C, smem, 0, attr);
-  return (int)cudaOccupancyMaxActiveClusters(count, cascade_tiered_kernel, &cfg);
+  return cascade::max_clusters(cascade_tiered_kernel, C, kThreads, smem_bytes(L1), count);
 }
 
-// B simulations on a grid of B * C CTAs in clusters of C (1 <= C <= 16;
-// above 8 only where the card admits a non-portable cluster size).
+// B simulations on a grid of B * C CTAs in clusters of C.
 extern "C" int cascade_tiered_launch(
     const void* fab, const void* tx, const void* rx, const void* rates,
     const void* queue, const void* cap, const void* qmask,
@@ -193,17 +152,10 @@ extern "C" int cascade_tiered_launch(
     int B, int W, int N, int Hf, int L1, int C,
     float kmin, float kmax, float pmax, float dt, float qmax,
     void* stream) {
-  if (C < 1 || C > 16) return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * (size_t)L1 * sizeof(float);
-  int setup = configure(C, smem);
-  if (setup != 0) return setup;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = launch_config(B, C, smem, (cudaStream_t)stream, attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, cascade_tiered_kernel,
+  return cascade::launch_clusters(
+      cascade_tiered_kernel, B, C, kThreads, smem_bytes(L1), stream,
       (const int32_t*)fab, (const int32_t*)tx, (const int32_t*)rx, (const float*)rates,
       (const float*)queue, (const float*)cap, (const float*)qmask,
       (float*)arrival, (float*)new_queue, (float*)p_mark, (float*)thr,
       W, N, Hf, L1, C, kmin, kmax, pmax, dt, qmax);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // One-pass switch dataplane step: offered load per link, queue update and
-// RED/ECN mark, with no hop cascade and no queue mask.
+// RED/ECN mark, with no hop cascade and no queue mask, on one thread-block
+// cluster of C CTAs.
 //
 // Replaces the TPU kernel kernels/linkload.py::linkload (Pallas body
 // _linkload_kernel) of the JAX package.  Plain version:
@@ -12,17 +13,24 @@
 //   mark     = RED ramp on the new queue
 //
 // What bounds it on an H100: the bytes are n * (hops + 1) * 4 in and
-// 5 * L * 4 in and out (about 0.2 MB at n = 8192, hops = 6, L = 512), so
+// 5 * L * 4 in and out (about 0.4 MB at n = 21,504, hops = 4, L = 448), so
 // the memory bound is well under a microsecond; the scatter-add onto a few
-// hundred links serialises on the same addresses, and the launch latency
-// dominates.
+// hundred links serialises on the same addresses, and on one CTA (one SM)
+// it took tens of microseconds.
 //
 // What the design does about it: the TPU kernel's one-hot matrix product
-// is a device of the TPU's matrix unit and is not carried over.  One CTA
-// accumulates the link vector in shared memory with shared-memory
-// atomicAdds (an explicit bounds check keeps ids outside [0, L) from
-// writing past it), then a __syncthreads and the queue and mark update.
-// Float atomics make the summation order vary from run to run.
+// is a device of the TPU's matrix unit and is not carried over.  The rows
+// spread over a cluster of C CTAs (kernels/cascade_common.py::
+// cluster_size(n, hops, L): 16 at n = 21,504, hops = 4, L = 448).  CTA r
+// takes rows [r n / C, (r + 1) n / C) and scatters each of their hops into
+// its own shared-memory partial link load with shared atomics (a bounds
+// check drops ids outside [0, L)).  After a cluster barrier CTA r sums the
+// C partials, in rank order, through distributed shared memory for the
+// links l = r (mod C), and writes their load, queue and mark.  A second
+// cluster barrier keeps every CTA, and so its partial, alive until all
+// have read it.  Float atomics within a CTA make the summation order vary
+// from run to run.  A cluster that does not schedule is a launch error:
+// nothing falls back to fewer CTAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,9 +39,12 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 1024;
 constexpr float kQmax = 8e6f;  // the JAX kernel's fixed queue cap
 
-__global__ void linkload_kernel(
+__global__ void __launch_bounds__(kThreads) linkload_kernel(
     const int32_t* __restrict__ lid,   // [n, hops]
     const float* __restrict__ rates,   // [n]
     const float* __restrict__ queue,   // [L]
@@ -41,41 +52,48 @@ __global__ void linkload_kernel(
     float* __restrict__ load_out,      // [L]
     float* __restrict__ new_queue,     // [L]
     float* __restrict__ mark,          // [L]
-    int n, int hops, int L, float kmin, float kmax, float pmax, float dt) {
-  extern __shared__ float load[];
-  for (int l = threadIdx.x; l < L; l += blockDim.x) load[l] = 0.0f;
+    int n, int hops, int L, int C, float kmin, float kmax, float pmax, float dt) {
+  extern __shared__ float partial[];  // [L] this CTA's share of the link load
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  int lo, hi;  // this CTA's rows
+  cascade::share(n, rank, C, &lo, &hi);
+  cascade::zero(partial, L);
   __syncthreads();
-  const int m = n * hops;
-  for (int k = threadIdx.x; k < m; k += blockDim.x) {
+  for (int k = lo * hops + threadIdx.x; k < hi * hops; k += blockDim.x) {
     int id = lid[k];
-    if (id >= 0 && id < L) atomicAdd(&load[id], rates[k / hops]);
+    if (id >= 0 && id < L) atomicAdd(&partial[id], rates[k / hops]);
   }
-  __syncthreads();
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    float a = load[l];
+  cluster.sync();  // every partial complete
+  for (int l = rank + C * threadIdx.x; l < L; l += C * blockDim.x) {
+    float a = 0.0f;
+    for (int r = 0; r < C; ++r) a += cluster.map_shared_rank(partial, r)[l];
     float q = fminf(fmaxf(queue[l] + (a - cap[l]) * dt / 8.0f, 0.0f), kQmax);
     load_out[l] = a;
     new_queue[l] = q;
     mark[l] = cascade::red_mark(q, kmin, kmax, pmax);
   }
+  cluster.sync();  // every partial read before any CTA retires
 }
+
+size_t smem_bytes(int L) { return (size_t)L * sizeof(float); }
 
 }  // namespace
 
+// How many clusters of C CTAs (with L links each) the card can hold at
+// once, into *count; returns 0 or a CUDA error.
+extern "C" int linkload_max_clusters(int C, int L, int* count) {
+  return cascade::max_clusters(linkload_kernel, C, kThreads, smem_bytes(L), count);
+}
+
+// One cluster of C CTAs.
 extern "C" int linkload_launch(
     const void* lid, const void* rates, const void* queue, const void* cap,
     void* load, void* new_queue, void* mark,
-    int n, int hops, int L, float kmin, float kmax, float pmax, float dt,
+    int n, int hops, int L, int C, float kmin, float kmax, float pmax, float dt,
     void* stream) {
-  const int threads = 1024;
-  const size_t smem = (size_t)L * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        linkload_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  linkload_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+  return cascade::launch_clusters(
+      linkload_kernel, 1, C, kThreads, smem_bytes(L), stream,
       (const int32_t*)lid, (const float*)rates, (const float*)queue, (const float*)cap,
-      (float*)load, (float*)new_queue, (float*)mark, n, hops, L, kmin, kmax, pmax, dt);
-  return (int)cudaGetLastError();
+      (float*)load, (float*)new_queue, (float*)mark, n, hops, L, C, kmin, kmax, pmax, dt);
 }

@@ -6,8 +6,9 @@ DRILL runs once per ``dt`` step.
 ``kernels/linkload.py::linkload_cascade_tiered``) on CUDA tensors, and
 runs ``cascade_tiered_torch``, its plain PyTorch version, on CPU tensors.
 The kernel spreads each simulation over a thread-block cluster of
-``cluster_size(W, N, L + 1)`` CTAs; ``cascade_tiered.cluster_launches`` counts
-the launches by that size.
+``cluster_size(W, N, L + 1)`` CTAs (``kernels/cascade_common.py``, whose
+``cluster_size`` and ``MAX_CLUSTER`` this module re-exports);
+``cascade_tiered.cluster_launches`` counts the launches by that size.
 
 Layout (the sentinel layout of ``netsim.dataplane.cascade_nic``): B
 simulations, W flows of N sub-flows, Hf fabric hops, L real links plus a
@@ -23,67 +24,17 @@ with ``arrival[:, L] == 0`` and ``p_mark[:, L] == 0``.
 from __future__ import annotations
 
 import ctypes
-import functools
-import math
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cascade_common import (  # noqa: F401 (re-exported)
+    MAX_CLUSTER, check_cluster, check_smem, cluster_size, device_index, gather, red_mark, scale,
+    segment_sum,
+)
 
-MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
-MAX_CLUSTER = 16  # a non-portable cluster size, which the H100 admits (PERF.md)
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_p,) * 11 + (_i,) * 6 + (_f,) * 5 + (_p,)
-
-
-def cluster_size(W: int, N: int, n_links: int) -> int:
-    """CTAs per simulation for W flows of N sub-flows on ``n_links`` link
-    slots: the power of two nearest 2 sqrt(W N / n_links), in [1,
-    MAX_CLUSTER].  A pass costs each CTA about W N / C scattered sub-flows
-    plus C n_links partial loads summed over the cluster, which this
-    balances (the factor 2 fits the H100's times in PERF.md).  fig12's
-    batch (5,376 x 4 on 449 slots) and the dense shape get 16, the
-    default three_tier (2,048 x 4 on 2,081) gets 4."""
-    c = 2.0 * math.sqrt(W * N / n_links)
-    return 1 if c <= 1.0 else min(MAX_CLUSTER, 2 ** round(math.log2(c)))
-
-
-@functools.lru_cache(maxsize=None)
-def _check_cluster(device_index: int, C: int, L1: int) -> None:
-    """Raise unless the card can schedule a cluster of C CTAs of L1 links."""
-    fn = build.entry("cascade_tiered", "cascade_tiered_max_clusters", (_i, _i, _p))
-    count = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        build.raise_on(fn(C, L1, ctypes.byref(count)), "cascade_tiered occupancy")
-    if count.value < 1:
-        raise RuntimeError(f"cascade_tiered: the card cannot schedule a cluster of {C} CTAs "
-                           f"with {L1} links")
-
-
-def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
-    """Per-simulation segment sum: vals, idx [B, M] -> [B, size]."""
-    B = vals.shape[0]
-    off = torch.arange(B, device=vals.device)[:, None] * size
-    out = torch.zeros(B * size, dtype=vals.dtype, device=vals.device)
-    out.index_add_(0, (idx.to(torch.int64) + off).reshape(-1), vals.reshape(-1))
-    return out.view(B, size)
-
-
-def _scale(load: torch.Tensor, capacity: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(capacity / torch.clamp(load, min=1.0), max=1.0)
-
-
-def _gather(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """vec [B, L1], idx [B, M] -> vec[b, idx[b, m]]."""
-    return torch.gather(vec, 1, idx.to(torch.int64))
-
-
-def red_mark(new_queue: torch.Tensor, kmin: float, kmax: float, pmax: float) -> torch.Tensor:
-    """RED/ECN marking ramp on the queue bytes."""
-    ramp = (new_queue - kmin) / (kmax - kmin)
-    return torch.where(new_queue < kmin, torch.zeros_like(new_queue),
-                       torch.where(new_queue > kmax, torch.ones_like(new_queue),
-                                   ramp * pmax))
 
 
 def cascade_tiered_torch(fab, tx, rx, rates, queue, capacity, queue_mask, *,
@@ -99,22 +50,22 @@ def cascade_tiered_torch(fab, tx, rx, rates, queue, capacity, queue_mask, *,
     real[nl] = 0.0
 
     def hop_load(vals, idx):
-        load = _segment_sum(vals, idx, L1)
+        load = segment_sum(vals, idx, L1)
         return load, torch.where(real > 0, load, torch.zeros_like(load))
 
     load, arrival = hop_load(rates.sum(-1), tx)
-    r = rates * _gather(_scale(load, capacity), tx)[..., None]
+    r = rates * gather(scale(load, capacity), tx)[..., None]
     lid = torch.where(fab >= 0, fab, torch.full_like(fab, nl)).reshape(B, W * N, hf)
     rf = r.reshape(B, W * N)
     for h in range(hf):
         lh = lid[:, :, h]
         load, real_load = hop_load(rf, lh)
         arrival = arrival + real_load
-        rf = rf * _gather(_scale(load, capacity), lh)
+        rf = rf * gather(scale(load, capacity), lh)
     r = rf.reshape(B, W, N)
     load, real_load = hop_load(r.sum(-1), rx)
     arrival = arrival + real_load
-    thr = r * _gather(_scale(load, capacity), rx)[..., None]
+    thr = r * gather(scale(load, capacity), rx)[..., None]
     new_queue = torch.clamp(queue + (arrival - capacity) * dt / 8.0, 0.0,
                             qmax_bytes) * queue_mask
     p_mark = red_mark(new_queue, kmin, kmax, pmax) * real
@@ -144,11 +95,9 @@ def cascade_tiered(fab, tx, rx, rates, queue, capacity, queue_mask, *,
             ("capacity", capacity, torch.float32, (L1,)),
             ("queue_mask", queue_mask, torch.float32, (L1,))):
         build.check(name, t, dtype, shape, dev)
-    if 3 * L1 * 4 > MAX_SMEM:
-        raise ValueError(f"{L1} links need {3 * L1 * 4} B of shared memory; "
-                         f"a block has {MAX_SMEM}")
+    check_smem("cascade_tiered", 3, L1)
     C = cluster_size(W, N, L1)
-    _check_cluster(dev.index if dev.index is not None else torch.cuda.current_device(), C, L1)
+    check_cluster("cascade_tiered", device_index(dev), C, L1)
     arrival = torch.empty((B, L1), dtype=torch.float32, device=dev)
     new_queue = torch.empty_like(arrival)
     p_mark = torch.empty_like(arrival)

@@ -5,7 +5,11 @@ kernel with its plain PyTorch version beside it.
 JAX package's Pallas kernel ``kernels/linkload.py::linkload_cascade``) and
 ``linkload`` launches ``csrc/linkload.cu`` (it replaces
 ``kernels/linkload.py::linkload``), on CUDA tensors; on CPU tensors they
-run ``linkload_cascade_torch`` and ``linkload_torch``.
+run ``linkload_cascade_torch`` and ``linkload_torch``.  Each kernel runs
+on a thread-block cluster (``kernels/cascade_common.py``): the flat
+cascade one of ``cluster_size(n, 1, L + 1)`` CTAs per simulation,
+``linkload`` one of ``cluster_size(n, hops, L)``; ``cluster_launches`` on
+each wrapper counts its launches by that size.
 
 The flat cascade uses the sentinel layout of ``netsim.dataplane.cascade``:
 B simulations, n sub-flows of H hops, L real links plus a sentinel slot L
@@ -29,15 +33,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.cascade_tiered import (
-    MAX_SMEM, _gather, _scale, _segment_sum, red_mark,
+from repro_torch.kernels.cascade_common import (
+    check_cluster, check_smem, cluster_size, device_index, gather, red_mark, scale, segment_sum,
 )
 
 QMAX_BYTES = 8e6  # linkload's fixed queue cap (the JAX kernel's)
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_CASCADE_ARGTYPES = (_p,) * 9 + (_i,) * 4 + (_f,) * 5 + (_p,)
-_LINKLOAD_ARGTYPES = (_p,) * 7 + (_i,) * 3 + (_f,) * 4 + (_p,)
+_CASCADE_ARGTYPES = (_p,) * 9 + (_i,) * 5 + (_f,) * 5 + (_p,)
+_LINKLOAD_ARGTYPES = (_p,) * 7 + (_i,) * 4 + (_f,) * 4 + (_p,)
 
 
 def linkload_cascade_torch(lid, rates, queue, capacity, queue_mask, *, kmin: float,
@@ -53,11 +57,11 @@ def linkload_cascade_torch(lid, rates, queue, capacity, queue_mask, *, kmin: flo
     arrival = torch.zeros((B, L1), dtype=torch.float32, device=rates.device)
     for h in range(hops):
         lh = lid[:, :, h]
-        load = _segment_sum(r, lh, L1)
+        load = segment_sum(r, lh, L1)
         load_real = load.clone()
         load_real[:, nl] = 0.0
         arrival = arrival + load_real
-        r = r * _gather(_scale(load, capacity), lh)
+        r = r * gather(scale(load, capacity), lh)
     new_queue = torch.clamp(queue + (arrival - capacity) * dt / 8.0, 0.0,
                             qmax_bytes) * queue_mask
     p_mark = red_mark(new_queue, kmin, kmax, pmax)
@@ -68,7 +72,8 @@ def linkload_cascade_torch(lid, rates, queue, capacity, queue_mask, *, kmin: flo
 def linkload_cascade(lid, rates, queue, capacity, queue_mask, *, kmin: float,
                      kmax: float, pmax: float, dt: float, qmax_bytes: float):
     """The flat cascade: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  ``linkload_cascade.launches`` counts the launches."""
+    for CPU tensors.  ``linkload_cascade.launches`` counts the launches and
+    ``linkload_cascade.cluster_launches`` counts them by cluster size."""
     dev = rates.device
     kw = dict(kmin=kmin, kmax=kmax, pmax=pmax, dt=dt, qmax_bytes=qmax_bytes)
     if dev.type == "cpu":
@@ -84,9 +89,9 @@ def linkload_cascade(lid, rates, queue, capacity, queue_mask, *, kmin: float,
             ("capacity", capacity, torch.float32, (L1,)),
             ("queue_mask", queue_mask, torch.float32, (L1,))):
         build.check(name, t, dtype, shape, dev)
-    if 2 * L1 * 4 > MAX_SMEM:
-        raise ValueError(f"{L1} links need {2 * L1 * 4} B of shared memory; "
-                         f"a block has {MAX_SMEM}")
+    check_smem("cascade_flat", 3, L1)
+    C = cluster_size(n, 1, L1)
+    check_cluster("cascade_flat", device_index(dev), C, L1)
     arrival = torch.empty((B, L1), dtype=torch.float32, device=dev)
     new_queue = torch.empty_like(arrival)
     p_mark = torch.empty_like(arrival)
@@ -96,14 +101,15 @@ def linkload_cascade(lid, rates, queue, capacity, queue_mask, *, kmin: float,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(lid.data_ptr(), rates.data_ptr(), queue.data_ptr(), capacity.data_ptr(),
                  queue_mask.data_ptr(), arrival.data_ptr(), new_queue.data_ptr(),
-                 p_mark.data_ptr(), thr.data_ptr(), B, n, H, L1, kmin, kmax, pmax, dt,
+                 p_mark.data_ptr(), thr.data_ptr(), B, n, H, L1, C, kmin, kmax, pmax, dt,
                  qmax_bytes, stream)
-    build.raise_on(err, "cascade_flat")
-    build.count_launch(linkload_cascade)
+    build.raise_on(err, f"cascade_flat (cluster of {C})")
+    build.count_launch(linkload_cascade, linkload_cascade.cluster_launches, C)
     return arrival, new_queue, p_mark, thr
 
 
 linkload_cascade.launches = 0
+linkload_cascade.cluster_launches = {}
 
 
 def linkload_torch(lid, rates, queue, capacity, *, kmin: float, kmax: float,
@@ -125,7 +131,7 @@ def linkload(lid, rates, queue, capacity, *, kmin: float, kmax: float, pmax: flo
              dt: float):
     """One-pass link load, queue and mark: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.  ``linkload.launches`` counts the
-    launches."""
+    launches and ``linkload.cluster_launches`` counts them by cluster size."""
     dev = rates.device
     kw = dict(kmin=kmin, kmax=kmax, pmax=pmax, dt=dt)
     if dev.type == "cpu":
@@ -139,9 +145,9 @@ def linkload(lid, rates, queue, capacity, *, kmin: float, kmax: float, pmax: flo
             ("queue", queue, torch.float32, (L,)),
             ("capacity", capacity, torch.float32, (L,))):
         build.check(name, t, dtype, shape, dev)
-    if L * 4 > MAX_SMEM:
-        raise ValueError(f"{L} links need {L * 4} B of shared memory; "
-                         f"a block has {MAX_SMEM}")
+    check_smem("linkload", 1, L)
+    C = cluster_size(n, hops, L)
+    check_cluster("linkload", device_index(dev), C, L)
     load = torch.empty((L,), dtype=torch.float32, device=dev)
     new_queue = torch.empty_like(load)
     mark = torch.empty_like(load)
@@ -149,11 +155,12 @@ def linkload(lid, rates, queue, capacity, *, kmin: float, kmax: float, pmax: flo
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(lid.data_ptr(), rates.data_ptr(), queue.data_ptr(), capacity.data_ptr(),
-                 load.data_ptr(), new_queue.data_ptr(), mark.data_ptr(), n, hops, L,
+                 load.data_ptr(), new_queue.data_ptr(), mark.data_ptr(), n, hops, L, C,
                  kmin, kmax, pmax, dt, stream)
-    build.raise_on(err, "linkload")
-    build.count_launch(linkload)
+    build.raise_on(err, f"linkload (cluster of {C})")
+    build.count_launch(linkload, linkload.cluster_launches, C)
     return load, new_queue, mark
 
 
 linkload.launches = 0
+linkload.cluster_launches = {}

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core import baselines, gbn
 from repro_torch.kernels import cascade_tiered as ct, linkload as ll
+from repro_torch.kernels.cascade_common import red_mark, segment_sum
 from repro_torch.netsim.topology import Topology
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -158,8 +159,7 @@ def integrate_queue(queue, arrival, capacity, queue_mask, dparams, *, dt: float,
     own arrival vector (DRILL's spray); queue, arrival f32[B, n_links + 1]."""
     new_queue = torch.clamp(queue + (arrival - capacity) * dt / 8.0, 0.0,
                             qmax_bytes) * queue_mask
-    p_mark = ct.red_mark(new_queue, dparams.kmin_bytes, dparams.kmax_bytes,
-                         dparams.pmax)
+    p_mark = red_mark(new_queue, dparams.kmin_bytes, dparams.kmax_bytes, dparams.pmax)
     p_mark[:, n_links] = 0.0
     return new_queue, p_mark
 
@@ -195,7 +195,7 @@ def drill_spray(topo: Topology, queue, rc0, src, dst, src_leaf, dst_leaf, active
     oh_d = (dst_leaf.to(torch.int64)[..., None] == leaves).to(torch.float32)
     arrival = torch.zeros((B, nl + 1), dtype=torch.float32, device=dev)
     # hop 0: host NIC
-    tx_load = ct._segment_sum(rc0, src, H)  # [B, H]
+    tx_load = segment_sum(rc0, src, H)  # [B, H]
     arrival[:, h0: h0 + H] = tx_load
     s_tx = torch.clamp(cap[h0 + src.to(torch.int64)]
                        / torch.clamp(take(tx_load, src), min=1.0), max=1.0)
@@ -215,7 +215,7 @@ def drill_spray(topo: Topology, queue, rc0, src, dst, src_leaf, dst_leaf, active
     r2 = r1 * torch.matmul(oh_d, s_dn)
     # hop 3: receiver NIC
     r2sum = r2.sum(-1)
-    rx_load = ct._segment_sum(r2sum, dst, H)
+    rx_load = segment_sum(r2sum, dst, H)
     arrival[:, h0 + H: h0 + 2 * H] = rx_load
     s_rx = torch.clamp(cap[h0 + H + dst.to(torch.int64)]
                        / torch.clamp(take(rx_load, dst), min=1.0), max=1.0)

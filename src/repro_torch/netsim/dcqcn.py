@@ -8,7 +8,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.cascade_tiered import red_mark
+from repro_torch.kernels.cascade_common import red_mark
 
 
 class DCQCNParams(NamedTuple):

@@ -257,3 +257,23 @@ def test_cluster_size_balances_links():
     assert tct.cluster_size(2048, 4, 2081) == 4
     assert tct.cluster_size(2048, 4, 449) == 8
     assert tct.cluster_size(5, 4, 51) == 1
+
+
+@pytest.mark.parametrize("kernel,rows,per_row,n_links,C", [
+    ("flat", 21504, 1, 449, 16),        # fig12: B=2, W=5376 x N=4, sim_2tier
+    ("flat", 224464, 1, 449, 16),       # the dense engine's shape
+    ("flat", 8192, 1, 2081, 4),         # three_tier
+    ("flat", 4000, 1, 449, 8),          # ragged: W=1000 x N=4
+    ("linkload", 21504, 4, 448, 16),    # the fig12 flat shape
+    ("linkload", 8192, 6, 512, 16),     # bench_kernels
+])
+def test_flat_and_linkload_cluster_sizes_at_the_smoke_shapes(kernel, rows, per_row, n_links, C):
+    """The cluster size the flat cascade's wrapper (cluster_size(n, 1,
+    L + 1)) and linkload's (cluster_size(n, hops, L)) ask for at the shapes
+    chip_smoke.py times them at."""
+    from repro_torch.kernels import cascade_common as tcc
+
+    assert tcc.cluster_size(rows, per_row, n_links) == C
+    if kernel == "flat":
+        topo = tt.three_tier(device="cpu") if n_links == 2081 else tt.sim_2tier(device="cpu")
+        assert topo.n_links + 1 == n_links

@@ -257,10 +257,71 @@ def test_tiered_cluster_sizes_on_the_card(cuda, B, W, N, L, C):
     qmask[L] = 0.0
     before = dict(ct.cascade_tiered.cluster_launches)
     got = ct.cascade_tiered(fab, tx, rx, rates, queue, cap, qmask, **KW)
-    now = ct.cascade_tiered.cluster_launches
-    assert {k: now[k] - before.get(k, 0) for k in now if now[k] != before.get(k, 0)} == {C: 1}
+    assert _tally_delta(ct.cascade_tiered.cluster_launches, before) == {C: 1}
     _close(ct.cascade_tiered_torch(fab, tx, rx, rates, queue, cap, qmask, **KW), got, TOLS)
     assert float(got[0][:, L].abs().max()) == 0.0 and float(got[2][:, L].abs().max()) == 0.0
+
+
+def _tally_delta(tally, before):
+    return {k: tally[k] - before.get(k, 0) for k in tally if tally[k] != before.get(k, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,H,L,C", [
+    (2, 20, 4, 50, 1),        # C = 1
+    (2, 203, 4, 50, 4),       # an intermediate C, n not a multiple of it
+    (1, 5001, 4, 50, 16),     # the largest C, n not a multiple of it
+    (2, 3, 4, 0, 4),          # n < C: a CTA owns no sub-flow (every hop absent)
+    (2, 8193, 6, 2080, 4),    # three_tier's link count
+])
+def test_flat_cluster_sizes_on_the_card(cuda, B, n, H, L, C):
+    """The flat kernel over clusters of 1 to 16 CTAs against its plain
+    version, with absent hops; the wrapper launches the cluster size that
+    cluster_size gives and counts it."""
+    assert ct.cluster_size(n, 1, L + 1) == C
+    rng = np.random.default_rng(n)
+    lid = torch.as_tensor(rng.integers(-1, L, (B, n, H)), dtype=torch.int32, device=cuda)
+    rates = torch.as_tensor(rng.random((B, n)) * 1e9, dtype=torch.float32, device=cuda)
+    queue = torch.as_tensor(rng.random((B, L + 1)) * 2e6, dtype=torch.float32, device=cuda)
+    cap = torch.full((L + 1,), 4e9, device=cuda)
+    cap[L] = 1e30
+    qmask = torch.ones(L + 1, device=cuda)
+    qmask[L] = 0.0
+    before = dict(ll.linkload_cascade.cluster_launches)
+    got = ll.linkload_cascade(lid, rates, queue, cap, qmask, **KW)
+    assert _tally_delta(ll.linkload_cascade.cluster_launches, before) == {C: 1}
+    _close(ll.linkload_cascade_torch(lid, rates, queue, cap, qmask, **KW), got, TOLS)
+    assert float(got[0][:, L].abs().max()) == 0.0 and float(got[2][:, L].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,hops,L,C", [
+    (10, 2, 50, 1),           # C = 1
+    (51, 4, 50, 4),           # an intermediate C, n not a multiple of it
+    (8193, 6, 512, 16),       # the largest C, n not a multiple of it
+    (3, 200, 50, 8),          # n < C: CTAs that own no row
+    (8191, 4, 2080, 8),       # three_tier's link count
+])
+def test_linkload_cluster_sizes_on_the_card(cuda, n, hops, L, C):
+    """The linkload kernel over clusters of 1 to 16 CTAs against its plain
+    version, with ids of -1 and past L (dropped); the wrapper launches the
+    cluster size that cluster_size gives and counts it."""
+    assert ct.cluster_size(n, hops, L) == C
+    rng = np.random.default_rng(n + hops)
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    lid = t(rng.integers(-1, L + 5, (n, hops)), torch.int32)
+    rates = t(rng.random(n) * 1e9, torch.float32)
+    queue = t(rng.random(L) * 2e6, torch.float32)
+    cap = torch.full((L,), 4e10, device=cuda)
+    kw = dict(kmin=400e3, kmax=1600e3, pmax=0.2, dt=10e-6)
+    before = dict(ll.linkload.cluster_launches)
+    got = ll.linkload(lid, rates, queue, cap, **kw)
+    assert _tally_delta(ll.linkload.cluster_launches, before) == {C: 1}
+    _close(ll.linkload_torch(lid, rates, queue, cap, **kw), got,
+           [dict(rtol=1e-5), dict(rtol=1e-4, atol=1.0), dict(atol=1e-6)])
 
 
 @pytest.mark.gpu
