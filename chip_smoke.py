@@ -49,15 +49,31 @@ Phases, each printed as JSON lines:
   4. agree    the sweep's FCT stats against the JAX package's, recorded in
               src/repro_torch/netsim/fig12_fast_reference.json;
   5. dense    the dense oracle repro_torch.netsim.engine.simulate on the
-              same traces, through the tiered kernel: its FCT stats
-              against the sweep's and the JAX package's under the gates
-              of phase 4, its wall time, us per step and the speedup of
-              the sweep over it;
+              sweep's two alistorage traces, through the tiered kernel:
+              its FCT stats against the sweep's and the JAX package's
+              under the gates of phase 4, its wall time, us per step and
+              the speedup of the sweep over it on those traces;
   6. profile  32 steps of the SeqBalance alistorage batch of the compact
               sweep, and 32 steps of the dense engine on the alistorage
               0.8 trace, under torch.profiler: host ms per step (and per
               phase, compact), the device's busy and idle share, the
-              kernels with the most device time.
+              kernels with the most device time;
+  7. adaptive fixed and adaptive dt (SimConfig(adaptive=True)), back to
+              back per scheme, on three cases: bench_adaptive_dt's
+              collective on leaf_spine(4, 4, 4) and on sim_2tier, and the
+              fig12 sweep; each run against the JAX package's
+              (src/repro_torch/netsim/adaptive_reference.json) under the
+              gates of phase 4, adaptive against fixed too; ff_steps
+              beside the JAX package's (the collectives must
+              fast-forward), the walls and their ratio beside the
+              reference's floors, and the tiered kernel's launches against
+              the stepped steps plus the steady-state checks (none in fig12
+              where the arrival check rules a boundary out);
+  8. faults   the fig12 alistorage 0.5 trace under a drawn fault campaign's
+              wall-clock capacity schedule and 0.5 % loss on spine 0,
+              SeqBalance and ECMP, fixed and adaptive, against the JAX
+              package's; a zero-loss vector against no loss operand, and
+              the static capacity against the schedule.
 
 Then a "kernels" line and, last, {"ok": true, "device": {...}}.  Any
 failure exits non-zero before that line; so does a machine without CUDA
@@ -98,6 +114,9 @@ OUTPUTS = ("arrival", "queue", "mark", "thr")
 GATES = {"completion_rate": 1e-3, "avg_slowdown": 5e-3, "p99_slowdown": 2e-2}
 FIG12_SCHEMES = ("drill", "ecmp", "seqbalance", "letflow", "conga")
 FIG12_CASES = [(wl, load) for wl in ("alistorage", "websearch") for load in (0.5, 0.8)]
+# the dense oracle (phase 5) runs the alistorage cases, the largest, alone:
+# phases 7 and 8 took its time for the websearch ones
+DENSE_CASES = 2
 # the target of ROADMAP.md for the port against the oracle, reported beside the gates
 TARGET = 1e-4
 # tests/test_kernels.py: flash attention fp32 2e-5, with a softcap 3e-5, bf16 2e-2
@@ -763,10 +782,15 @@ def phase_sweep():
     reset_counts()
     for scheme in FIG12_SCHEMES:
         cfg = engine.SimConfig(scheme=scheme, duration_s=10e-3, uplink_sample_every=10)
-        t0 = time.time()
-        (results, _), = sweep.run_jobs([(topo, cfg, traces)], device=DEVICE)
-        torch.cuda.synchronize()
-        walls[scheme] = time.time() - t0
+        # the two F buckets (alistorage, websearch) as run_batch groups
+        # them, one job each, so that phase 5 has the alistorage wall
+        results, walls[scheme] = [], {}
+        for wl, part in (("alistorage", traces[:2]), ("websearch", traces[2:])):
+            t0 = time.time()
+            (res, _), = sweep.run_jobs([(topo, cfg, part)], device=DEVICE)
+            torch.cuda.synchronize()
+            walls[scheme][wl] = time.time() - t0
+            results += res
         buckets = {}
         for (wl, load), trace, res in zip(FIG12_CASES, traces, results):
             s = metrics.fct_stats(res, trace, topo, 100e9)
@@ -782,10 +806,12 @@ def phase_sweep():
                   "steps": res.steps})
         if scheme != "drill":
             expected += sum(buckets.values())
-        emit({"phase": "sweep", "scheme": scheme, "wall_s": walls[scheme]})
+        emit({"phase": "sweep", "scheme": scheme, "wall_s": sum(walls[scheme].values()),
+              "wall_s_by_workload": walls[scheme]})
     counts, by = read_counts(), read_tallies()
     launches = counts["cascade_tiered"]
-    emit({"phase": "sweep", "wall_s": sum(walls.values()), "kernel_launches": counts,
+    emit({"phase": "sweep", "wall_s": sum(sum(w.values()) for w in walls.values()),
+          "kernel_launches": counts,
           "launches_by_route_or_cluster": by, "steps_needing_the_kernel": expected})
     check(launches >= expected > 0,
           f"cascade_tiered launched {launches} times for {expected} steps")
@@ -829,8 +855,9 @@ def phase_agree(stats):
 
 def phase_dense(compact_stats, compact_walls):
     """The dense oracle engine.simulate, one simulation per trace, 1000
-    steps each, on the sweep's traces; its stats against the sweep's and
-    the JAX package's."""
+    steps each, on the sweep's alistorage traces (DENSE_CASES); its stats
+    against the sweep's and the JAX package's, its walls against the
+    sweep's on the same traces."""
     import types
 
     import torch
@@ -843,7 +870,7 @@ def phase_dense(compact_stats, compact_walls):
     for scheme in FIG12_SCHEMES:
         cfg = engine.SimConfig(scheme=scheme, duration_s=10e-3, uplink_sample_every=10)
         walls[scheme] = 0.0
-        for (wl, load), trace in zip(FIG12_CASES, traces):
+        for (wl, load), trace in zip(FIG12_CASES[:DENSE_CASES], traces):
             t0 = time.time()
             st, outs = engine.simulate(topo, cfg, trace, device=DEVICE)
             finish = st.finish.cpu().numpy()
@@ -860,13 +887,14 @@ def phase_dense(compact_stats, compact_walls):
                   "avg_slowdown": s["avg_slowdown"], "p99_slowdown": s["p99_slowdown"],
                   "completion_rate": s["completion_rate"]})
     counts, by = read_counts(), read_tallies()
-    expected = 1000 * len(FIG12_CASES) * (len(FIG12_SCHEMES) - 1)  # all but DRILL
+    expected = 1000 * DENSE_CASES * (len(FIG12_SCHEMES) - 1)  # all but DRILL
     total = sum(walls.values())
+    compact = {k: compact_walls[k]["alistorage"] for k in walls}
     emit({"phase": "dense", "wall_s": total, "wall_s_by_scheme": walls,
           "steps": steps, "us_per_step": total / steps * 1e6, "kernel_launches": counts,
           "launches_by_route_or_cluster": by, "steps_needing_the_kernel": expected,
-          "speedup_compact_over_dense": total / sum(compact_walls.values()),
-          "speedup_by_scheme": {k: walls[k] / compact_walls[k] for k in walls}})
+          "speedup_compact_over_dense": total / sum(compact.values()),
+          "speedup_by_scheme": {k: walls[k] / compact[k] for k in walls}})
     check(counts["cascade_tiered"] == expected,
           f"dense: cascade_tiered launched {counts['cascade_tiered']} times for {expected}")
     compare_stats("dense", stats, compact_stats, "compact_sweep")
@@ -925,7 +953,7 @@ def phase_profile(warm_steps: int = 100, steps: int = 32):
     cfg = engine.SimConfig(scheme="seqbalance", duration_s=10e-3, uplink_sample_every=10)
     prepped = [compact.sort_trace(t) for t in traces[:2]]  # the alistorage cases
     F_pad, W, A, padded = sweep.plan_group(topo, cfg, prepped)  # as the sweep plans it
-    init, step = compact.build_compact_sim(
+    init, step, _ = compact.build_compact_sim(
         topo, cfg, sweep.stack_group(padded, [0, 1], topo.device), W, F_pad, A)
     row, events = profile_steps(step, init(), warm_steps, steps)
     names = ("admit", "cascade", "dcqcn", "finish")
@@ -941,6 +969,211 @@ def phase_profile(warm_steps: int = 100, steps: int = 32):
     W = len(trace.sizes)
     emit({"phase": "profile", "engine": "dense", "scheme": cfg.scheme, "case": "alistorage_0.8",
           "B": 1, "W": W, "C": ct.cluster_size(W, 4, topo.n_links + 1), **row})
+
+
+# benchmarks/paper_benches.py:458-465: the reference's floors on the adaptive
+# engine's speedup over fixed dt; printed beside the ratios, not gated (a
+# scheme's wall moves by up to 25 % between runs on the chip's host)
+SPEED_FLOORS = {"collective": 2.0, "fig12": 0.85}
+
+
+def adaptive_reference() -> dict:
+    return json.loads((SRC / "repro_torch" / "netsim" / "adaptive_reference.json").read_text())
+
+
+def collective_trace(topo, size: float):
+    """benchmarks/paper_benches.py::bench_adaptive_dt's trace: a 4-chunk
+    bidirectional ring of 8 with 800 us compute gaps between rounds."""
+    from repro_torch.dist import collectives, cosim
+    from repro_torch.netsim import workloads
+
+    plan = collectives.PathPlan(n_chunks=4, directions=(1, -1, 1, -1))
+    return workloads.collective_trace(plan, cosim.ring_hosts(topo, 8), size, link_bw=100e9,
+                                      round_gap_s=800e-6, seed=0, steer_paths=topo.n_paths)
+
+
+def gated_diffs(stats: dict, ref: dict, what: str) -> dict:
+    """The largest stat_diffs of ``stats[key]`` from ``ref[key]``; fails
+    past GATES."""
+    worst = {k: 0.0 for k in GATES}
+    for key, st in stats.items():
+        for k, v in stat_diffs(st, ref[key]).items():
+            worst[k] = max(worst[k], v)
+    for k, v in worst.items():
+        check(v <= GATES[k], f"{what}: {k} differs by {v} > {GATES[k]}")
+    return worst
+
+
+def finish_agreement(got, want, dt: float) -> dict:
+    """The same set of finished flows? The share of them within one dt,
+    the largest gap, and whether the two are equal.  ``alike``: the same
+    finished flows and at least 99 % of them within one dt, the agreement
+    tests/test_torch_kernels_gpu.py asks of the card against the CPU (two
+    runs of one program on the card differ in a few finish times: the
+    kernels sum their float loads with atomics, in no fixed order)."""
+    done = np.isfinite(got) & np.isfinite(want)
+    gap = np.abs(got[done] - want[done])
+    same = bool(np.array_equal(np.isfinite(got), np.isfinite(want)))
+    within = float((gap <= dt + 1e-9).mean()) if done.any() else 1.0
+    return {"same_finished": same, "within_dt": within,
+            "max_gap_s": float(gap.max()) if done.any() else 0.0,
+            "equal": bool(np.array_equal(got, want)), "alike": same and within >= 0.99}
+
+
+def timed_run(topo, cfg, traces, **operands):
+    """One run_jobs job (run_batch of ``traces``) on the card with the
+    counts set to 0 just before: (results, wall, tiered launches, the
+    loop counts of compact.run_core it moved)."""
+    import torch
+
+    from repro_torch.netsim import compact, sweep
+
+    reset_counts()
+    before = dict(compact.run_core.counts)
+    t0 = time.time()
+    (results, _), = sweep.run_jobs([(topo, cfg, traces, operands)], device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    loop = {k: compact.run_core.counts[k] - before[k] for k in before}
+    return results, wall, read_counts()["cascade_tiered"], loop
+
+
+def check_launches(what: str, scheme: str, launches: int, loop: dict) -> int:
+    """The tiered kernel ran once per stepped step and once per
+    steady-state check (a fast-forward reuses its check's cascade); never
+    for DRILL."""
+    want = 0 if scheme == "drill" else loop["scanned_steps"] + loop["steady_checks"]
+    check(launches == want, f"{what} {scheme}: cascade_tiered launched {launches} times, "
+                            f"expected {want} ({loop})")
+    return want
+
+
+def phase_adaptive() -> int:
+    """Adaptive dt against fixed dt on the card, each against the JAX
+    package's (src/repro_torch/netsim/adaptive_reference.json): the
+    collective of bench_adaptive_dt on leaf_spine(4, 4, 4) and on sim_2tier,
+    and the fig12 fast sweep.  The two modes of a scheme run back to back,
+    the first of them alternating from scheme to scheme, so that their
+    walls meet the host in one state.  Returns the tiered kernel's
+    launches."""
+    from repro_torch.netsim import engine, metrics, topology
+
+    ref = adaptive_reference()["cases"]
+    ls444 = topology.leaf_spine(4, 4, 4, 100e9, device=DEVICE)
+    sim2 = topology.sim_2tier(device=DEVICE)
+    fig_topo, fig_traces = fig12_traces()
+    col = dict(duration_s=14e-3, uplink_sample_every=10)
+    fig = dict(duration_s=10e-3, uplink_sample_every=10)
+    fig_names = [f"{wl}_{load}" for wl, load in FIG12_CASES]
+    cases = (("collective_ls444", "collective", ls444, col, [collective_trace(ls444, 4e6)],
+              ["collective"], ("seqbalance",)),
+             ("collective_sim2tier", "collective", sim2, col, [collective_trace(sim2, 8e6)],
+              ["collective"], ("seqbalance", "ecmp", "letflow")),
+             ("fig12_adaptive", "fig12", fig_topo, fig, fig_traces, fig_names, FIG12_SCHEMES))
+    total = 0
+    for name, kind, topo, cfg_kw, traces, names, schemes in cases:
+        check(ref[name]["flows"] == [int(t.valid.sum()) for t in traces],
+              f"{name}: the traces are not the reference's")
+        case_walls = {"fixed": 0.0, "adaptive": 0.0}
+        for i, scheme in enumerate(schemes):
+            row, finish = {}, {}
+            for mode in ("fixed", "adaptive") if i % 2 == 0 else ("adaptive", "fixed"):
+                jax = {(scheme, n): ref[name]["runs"][scheme][mode][n] for n in names}
+                cfg = engine.SimConfig(scheme=scheme, adaptive=mode == "adaptive", **cfg_kw)
+                results, wall, launched, loop = timed_run(topo, cfg, traces)
+                total += check_launches(f"{name} {mode}", scheme, launched, loop)
+                stats = {(scheme, n): metrics.fct_stats(r, t, topo, 100e9)
+                         for n, r, t in zip(names, results, traces)}
+                finish[mode] = [r.finish for r in results]
+                ff = [r.ff_steps for r in results]
+                row[f"{mode}_loop"] = dict(loop, launches=launched)
+                if mode == "adaptive" and kind == "fig12":
+                    check(loop["checks_ruled_out"] == 0,
+                          f"{name} {scheme}: {loop['checks_ruled_out']} steady-state "
+                          "checks where the arrival check ruled every simulation out")
+                case_walls[mode] += wall
+                worst = gated_diffs(stats, jax, f"{name} {scheme} {mode} vs the JAX package")
+                row[mode] = {"wall_s": wall, "ff_steps": ff,
+                             "jax_ff_steps": [jax[(scheme, n)]["ff_steps"] for n in names],
+                             "vs_jax": worst,
+                             "target_held": all(v <= TARGET for v in worst.values())}
+                row[f"{mode}_stats"] = stats
+            if kind == "collective":
+                check(all(f > 0 for f in row["adaptive"]["ff_steps"]),
+                      f"{name} {scheme}: the adaptive run fast-forwarded no step")
+            gap = gated_diffs(row.pop("adaptive_stats"), row.pop("fixed_stats"),
+                              f"{name} {scheme} adaptive vs fixed on the card")
+            agree = [finish_agreement(a, f, 10e-6) for a, f in zip(finish["adaptive"],
+                                                                  finish["fixed"])]
+            emit({"phase": "adaptive", "case": name, "scheme": scheme, "traces": names,
+                  **row, "speedup": row["fixed"]["wall_s"] / row["adaptive"]["wall_s"],
+                  "adaptive_vs_fixed": {"stats": gap, "finish": agree}})
+        ratio = case_walls["fixed"] / case_walls["adaptive"]
+        emit({"phase": "adaptive", "case": name, "fixed_wall_s": case_walls["fixed"],
+              "adaptive_wall_s": case_walls["adaptive"], "speedup": ratio,
+              "reference_floor": SPEED_FLOORS[kind],
+              "floor_met": ratio >= SPEED_FLOORS[kind]})
+    return total
+
+
+def phase_faults() -> int:
+    """The fig12 alistorage 0.5 trace on sim_2tier under a fault campaign:
+    bench_cosim's draw (seed 17, 8 epochs, 3 faults, a ring of 8) at epoch 3
+    as a wall-clock capacity schedule, its stride aligned to the chunk, and
+    0.5 % loss on spine 0; SeqBalance and ECMP, fixed and adaptive dt, each
+    against the JAX package's.  A zero-loss vector must give the finish
+    times of no loss operand, and the static capacity other ones than the
+    schedule, each as ``finish_agreement`` judges two runs on the card.
+    Returns the tiered kernel's launches."""
+    from repro_torch.netsim import compact, engine, faults, metrics, topology
+
+    ref = adaptive_reference()["cases"]["faults"]
+    topo, traces = fig12_traces()
+    trace = traces[0]
+    check(ref["flows"] == [int(trace.valid.sum())], "faults: not the reference's trace")
+    cfg_kw = dict(duration_s=10e-3, uplink_sample_every=10)
+    cfg = engine.SimConfig(**cfg_kw)
+    n_steps = int(round(cfg.duration_s / cfg.dt))
+    camp = faults.random_campaign(topo, seed=17, epochs=8, n_faults=3, n_ranks=8)
+    loss = np.zeros(topo.n_links + 1, np.float32)
+    loss[list(topology.spine_links(topo, 0))] = 0.005
+    sched = camp.capacity_schedule(topo, 3)
+    seg = camp.seg_steps(n_steps, align=compact.plan_chunks(cfg, n_steps)[0])
+    ops = dict(capacity=sched, loss=loss, cap_seg_steps=seg)
+    total, finish = 0, {}
+    for scheme in ("seqbalance", "ecmp"):
+        for mode in ("fixed", "adaptive"):
+            cfg = engine.SimConfig(scheme=scheme, adaptive=mode == "adaptive", **cfg_kw)
+            (res,), wall, launched, loop = timed_run(topo, cfg, [trace], **ops)
+            total += check_launches(f"faults {mode}", scheme, launched, loop)
+            finish[scheme, mode] = res.finish
+            s = metrics.fct_stats(res, trace, topo, 100e9)
+            want = ref["runs"][scheme][mode]["alistorage_0.5"]
+            worst = gated_diffs({0: s}, {0: want}, f"faults {scheme} {mode} vs the JAX package")
+            emit({"phase": "faults", "scheme": scheme, "mode": mode, "wall_s": wall,
+                  "ff_steps": res.ff_steps, "jax_ff_steps": want["ff_steps"],
+                  "completion_rate": s["completion_rate"], "avg_slowdown": s["avg_slowdown"],
+                  "p99_slowdown": s["p99_slowdown"], "vs_jax": worst,
+                  "target_held": all(v <= TARGET for v in worst.values()),
+                  "cap_seg_steps": seg, "loop": dict(loop, launches=launched)})
+        agree = finish_agreement(finish[scheme, "adaptive"], finish[scheme, "fixed"], 10e-6)
+        emit({"phase": "faults", "scheme": scheme, "adaptive_vs_fixed": agree})
+    cfg = engine.SimConfig(scheme="ecmp", **cfg_kw)
+    variants = {"zero_loss": dict(capacity=sched, cap_seg_steps=seg,
+                                  loss=np.zeros(topo.n_links + 1, np.float32)),
+                "no_loss": dict(capacity=sched, cap_seg_steps=seg),
+                "static_capacity": dict(capacity=topo.capacity, loss=loss)}
+    got = {}
+    for v, kw in variants.items():
+        (res,), _, launched, loop = timed_run(topo, cfg, [trace], **kw)
+        total += check_launches(f"faults {v}", "ecmp", launched, loop)
+        got[v] = res.finish
+    zero = finish_agreement(got["zero_loss"], got["no_loss"], 10e-6)
+    static = finish_agreement(got["static_capacity"], finish["ecmp", "fixed"], 10e-6)
+    emit({"phase": "faults", "zero_loss_vs_no_loss": zero, "static_vs_schedule": static})
+    check(zero["alike"], "faults: a zero-loss vector moved ECMP's finish times")
+    check(not static["alike"], "faults: the static capacity gave the schedule's finish times")
+    return total
 
 
 def cluster_sweep() -> None:
@@ -1007,6 +1240,8 @@ def main() -> int:
         phase_agree(stats)
         dense_counts = phase_dense(stats, walls)
         phase_profile()
+        adaptive_launches = phase_adaptive()
+        fault_launches = phase_faults()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1016,7 +1251,9 @@ def main() -> int:
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
         if name == "cascade_tiered":
-            launches = sweep_counts[name]  # the main path: the fig12 sweep
+            # the main path: the fig12 sweep, the adaptive and the fault phases
+            by_path.update(adaptive=adaptive_launches, faults=fault_launches)
+            launches = sweep_counts[name] + adaptive_launches + fault_launches
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]

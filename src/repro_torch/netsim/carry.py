@@ -20,16 +20,12 @@ from repro_torch.core.congestion_table import CongestionTable
 from repro_torch.netsim.engine import SimConfig
 from repro_torch.netsim.workloads import Trace
 
-# knobs of the reference's adaptive dt, which has no counterpart yet
-_ADAPTIVE_ONLY = ("ff_macro_chunks", "ff_kmin_frac", "ff_margin_steps")
-
-
 def config_from_dict(d: dict) -> SimConfig:
     """SimConfig from ``dataclasses.asdict`` of a reference SimConfig, with
     ``dcqcn`` as a dict (or any NamedTuple of the same fields).  Fields
-    the port has no use for (``mark_salt``, the adaptive-dt margins) are
-    dropped and the dataplane backend becomes ``"auto"``; ``adaptive=True``
-    raises as the port's SimConfig does."""
+    the port has no use for (``mark_salt``) are dropped and the dataplane
+    backend becomes ``"auto"``; ``adaptive`` and its ``ff_*`` knobs come
+    across as they are."""
     d = dict(d)
     dc = d.pop("dcqcn", None)
     if dc is not None:
@@ -37,8 +33,7 @@ def config_from_dict(d: dict) -> SimConfig:
         d["dcqcn"] = dcqcn_mod.DCQCNParams(**dc)
     if "dataplane" in d:  # the reference's backend names a TPU choice; here
         d["dataplane"] = "auto"  # the device of the tensors picks the kernel
-    for k in ("mark_salt", *_ADAPTIVE_ONLY):
-        d.pop(k, None)
+    d.pop("mark_salt", None)
     names = {f.name for f in dataclasses.fields(SimConfig)}
     unknown = set(d) - names
     if unknown:
@@ -92,6 +87,7 @@ def compact_state_from_numpy(leaves: dict, device) -> CompactState:
         cnp_pkts=t(lv["cnp_pkts"]),
         spill_steps=t(lv["spill_steps"], torch.int64),
         step=t(lv["step"], torch.int64),
+        ff_steps=t(lv["ff_steps"], torch.int64),
         cache=SlotCache(
             tx=t(cache["tx"], torch.int32), rx=t(cache["rx"], torch.int32),
             fab=t(cache["fab"], torch.int32), sleaf=t(cache["sleaf"], torch.int32),

@@ -1,5 +1,5 @@
 """Active-window compacted fluid simulator, mirroring
-``repro.netsim.compact`` with fixed ``dt``.
+``repro.netsim.compact``.
 
 Flows are sorted by arrival and a compact ``[W, N]`` working set of slots
 carries the flows in flight:
@@ -23,9 +23,18 @@ gate only saves time; results are identical without it).
 
 If the window W is too small, arrivals wait at the NIC and admit as slots
 free; ``spill_steps`` counts the steps where that happened.
+
+Two traced operands of the reference ride along: ``capacity`` (a vector,
+or a wall-clock schedule of rows stepped every ``cap_seg_steps`` steps)
+in place of the topology's, and ``loss``, per-link loss rates that
+deflate delivered throughput by the go-back-N factor.  With
+``SimConfig.adaptive`` each chunk boundary also checks for quiescence and
+advances quiet simulations a whole macro-step in closed form
+(``run_core``).
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -71,6 +80,7 @@ class CompactState(NamedTuple):
     cnp_pkts: torch.Tensor  # f32[B]
     spill_steps: torch.Tensor  # i64[B] steps where an arrived flow found no slot
     step: torch.Tensor  # i64[B]
+    ff_steps: torch.Tensor  # i64[B] steps advanced by the quiescence fast-forward
     cache: SlotCache
 
 
@@ -82,6 +92,7 @@ class CompactResult(NamedTuple):
     spill_steps: int
     window_slots: int = 0  # W the (final) run used
     steps: int = 0  # dt steps the run executed before its early exit
+    ff_steps: int = 0  # of those, the steps covered by the closed-form fast-forward
 
 
 def max_concurrency_bound(sizes, arrivals, valid, line_rate: float, *,
@@ -138,6 +149,28 @@ def plan_chunks(cfg: SimConfig, n_steps: int) -> tuple[int, int, int]:
     return K0, n_steps // K0, n_steps % K0
 
 
+def event_grid(cfg: SimConfig, n_steps: int, arrivals=None, valid=None,
+               cap_seg_steps: int = 0) -> np.ndarray:
+    """The step boundaries that no macro-step may cross, host-side: flow
+    arrival steps, capacity-segment edges and uplink sample-window edges.
+    The adaptive engine keeps to it by construction: macro-steps are whole
+    chunks (K a multiple of the sample window, ``plan_chunks``), and the
+    quiescence check refuses a span with an arrival or a segment edge."""
+    edges = [np.array([0, n_steps], np.int64)]
+    if arrivals is not None:
+        a = np.asarray(arrivals, np.float64)
+        if valid is not None:
+            a = a[np.asarray(valid, bool)]
+        a = a[np.isfinite(a)]
+        steps = np.ceil(a / cfg.dt).astype(np.int64)
+        edges.append(steps[(steps >= 0) & (steps <= n_steps)])
+    if cap_seg_steps and cap_seg_steps > 0:
+        edges.append(np.arange(0, n_steps + 1, cap_seg_steps, dtype=np.int64))
+    if cfg.uplink_sample_every > 1:
+        edges.append(np.arange(0, n_steps + 1, cfg.uplink_sample_every, dtype=np.int64))
+    return np.unique(np.concatenate(edges))
+
+
 def sort_trace(trace: Trace) -> tuple[tuple, np.ndarray, int]:
     """Sort a trace by arrival (invalid flows last at +inf).  Returns
     (sorted arrays tuple, inverse permutation, n_flows)."""
@@ -187,9 +220,20 @@ def trace_tensors(stacked: tuple, device) -> tuple:
             torch.as_tensor(valid, dtype=torch.bool, device=device))
 
 
+def line_rate_for(topo: Topology, capacity=None) -> float:
+    """The DCQCN line rate: host_tx[0]'s bandwidth in ``capacity`` (row 0
+    of a schedule), or in the topology's when it is None."""
+    if capacity is None:
+        return line_rate_of(topo)
+    cap0 = capacity[0] if capacity.dim() == 2 else capacity
+    return float(cap0[topo.n_links - 2 * topo.n_hosts])
+
+
 def init_compact_state(topo: Topology, cfg: SimConfig, W: int, F_pad: int,
-                       B: int = 1) -> CompactState:
-    """Fresh all-slots-empty state on the topology's device."""
+                       B: int = 1, capacity=None) -> CompactState:
+    """Fresh all-slots-empty state on the topology's device.  ``capacity``
+    (the traced operand of ``build_compact_sim``) sets the line rate the
+    DCQCN state starts at."""
     dev = topo.device
     N = cfg.n_sub
     hf = topo.n_fabric_hops
@@ -207,7 +251,7 @@ def init_compact_state(topo: Topology, cfg: SimConfig, W: int, F_pad: int,
         remaining=torch.zeros((B, W, N), dtype=torch.float32, device=dev),
         path=torch.full((B, W, N), -1, dtype=torch.int32, device=dev),
         sub_done=torch.zeros((B, W, N), dtype=torch.bool, device=dev),
-        cc=dcqcn_mod.init_state((B, W, N), line_rate_of(topo), dev),
+        cc=dcqcn_mod.init_state((B, W, N), line_rate_for(topo, capacity), dev),
         cqe_bitmap=zi(B, W, dtype=torch.int64),
         admitted=zi(B, dtype=torch.int64),
         finish=torch.full((B, F_pad), torch.inf, dtype=torch.float32, device=dev),
@@ -216,17 +260,30 @@ def init_compact_state(topo: Topology, cfg: SimConfig, W: int, F_pad: int,
         cnp_pkts=torch.zeros((B,), dtype=torch.float32, device=dev),
         spill_steps=zi(B, dtype=torch.int64),
         step=zi(B, dtype=torch.int64),
+        ff_steps=zi(B, dtype=torch.int64),
         cache=cache,
     )
 
 
 def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: int,
-                      F_pad: int, A: int):
+                      F_pad: int, A: int, capacity=None, loss=None, cap_seg_steps: int = 0):
     """trace_arrays = (sizes, arrivals, src, dst, fid, valid), tensors
     [B, F_pad] on the topology's device, each row SORTED by arrival
-    (invalid flows last, arrival = +inf).  Returns (init_state, step_fn);
-    ``step_fn(state) -> (state, StepOutputs)`` advances all B simulations
-    by one ``dt``."""
+    (invalid flows last, arrival = +inf).
+
+    ``capacity`` (f32[n_links + 1] on the topology's device, sentinel slot
+    included) takes the place of ``topo.capacity``; a schedule
+    f32[K, n_links + 1] feeds row ``min(step // cap_seg_steps, K - 1)`` to
+    each step (the B simulations step in lockstep, so they share it).  The
+    line rate is host_tx[0]'s in row 0.  ``loss`` (f32[n_links + 1])
+    multiplies delivered throughput by ``dataplane.lossy_gbn_factor`` after
+    the cascade, while the offered load stays at the DCQCN rate; it needs
+    ``capacity`` and refuses DRILL, whose spray pins no hops.
+    ``capacity=None`` runs the program without either operand.
+
+    Returns (init_state, step_fn, phases): ``step_fn(state) -> (state,
+    StepOutputs)`` advances all B simulations by one ``dt``; ``phases``
+    holds the adaptive engine's ``quiesce`` and ``fast_forward``."""
     dev = topo.device
     sizes, arrivals, src, dst, fid, valid = trace_arrays[:6]
     B = sizes.shape[0]
@@ -235,9 +292,23 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
     nl = topo.n_links
     if cfg.scheme in ("conga", "drill") and topo.kind != "leaf_spine":
         raise ValueError(f"{cfg.scheme} is 2-tier only (paper §IV.B)")
+    if loss is not None and capacity is None:
+        raise ValueError("the loss operand needs an explicit capacity operand")
+    if loss is not None and cfg.scheme == "drill":
+        raise ValueError("lossy links with DRILL's spray are not modelled (no pinned hops)")
     fc = flow_constants(topo, cfg, sizes, src, dst, fid)
-    line_rate = line_rate_of(topo)
-    cap = topo.capacity
+    line_rate = line_rate_for(topo, capacity)
+    cap = topo.capacity if capacity is None else capacity
+    if cap.dim() == 2:
+        seg, n_rows = max(int(cap_seg_steps), 1), cap.shape[0]
+
+        def cap_of(state):
+            """The schedule's row for the (shared) step, on the device."""
+            row = torch.clamp(state.step[:1] // seg, max=n_rows - 1)
+            return cap.index_select(0, row)[0]
+    else:
+        def cap_of(state):
+            return cap
     qmask = dataplane.queue_mask_for(topo)
     dp = cfg.dcqcn
     full_cqe = (1 << N) - 1
@@ -256,7 +327,7 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
                 for v in (line_rate, line_rate, 1.0, 1.0, 0.0, 0.0))  # dcqcn.init_state
 
     def init_state() -> CompactState:
-        return init_compact_state(topo, cfg, W, F_pad, B)
+        return init_compact_state(topo, cfg, W, F_pad, B, capacity)
 
     def at_rank(x, rank_fid):
         """Gather per-flow constants [B, F_pad, ...] at the lane's flows."""
@@ -359,18 +430,20 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
         rc = torch.where(active, torch.minimum(state.cc.rc, state.remaining * 8.0 / cfg.dt),
                          0.0)
         ca = state.cache
+        capv = cap_of(state)
         if cfg.scheme == "drill":
             arrival, thr, w_spray, pq = dataplane.drill_spray(
                 topo, state.queue, rc[..., 0], ca.src, ca.dst, ca.sleaf, ca.dleaf,
-                active[..., 0:1], cfg.drill_q0)
+                active[..., 0:1], cfg.drill_q0, capacity=capv)
             new_queue, p_mark = dataplane.integrate_queue(
-                state.queue, arrival, cap, qmask, dp, dt=cfg.dt,
+                state.queue, arrival, capv, qmask, dp, dt=cfg.dt,
                 qmax_bytes=cfg.qmax_bytes, n_links=nl)
             p_sub, p_sub_fabric = dataplane.drill_mark_probs(
                 topo, p_mark, w_spray, ca.sleaf, ca.dleaf, ca.dst)
             thr = thr * dataplane.drill_gbn_factor(
                 topo, pq, w_spray, rc[..., 0], mtu_bytes=dp.mtu_bytes,
-                jitter_mtus=cfg.drill_jitter_mtus, window_pkts=cfg.gbn_window_pkts)
+                jitter_mtus=cfg.drill_jitter_mtus, window_pkts=cfg.gbn_window_pkts,
+                capacity=capv)
             thr = thr[..., None]
         else:
             if cached_fab:
@@ -378,11 +451,14 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
             else:
                 fab = topo.fabric_links(ca.sleaf, ca.dleaf, state.path[..., 0])[:, :, None, :]
             arrival, new_queue, p_mark, thr = dataplane.cascade_nic(
-                fab, ca.tx, ca.rx, rc, state.queue, cap, qmask, n_links=nl,
+                fab, ca.tx, ca.rx, rc, state.queue, capv, qmask, n_links=nl,
                 kmin=dp.kmin_bytes, kmax=dp.kmax_bytes, pmax=dp.pmax, dt=cfg.dt,
                 qmax_bytes=cfg.qmax_bytes, backend=cfg.dataplane)
             p_sub, p_sub_fabric = dataplane.subflow_mark_probs_nic(
                 fab, ca.tx, ca.rx, p_mark, nl)
+            if loss is not None:
+                thr = thr * dataplane.lossy_gbn_factor(
+                    fab, ca.tx, ca.rx, loss, n_links=nl, window_pkts=cfg.gbn_window_pkts)
         return arrival, new_queue, thr, p_sub, p_sub_fabric, rc, active
 
     def finish_phase(state: CompactState, t, thr, active, rc, p_sub_fabric):
@@ -445,20 +521,166 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
         )
         return new_state, out
 
-    return init_state, step_fn
+    # ---- adaptive dt: the quiescence check and the closed-form macro-step
+    n_valid = valid.sum(1)
+    flowlet = cfg.scheme in ("letflow", "conga")
+
+    def arrival_check(state: CompactState, span: int) -> torch.Tensor:
+        """bool[B]: no flow arrives inside the ``span`` steps from
+        ``state.step``, so admission is a no-op there (a spill backlog
+        means the next unadmitted arrival is already past, which fails)."""
+        t_end = (state.step + span).to(torch.float32) * cfg.dt
+        nxt = torch.gather(arrivals, 1, torch.clamp(state.admitted, 0, F_pad - 1)[:, None])[:, 0]
+        return (state.admitted >= n_valid) | (nxt >= t_end)
+
+    def steady_or_idle(state: CompactState, span: int):
+        """(bool[B], frozen): each simulation idle (no slot occupied: stale
+        slots offer exactly 0) or in a steady state that ``span`` steps
+        cannot leave — every active sub-flow at rc == rt == line rate, no
+        masked queue able to reach ff_kmin_frac * kmin under the constant
+        offered load, no sub-flow able to finish within span +
+        ff_margin_steps steps, and for the flowlet schemes no occupied slot
+        at a flowlet gap.  DRILL's spray follows the queues, so it only
+        counts idle spans and runs no cascade here.  ``frozen`` is the
+        cascade's (arrival, thr, active) for the fast-forward to reuse."""
+        occupied = state.slot_fid < F_pad
+        idle = ~occupied.any(1)
+        if cfg.scheme == "drill":
+            return idle, None
+        arrival, _, thr, _, _, rc, active = cascade_phase(state)
+        delta = (arrival - cap_of(state)) * (cfg.dt / 8.0)
+        q_hi = torch.maximum(state.queue, state.queue + delta * span) * qmask
+        p_q = (q_hi[:, :nl] < cfg.ff_kmin_frac * dp.kmin_bytes).all(1)
+        margin = span + max(cfg.ff_margin_steps, 1)
+        need = rc * (margin * cfg.dt / 8.0) + DONE_EPS_BYTES
+        p_fin = torch.where(active, state.remaining > need, True).flatten(1).all(1)
+        pinned = (state.cc.rc == line_rate) & (state.cc.rt == line_rate)
+        p_cc = torch.where(active, pinned, True).flatten(1).all(1)
+        steady = p_q & p_fin & p_cc
+        if flowlet:
+            gap = baselines.flowlet_gap_occurs(state.cc.rc[..., 0], dp.mtu_bytes,
+                                               cfg.flowlet_timeout)
+            steady = steady & ~(gap & occupied).any(1)
+        return idle | steady, (arrival, thr, active)
+
+    def quiesce_phase(state: CompactState, span: int):
+        """The reference's quiescence predicate for a ``span``-step
+        macro-step from ``state.step``, per simulation: (cheap, quiet,
+        frozen), ``cheap`` the arrival check, ``quiet`` it and the steady
+        check.  The capacity-edge check depends on the shared step alone,
+        so the caller makes it on the host before it calls this."""
+        cheap = arrival_check(state, span)
+        steady, frozen = steady_or_idle(state, span)
+        return cheap, cheap & steady, frozen
+
+    def fast_forward_phase(state: CompactState, span: int, counted, frozen=None):
+        """Advance ``span`` steps in closed form, exact where
+        ``quiesce_phase`` holds: queues follow the clipped linear
+        trajectory, remaining bytes fall at the frozen delivered rate, DCQCN
+        is timer bookkeeping (``dcqcn.fast_forward``); slots, bitmaps,
+        finishes, the table and the counters stay.  ``ff_steps`` grows by
+        ``span`` where ``counted`` (bool[B]).  ``frozen`` reuses the check's
+        cascade (None: run it).  Returns (state, (uplink f32[B, L, S],
+        goodput f32[B], max_queue f32[B, span])): the per-step outputs are
+        constant over the span but max_queue, and the uplink load is the
+        window average of a constant."""
+        if frozen is None:
+            arrival, _, thr, _, _, _, active = cascade_phase(state)
+        else:
+            arrival, thr, active = frozen
+        q_final, mq_traj = dataplane.queue_fast_forward(
+            state.queue, arrival, cap_of(state), qmask, dt=cfg.dt, n_steps=span,
+            qmax_bytes=cfg.qmax_bytes, n_links=nl)
+        delivered = thr * (span * cfg.dt / 8.0)
+        remaining = torch.clamp(state.remaining - torch.where(active, delivered, 0.0),
+                                min=0.0)
+        cc = dcqcn_mod.fast_forward(state.cc, active, span, cfg.dt, dp)
+        new_state = state._replace(
+            remaining=remaining, cc=cc, queue=q_final, step=state.step + span,
+            ff_steps=state.ff_steps + span * counted.to(torch.int64))
+        goodput = torch.where(active, thr, 0.0).sum((1, 2))
+        return new_state, (arrival[:, uplink_ids], goodput, mq_traj)
+
+    return init_state, step_fn, dict(quiesce=quiesce_phase, fast_forward=fast_forward_phase)
+
+
+class _ArrivalGate:
+    """The arrival check made on the host from the sorted arrivals alone,
+    before any device work: it can rule a span out, never in.  Admission
+    at the last step before boundary k admitted at most the c flows that
+    had arrived by then, so the next unadmitted arrival is at most the
+    c-th; if that one falls inside the span, the device's check fails too
+    (``checks_ruled_out`` counts the checks it let through that failed)."""
+
+    def __init__(self, arrivals: torch.Tensor, n_valid: torch.Tensor, dt: float):
+        self.arr = arrivals.cpu().numpy()
+        self.n_valid = n_valid.cpu().numpy()
+        self.dt = np.float32(dt)
+
+    def may_pass(self, k: int, span: int) -> np.ndarray:
+        t_last = np.nextafter(np.float32(k - 1) * self.dt, np.float32(np.inf))
+        t_end = np.float32(k + span) * self.dt
+        out = np.empty(self.arr.shape[0], bool)
+        for b, (arr, nv) in enumerate(zip(self.arr, self.n_valid)):
+            c = int(np.searchsorted(arr, t_last, side="right"))
+            out[b] = c >= nv or arr[c] >= t_end
+        return out
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(**adds) -> None:
+    with _COUNT_LOCK:
+        for key, n in adds.items():
+            run_core.counts[key] += n
+
+
+def _select(mask: torch.Tensor, a, b):
+    """Simulation b of the result is a's where mask[b], else b's, over
+    every tensor of two states (nested NamedTuples included)."""
+    if isinstance(a, tuple):
+        return type(a)(*(_select(mask, x, y) for x, y in zip(a, b)))
+    return torch.where(mask.reshape(-1, *([1] * (a.dim() - 1))), a, b)
 
 
 def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps: int,
-             trace_arrays: tuple):
-    """Run B simulations to the horizon (or to the early exit).
+             trace_arrays: tuple, *, capacity=None, loss=None, cap_seg_steps: int = 0):
+    """Run B simulations to the horizon (or to the early exit), with the
+    traced ``capacity`` and ``loss`` operands of ``build_compact_sim``.
 
     Returns (final_state, outs, steps): ``outs`` is a StepOutputs of
     [B, n_steps] tensors (uplink_load [B, n_steps // s, L, S], window
     averaged over ``s = cfg.uplink_sample_every`` steps) and ``steps`` the
     dt steps run.  Once every flow has been admitted and finished and the
     queues have drained, the remaining steps are exact no-ops, so the loop
-    stops at the next chunk boundary."""
-    init_state, step_fn = build_compact_sim(topo, cfg, trace_arrays, W, F_pad, A)
+    stops at the next chunk boundary.
+
+    With ``cfg.adaptive`` each chunk boundary checks, per simulation, that
+    the next macro-step (``ff_macro_chunks`` chunks) is quiet
+    (``quiesce_phase``) and fast-forwards quiet simulations in closed form,
+    as the reference's per-simulation ``lax.cond`` does.  The checks that
+    need no device work come first: the horizon, the capacity-schedule
+    edge, and an arrival check on the host (``_ArrivalGate``); only past
+    them is the steady-state check's cascade launched.  The check's flags
+    come back in the chunk boundary's one host sync, with the early-exit
+    test.  If none is quiet the batch steps K steps; if every live one is,
+    the batch fast-forwards; otherwise it steps K steps and the quiet
+    simulations take the fast-forward's state and outputs.  So each
+    simulation ends as it would alone, in lockstep with the others.  With
+    B > 1, ``ff_macro_chunks > 1`` would let the simulations drift apart
+    and raises NotImplementedError (``sweep.run_batch`` runs such a
+    batch one simulation at a time).
+
+    ``run_core.counts`` adds up, over calls, the steps stepped
+    (``scanned_steps``), the steady-state checks that launched a cascade
+    (``steady_checks``; DRILL's launch none), those of them at a boundary
+    where some simulation was live and none of the live ones passed the
+    arrival check (``checks_ruled_out``), and the macro-steps fast-forwarded
+    (``fast_forwards``, of which ``mixed_fast_forwards`` were taken by part
+    of the batch)."""
+    init_state, step_fn, phases = build_compact_sim(
+        topo, cfg, trace_arrays, W, F_pad, A, capacity, loss, cap_seg_steps)
     st = init_state()
     dev = topo.device
     B = trace_arrays[0].shape[0]
@@ -466,16 +688,17 @@ def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps
     n_valid = trace_arrays[5].sum(1)
     s = cfg.uplink_sample_every
     K, n_chunks, tail = plan_chunks(cfg, n_steps)
+    horizon = n_chunks * K
     n_samples = n_steps // s
     up_shape = topo.uplink_ids.shape
     uplink = torch.zeros((B, n_samples, *up_shape), dtype=torch.float32, device=dev)
     per_step = [torch.zeros((B, n_steps), dtype=torch.float32, device=dev) for _ in range(3)]
     up_acc = torch.zeros((B, *up_shape), dtype=torch.float32, device=dev)
 
-    def alive(st) -> bool:
-        return bool(((st.admitted < n_valid)
-                     | (st.slot_fid < F_pad).any(1)
-                     | (st.queue[:, :nl].amax(1) > 0.0)).any())
+    def alive_mask(st) -> torch.Tensor:
+        return ((st.admitted < n_valid)
+                | (st.slot_fid < F_pad).any(1)
+                | (st.queue[:, :nl].amax(1) > 0.0))
 
     k = 0
 
@@ -492,14 +715,74 @@ def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps
                     uplink[:, k // s] = up_acc / s
                 up_acc = torch.zeros_like(up_acc)
             k += 1
+        _count(scanned_steps=length)
         return st
 
-    while k < n_chunks * K and alive(st):
-        st = run_block(st, K)
-    if tail and alive(st):
+    def write_ff(k0, rows, span, up, goodput, mq):
+        """The fast-forward's outputs for steps [k0, k0 + span) of ``rows``
+        (bool[B] tensor, or None for every simulation)."""
+        cols, wins = slice(k0, k0 + span), slice(k0 // s, (k0 + span) // s)
+        new = (goodput[:, None].expand(B, span), torch.zeros_like(mq), mq)
+        for out, v in zip(per_step, new):
+            out[:, cols] = v if rows is None else torch.where(rows[:, None], v, out[:, cols])
+        v = up[:, None].expand_as(uplink[:, wins])
+        uplink[:, wins] = v if rows is None else torch.where(
+            rows.reshape(B, 1, *([1] * len(up_shape))), v, uplink[:, wins])
+
+    if cfg.adaptive:
+        macro = K * cfg.ff_macro_chunks
+        if B > 1 and cfg.ff_macro_chunks > 1:
+            raise NotImplementedError("ff_macro_chunks > 1 lets the simulations of a batch "
+                                      "drift apart: run them one at a time")
+        quiesce, fast_forward = phases["quiesce"], phases["fast_forward"]
+        gate = _ArrivalGate(trace_arrays[1], n_valid, cfg.dt)
+        seg = max(int(cap_seg_steps), 1)
+        n_rows = capacity.shape[0] if capacity is not None and capacity.dim() == 2 else 0
+        live = np.ones(B, bool)  # a simulation that has ended stays ended
+        none = np.zeros(B, bool)
+        while k < horizon:
+            edge_free = n_rows == 0 or (min(k // seg, n_rows - 1)
+                                        == min((k + macro - 1) // seg, n_rows - 1))
+            maybe = (live & gate.may_pass(k, macro)
+                     if edge_free and k + macro <= horizon else none)
+            quiet, frozen = none, None
+            if maybe.any():
+                cheap, quiet_t, frozen = quiesce(st, macro)
+                live, cheap, quiet = torch.stack([alive_mask(st), cheap, quiet_t]).cpu().numpy()
+                cheap, quiet = cheap & live, quiet & live
+                if frozen is not None:  # a check at the exit boundary is not ruled out
+                    _count(steady_checks=1,
+                           checks_ruled_out=int(live.any() and not cheap.any()))
+            else:
+                live = alive_mask(st).cpu().numpy()
+            if not live.any():
+                break
+            if not quiet.any():
+                st = run_block(st, K)
+                continue
+            rows = torch.as_tensor(quiet, device=dev)
+            st_ff, (up, goodput, mq) = fast_forward(st, macro, rows, frozen)
+            if (quiet | ~live).all():
+                write_ff(k, None, macro, up, goodput, mq)
+                st = st_ff
+                k += macro
+                _count(fast_forwards=1)
+            else:
+                k0 = k
+                st = _select(rows, st_ff, run_block(st, K))
+                write_ff(k0, rows, K, up, goodput, mq)
+                _count(fast_forwards=1, mixed_fast_forwards=1)
+    else:
+        while k < horizon and bool(alive_mask(st).any()):
+            st = run_block(st, K)
+    if tail and bool(alive_mask(st).any()):
         st = run_block(st, tail)
     outs = StepOutputs(uplink, per_step[0], per_step[1], per_step[2])
     return st, outs, k
+
+
+run_core.counts = dict(scanned_steps=0, steady_checks=0, checks_ruled_out=0,
+                       fast_forwards=0, mixed_fast_forwards=0)
 
 
 def simulate_compact(topo: Topology, cfg: SimConfig, trace: Trace, *,
@@ -524,5 +807,6 @@ def simulate_compact(topo: Topology, cfg: SimConfig, trace: Trace, *,
         spill_steps=int(st.spill_steps[0]),
         window_slots=W,
         steps=steps,
+        ff_steps=int(st.ff_steps[0]),
     )
     return res, StepOutputs(*(o[0].cpu().numpy() for o in outs))

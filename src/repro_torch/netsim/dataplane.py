@@ -142,6 +142,25 @@ def subflow_mark_probs_nic(fab_links, tx_link, rx_link, p_mark, n_links: int):
     return p_sub, p_sub_fabric
 
 
+def lossy_gbn_factor(fab_links, tx_link, rx_link, loss, *, n_links: int,
+                     window_pkts: float) -> torch.Tensor:
+    """Goodput multiplier f32[B, ..., N] for sub-flows that cross lossy
+    links: each drop rewinds half a go-back-N window, so goodput deflates by
+    ``gbn_goodput_factor(p_loss, W)`` while the offered rate keeps riding the
+    wire (the engine applies it to the delivered throughput only).  A
+    path's survival is the product of its hops' survivals, the host hops
+    shared by the N sub-flows; absent (-1) fabric hops are loss-free.
+    fab_links i32[B, ..., N, Hf], tx_link/rx_link i32[B, ...], loss
+    f32[n_links + 1] shared by the batch."""
+    present = fab_links >= 0
+    lid = torch.where(present, fab_links, torch.full_like(fab_links, n_links))
+    hop_loss = torch.where(present, loss[lid.to(torch.int64)], 0.0)
+    surv_fab = torch.prod(1.0 - hop_loss, -1)
+    surv_host = (1.0 - loss[tx_link.to(torch.int64)]) * (1.0 - loss[rx_link.to(torch.int64)])
+    p_loss = 1.0 - surv_host[..., None] * surv_fab
+    return gbn.gbn_goodput_factor(p_loss, window_pkts)
+
+
 def queue_mask_for(topo: Topology) -> torch.Tensor:
     """1.0 on links that queue and ECN-mark, 0.0 on host_tx (NIC-internal
     backlog, no ECN there) and on the sentinel slot."""
@@ -162,6 +181,22 @@ def integrate_queue(queue, arrival, capacity, queue_mask, dparams, *, dt: float,
     p_mark = red_mark(new_queue, dparams.kmin_bytes, dparams.kmax_bytes, dparams.pmax)
     p_mark[:, n_links] = 0.0
     return new_queue, p_mark
+
+
+def queue_fast_forward(queue, arrival, capacity, queue_mask, *, dt: float, n_steps: int,
+                       qmax_bytes: float, n_links: int):
+    """``n_steps`` queue steps in closed form under a constant arrival
+    vector: ``q <- clip(q + delta, 0, qmax) * mask`` with a constant delta is
+    monotone, so step m is ``clip(q0 + m * delta, 0, qmax) * mask``.
+    queue, arrival f32[B, n_links + 1]; capacity, queue_mask f32[n_links + 1].
+    Returns (q_final f32[B, n_links + 1], max_queue f32[B, n_steps]), entry m
+    of the second the largest real-link queue after m + 1 steps (the
+    per-step ``max_queue`` output)."""
+    delta = (arrival - capacity) * (dt / 8.0)
+    m = torch.arange(1, n_steps + 1, dtype=torch.float32, device=queue.device)[:, None]
+    traj = torch.clamp(queue[:, None, :] + m * delta[:, None, :], 0.0, qmax_bytes)
+    traj = traj * queue_mask
+    return traj[:, -1], traj[:, :, :n_links].amax(-1)
 
 
 def path_queue_2tier(topo: Topology, queue, src_leaf, dst_leaf) -> torch.Tensor:

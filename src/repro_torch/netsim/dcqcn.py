@@ -92,3 +92,31 @@ def step(state: DCQCNState, mark_frac: torch.Tensor, active: torch.Tensor, dt: f
     # inactive sub-flows hold full rate so they start at line rate
     new = DCQCNState(*(torch.where(active, a, b) for a, b in zip(new, state)))
     return new, e
+
+
+def fast_forward(state: DCQCNState, active: torch.Tensor, n_steps: int, dt: float,
+                 p: DCQCNParams) -> DCQCNState:
+    """``n_steps`` zero-mark steps in closed form, valid where the compact
+    engine's quiescence check holds (every active sub-flow pinned at
+    ``rc == rt == line rate``, no marks): rc and rt are fixed points of the
+    recovery branch, alpha decays geometrically, the rate timer is periodic
+    and each of its firings adds a recovery stage.  Tensors of any leading
+    shape; inactive sub-flows hold their state, as in :func:`step`.  The
+    scalars are float32, as in the reference."""
+    f32 = np.float32
+    n = float(n_steps)
+    n_dt = float(f32(n) * f32(dt))
+    alpha = state.alpha * float(f32(alpha_decay(dt, p)) ** f32(n))
+    # the rate timer climbs dt a step and resets to 0 on reaching
+    # rate_interval: first firing after m1 = max(ceil((I - t0) / dt), 1)
+    # steps, then one every ceil(I / dt) steps; its final value is the residue
+    period = float(np.ceil(p.rate_interval / dt))
+    m1 = torch.clamp(torch.ceil((p.rate_interval - state.t_since_rate) / dt), min=1.0)
+    fired = m1 <= n
+    events = torch.where(fired, 1.0 + torch.floor((n - m1) / period), torch.zeros_like(m1))
+    t_rate = torch.where(fired, torch.remainder(n - m1, period) * float(f32(dt)),
+                         state.t_since_rate + n_dt)
+    new = DCQCNState(rc=state.rc, rt=state.rt, alpha=alpha,
+                     t_since_cnp=state.t_since_cnp + n_dt, t_since_rate=t_rate,
+                     recovery_stage=state.recovery_stage + events)
+    return DCQCNState(*(torch.where(active, a, b) for a, b in zip(new, state)))

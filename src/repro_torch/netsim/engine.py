@@ -58,20 +58,33 @@ class SimConfig:
     chunk_steps: int = 32
     # window-average the [T, L, S] uplink trace over this many steps
     uplink_sample_every: int = 1
-    # event-driven adaptive dt is a later slice of the port
+    # compact engine only: event-driven adaptive dt.  Each chunk boundary
+    # evaluates a quiescence check (no arrival, capacity-segment edge,
+    # finish or ECN crossing possible inside the macro-step, DCQCN pinned
+    # at line rate) and, where it holds, advances the macro-step in closed
+    # form instead of stepping it (compact.run_core).  The dense engine
+    # ignores it, as the reference's does.
     adaptive: bool = False
+    # the macro-step, in chunks of chunk_steps steps
+    ff_macro_chunks: int = 1
+    # margins of the check: queues stay below ff_kmin_frac * kmin over the
+    # span, and no active sub-flow can finish within span + ff_margin_steps
+    ff_kmin_frac: float = 0.9
+    ff_margin_steps: int = 2
 
     def __post_init__(self):
         if self.scheme not in SCHEMES:
             raise ValueError(f"unknown scheme {self.scheme!r}")
         if self.scheme == "flowlet_timeout":
             raise NotImplementedError("the flowlet_timeout scheme is not ported yet")
-        if self.adaptive:
-            raise NotImplementedError("adaptive dt is not ported yet")
         if self.dataplane not in dataplane.BACKENDS:
             raise ValueError(f"dataplane {self.dataplane!r} not in {dataplane.BACKENDS}")
         if self.chunk_steps < 1 or self.uplink_sample_every < 1:
             raise ValueError("chunk_steps and uplink_sample_every must be >= 1")
+        if self.ff_macro_chunks < 1 or self.ff_margin_steps < 0:
+            raise ValueError("ff_macro_chunks must be >= 1 and ff_margin_steps >= 0")
+        if not 0.0 < self.ff_kmin_frac <= 1.0:
+            raise ValueError(f"ff_kmin_frac {self.ff_kmin_frac} not in (0, 1]")
         if self.scheme != "seqbalance":
             object.__setattr__(self, "n_sub", 1)
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.netsim import compact
@@ -105,28 +106,60 @@ def stack_group(padded: list, rows: list[int], device) -> tuple:
                                        for k in range(len(padded[0]))), device)
 
 
-def _run_group(topo, cfg, prepped, n_steps, window_slots):
+def _operands(topo: Topology, capacity, loss):
+    """The traced capacity and loss operands as contiguous float32 tensors
+    on the topology's device (placed once for every group of a sweep)."""
+    L1 = topo.n_links + 1
+
+    def place(x, name, shapes):
+        t = torch.as_tensor(x, dtype=torch.float32, device=topo.device).contiguous()
+        if t.dim() not in shapes or t.shape[-1] != L1:
+            raise ValueError(f"{name} must be f32[n_links + 1] = [{L1}]"
+                             f"{' or f32[K, n_links + 1]' if 2 in shapes else ''}, "
+                             f"got {list(t.shape)}")
+        return t
+
+    return (None if capacity is None else place(capacity, "capacity", (1, 2)),
+            None if loss is None else place(loss, "loss", (1,)))
+
+
+def _dispatch(topo, cfg, W, F_pad, A, n_steps, padded, rows, ops):
+    """One run of the simulations ``rows`` of a group: (finish, cnp,
+    spill, ff, outs) as numpy with a leading [len(rows)] axis, and the
+    steps each ran.  An adaptive configuration whose macro-step spans
+    several chunks runs one simulation at a time (see run_core)."""
+    if cfg.adaptive and cfg.ff_macro_chunks > 1 and len(rows) > 1:
+        parts = [_dispatch(topo, cfg, W, F_pad, A, n_steps, padded, [r], ops) for r in rows]
+        got = tuple(np.concatenate([p[0][i] for p in parts]) for i in range(4))
+        outs = StepOutputs(*(np.concatenate([p[0][4][f] for p in parts]) for f in range(4)))
+        return got + (outs,), [p[1][0] for p in parts]
+    st, outs, steps = compact.run_core(topo, cfg, W, F_pad, A, n_steps,
+                                       stack_group(padded, rows, topo.device),
+                                       capacity=ops[0], loss=ops[1], cap_seg_steps=ops[2])
+    got = tuple(x.cpu().numpy() for x in (st.finish, st.cnp_pkts, st.spill_steps, st.ff_steps))
+    return got + (StepOutputs(*(o.cpu().numpy() for o in outs)),), [steps] * len(rows)
+
+
+def _run_group(topo, cfg, prepped, n_steps, window_slots, ops):
     """One batched run over traces sharing an F_pad bucket, with the
     spill-retry loop: spill-free simulations keep their first-run results,
-    only the offenders are rerun with a larger window."""
+    only the offenders are rerun with a larger window (and the same
+    operands)."""
     F_pad, W, A, padded = plan_group(topo, cfg, prepped, window_slots)
     results: list = [None] * len(prepped)
     outs_list: list = [None] * len(prepped)
     pending = list(range(len(prepped)))
     while pending:
-        st, outs, steps = compact.run_core(topo, cfg, W, F_pad, A, n_steps,
-                                           stack_group(padded, pending, topo.device))
-        spill = st.spill_steps.cpu().numpy()
-        finish = st.finish.cpu().numpy()
-        cnp = st.cnp_pkts.cpu().numpy()
-        outs = StepOutputs(*(o.cpu().numpy() for o in outs))
+        (finish, cnp, spill, ff, outs), steps = _dispatch(topo, cfg, W, F_pad, A, n_steps,
+                                                          padded, pending, ops)
         still, still_rows = [], []
         for b, i in enumerate(pending):
             if spill[b] == 0 or W >= F_pad:
                 _, inv, F = prepped[i]
                 results[i] = compact.CompactResult(
                     finish=finish[b, :F][inv], cnp_pkts=cnp[b],
-                    spill_steps=int(spill[b]), window_slots=W, steps=steps)
+                    spill_steps=int(spill[b]), window_slots=W, steps=steps[b],
+                    ff_steps=int(ff[b]))
                 outs_list[i] = StepOutputs(*(o[b] for o in outs))
             else:
                 still.append(i)
@@ -142,15 +175,26 @@ def _run_group(topo, cfg, prepped, n_steps, window_slots):
 
 def run_batch(topo: Topology, cfg: SimConfig, traces: list[Trace], *,
               window_slots: int | None = None, device=None, capacity=None,
-              loss=None, reorder=None, record=None
+              loss=None, cap_seg_steps: int = 0, reorder=None, record=None
               ) -> tuple[list[compact.CompactResult], list[StepOutputs]]:
     """Run every trace under one (scheme, topology) pair, one batched
-    simulation per F_pad bucket.  The traced capacity/loss/reorder operands
-    and the flight recorder of the reference are not ported yet."""
-    _unsupported(capacity=capacity, loss=loss, reorder=reorder, record=record)
+    simulation per F_pad bucket.
+
+    ``capacity`` (f32[n_links + 1], sentinel slot included, or a wall-clock
+    schedule f32[K, n_links + 1] stepped every ``cap_seg_steps`` steps) takes
+    the place of ``topo.capacity`` for the whole batch; ``loss``
+    (f32[n_links + 1]) adds per-link loss rates (go-back-N goodput), and
+    when it comes alone the capacity becomes ``topo.capacity``, as in the
+    reference.  Numpy arrays or tensors; they go to the device once.  The
+    reference's ``reorder`` operand and flight recorder are not ported
+    yet."""
+    _unsupported(reorder=reorder, record=record)
     if not traces:
         raise ValueError("empty sweep")
     topo = topo.to(resolve_device(device))
+    if loss is not None and capacity is None:
+        capacity = topo.capacity
+    ops = _operands(topo, capacity, loss) + (int(cap_seg_steps),)
     prepped = [compact.sort_trace(t) for t in traces]
     n_steps = int(round(cfg.duration_s / cfg.dt))
     groups: dict[int, list[int]] = {}
@@ -160,7 +204,7 @@ def run_batch(topo: Topology, cfg: SimConfig, traces: list[Trace], *,
     outs_list: list = [None] * len(traces)
     for idxs in groups.values():
         res, outs = _run_group(topo, cfg, [prepped[i] for i in idxs], n_steps,
-                               window_slots)
+                               window_slots, ops)
         for i, r, o in zip(idxs, res, outs):
             results[i] = r
             outs_list[i] = o
@@ -168,9 +212,11 @@ def run_batch(topo: Topology, cfg: SimConfig, traces: list[Trace], *,
 
 
 def run_one(topo: Topology, cfg: SimConfig, trace: Trace, *,
-            window_slots: int | None = None, device=None, **unported):
+            window_slots: int | None = None, device=None, **operands):
+    """One trace through ``run_batch`` (``operands``: its capacity, loss,
+    cap_seg_steps, reorder and record keywords)."""
     results, outs = run_batch(topo, cfg, [trace], window_slots=window_slots,
-                              device=device, **unported)
+                              device=device, **operands)
     return results[0], outs[0]
 
 

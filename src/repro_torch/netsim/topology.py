@@ -1,6 +1,7 @@
 """Datacenter topologies for the fluid simulator (paper §IV), mirroring
 ``repro.netsim.topology`` for ``leaf_spine``, ``sim_2tier`` and
-``three_tier``.
+``three_tier``, and the fault layer's link maps ``spine_links`` and
+``paths_for_link``.
 
 Links live in one flat capacity vector with a sentinel slot last
 (capacity 1e30), onto which absent (-1) hops land.  The link-id builders
@@ -161,3 +162,54 @@ def three_tier(n_tor: int = 20, n_agg: int = 20, n_core: int = 16,
 def sim_2tier(device=None) -> Topology:
     """Paper §IV.B: 8 leaves x 12 spines x 16 hosts, 100G everywhere."""
     return leaf_spine(8, 12, 16, 100e9, base_rtt_s=4e-6, device=device)
+
+
+def spine_links(topo: Topology, spine: int) -> tuple[int, ...]:
+    """Flat link ids that die with one fabric switch, the unit of the fault
+    schedules (``faults.random_campaign``).  ``leaf_spine``: spine switch
+    ``spine``'s uplinks up[l, spine] and downlinks down[spine, l] for every
+    leaf l.  ``three_tier``: aggregation switch ``spine``'s ToR uplinks,
+    agg-core links both ways and ToR downlinks."""
+    if topo.kind == "leaf_spine":
+        L, S = topo.n_leaf, topo.n_paths
+        if not 0 <= spine < S:
+            raise ValueError(f"spine {spine} not in [0, {S})")
+        return tuple(l * S + spine for l in range(L)) + tuple(
+            L * S + spine * L + l for l in range(L))
+    lay = topo.layout
+    T, A, C = topo.n_leaf, lay["A"], lay["C"]
+    if not 0 <= spine < A:
+        raise ValueError(f"aggregation switch {spine} not in [0, {A})")
+    return (tuple(lay["ta0"] + t * A + spine for t in range(T))
+            + tuple(lay["ac0"] + spine * C + c for c in range(C))
+            + tuple(lay["ca0"] + c * A + spine for c in range(C))
+            + tuple(lay["at0"] + spine * T + t for t in range(T)))
+
+
+def paths_for_link(topo: Topology, link: int) -> tuple[int, ...]:
+    """The path ids that traverse flat link ``link`` (host links and the
+    sentinel belong to none).  ``leaf_spine``: up[l, s] and down[s, l] map
+    to path s.  ``three_tier`` (path = agg * C + core): a ToR up- or
+    downlink of agg a covers the C paths (a, *), an agg-core link one."""
+    if topo.kind == "leaf_spine":
+        L, S = topo.n_leaf, topo.n_paths
+        if link < L * S:
+            return (link % S,)
+        if link < 2 * L * S:
+            return ((link - L * S) // L,)
+        return ()
+    lay = topo.layout
+    T, A, C = topo.n_leaf, lay["A"], lay["C"]
+    if link < lay["ac0"]:
+        a = link % A
+        return tuple(a * C + c for c in range(C))
+    if link < lay["ca0"]:
+        i = link - lay["ac0"]
+        return ((i // C) * C + (i % C),)
+    if link < lay["at0"]:
+        i = link - lay["ca0"]
+        return ((i % A) * C + i // A,)
+    if link < lay["tx0"]:
+        a = (link - lay["at0"]) // T
+        return tuple(a * C + c for c in range(C))
+    return ()

@@ -21,7 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.netsim import compact as jc, engine as je, metrics as jm  # noqa: E402
 from repro.netsim import topology as jt, workloads as jw  # noqa: E402
 from repro_torch.netsim import carry, compact as tc, engine as te  # noqa: E402
-from repro_torch.netsim import metrics as tm, topology as tt  # noqa: E402
+from repro_torch.netsim import metrics as tm, sweep as tsweep, topology as tt  # noqa: E402
 
 SCHEMES = ("seqbalance", "ecmp", "letflow", "conga", "drill")
 CARRY_STEPS = 150
@@ -87,7 +87,7 @@ def test_one_step_from_carried_congested_state(scheme):
     cfg = carry.config_from_dict(
         {**dataclasses.asdict(jcfg), "dcqcn": jcfg.dcqcn._asdict()})
     t_arrays = tc.trace_tensors(tuple(a[None] for a in arrays[:6]), "cpu")
-    _, t_step = tc.build_compact_sim(ttopo, cfg, t_arrays, W, F_pad, A)
+    _, t_step, _ = tc.build_compact_sim(ttopo, cfg, t_arrays, W, F_pad, A)
     state = carry.compact_state_from_numpy(
         jax.tree.map(np.asarray, _leaves(mid)), "cpu")
     _compare_states(mid, state)  # the carry itself is exact
@@ -149,11 +149,30 @@ def test_carried_config_lets_the_device_pick_the_dataplane(backend):
 
 def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
-        te.SimConfig(adaptive=True)
-    with pytest.raises(NotImplementedError):
         te.SimConfig(scheme="flowlet_timeout")
     _, ttopo, trace = _setup(0.5, dur=1e-4)
     with pytest.raises(NotImplementedError):
         te.simulate(ttopo, te.SimConfig(duration_s=1e-4), trace, reorder=1.0, device="cpu")
     with pytest.raises(NotImplementedError):
-        carry.config_from_dict({"adaptive": True})
+        carry.config_from_dict({"scheme": "flowlet_timeout"})
+    with pytest.raises(NotImplementedError):
+        tsweep.run_one(ttopo, te.SimConfig(duration_s=1e-4), trace, device="cpu",
+                       record=object())
+
+
+def test_carried_adaptive_config_comes_across_whole():
+    """An adaptive configuration of the JAX package, margins and macro-step
+    included, becomes the port's field for field (but for the dataplane
+    backend and the reference's mark salt)."""
+    jcfg = je.SimConfig(scheme="ecmp", adaptive=True, ff_macro_chunks=3, ff_kmin_frac=0.75,
+                        ff_margin_steps=5, chunk_steps=20, uplink_sample_every=10)
+    cfg = carry.config_from_dict({**dataclasses.asdict(jcfg), "dcqcn": jcfg.dcqcn._asdict()})
+    for f in dataclasses.fields(cfg):
+        want = getattr(jcfg, f.name)
+        want = tuple(want) if f.name == "dcqcn" else want
+        got = tuple(cfg.dcqcn) if f.name == "dcqcn" else getattr(cfg, f.name)
+        assert got == ("auto" if f.name == "dataplane" else want), f.name
+    assert cfg.adaptive and cfg.ff_macro_chunks == 3
+    with pytest.raises(ValueError):
+        carry.config_from_dict({**dataclasses.asdict(jcfg), "ff_kmin_frac": 0.0,
+                                "dcqcn": jcfg.dcqcn._asdict()})

@@ -71,7 +71,7 @@ def test_entry_points_default_to_cuda():
         ops.linkload(np.zeros((4, 2), np.int32), np.ones(4, np.float32),
                      np.zeros(3, np.float32), np.ones(3, np.float32), n_links=3)
     with pytest.raises(NotImplementedError):
-        sweep.run_one(topo, cfg, trace, device="cpu", capacity=topo.capacity)
+        sweep.run_one(topo, cfg, trace, device="cpu", reorder=1.0)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

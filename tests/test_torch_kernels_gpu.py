@@ -414,3 +414,33 @@ def test_dense_engine_on_the_card_matches_the_cpu(cuda, scheme):
     done = np.isfinite(cf)
     assert done.sum() > 500
     assert (np.abs(gf[done] - cf[done]) <= 1e-6).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_adaptive_collective_on_the_card_matches_the_cpu(cuda):
+    """bench_adaptive_dt's collective on leaf_spine(4, 4, 4) with adaptive
+    dt, on the card against the CPU: it fast-forwards the compute gaps
+    (ff_steps may sit one macro-step apart where a float compare at the
+    quiescence check's edge lands the other way), finishes the same flows
+    within one dt, and launches the tiered kernel once a stepped step and
+    once a steady-state check."""
+    from repro_torch.dist import collectives, cosim
+    from repro_torch.netsim import sweep
+
+    topo = topology.leaf_spine(4, 4, 4, 100e9, device="cpu")
+    plan = collectives.PathPlan(n_chunks=4, directions=(1, -1, 1, -1))
+    trace = workloads.collective_trace(plan, cosim.ring_hosts(topo, 8), 4e6, link_bw=100e9,
+                                       round_gap_s=800e-6, seed=0, steer_paths=topo.n_paths)
+    cfg = engine.SimConfig(scheme="seqbalance", duration_s=14e-3, uplink_sample_every=10,
+                           adaptive=True)
+    before, loop0 = ct.cascade_tiered.launches, dict(compact.run_core.counts)
+    gpu, outs = sweep.run_one(topo, cfg, trace, device=cuda)
+    loop = {k: compact.run_core.counts[k] - loop0[k] for k in loop0}
+    assert ct.cascade_tiered.launches - before == loop["scanned_steps"] + loop["steady_checks"]
+    cpu, _ = sweep.run_one(topo, cfg, trace, device="cpu")
+    K = compact.plan_chunks(cfg, 1400)[0]
+    assert gpu.ff_steps > 0 and abs(gpu.ff_steps - cpu.ff_steps) <= K
+    np.testing.assert_array_equal(np.isfinite(gpu.finish), np.isfinite(cpu.finish))
+    done = np.isfinite(cpu.finish)
+    assert done.all() and np.all(np.abs(gpu.finish[done] - cpu.finish[done]) <= 10e-6 + 1e-9)
+    assert np.isfinite(outs.max_queue).all() and outs.uplink_load.shape == (140, 4, 4)
