@@ -61,7 +61,8 @@ Phases, each printed as JSON lines:
   7. adaptive fixed and adaptive dt (SimConfig(adaptive=True)), back to
               back per scheme, on three cases: bench_adaptive_dt's
               collective on leaf_spine(4, 4, 4) and on sim_2tier, and the
-              fig12 sweep; each run against the JAX package's
+              fig12 sweep's two alistorage traces (the websearch ones left
+              out for phases 9 and 10's time); each run against the JAX package's
               (src/repro_torch/netsim/adaptive_reference.json) under the
               gates of phase 4, adaptive against fixed too; ff_steps
               beside the JAX package's (the collectives must
@@ -73,7 +74,26 @@ Phases, each printed as JSON lines:
               wall-clock capacity schedule and 0.5 % loss on spine 0,
               SeqBalance and ECMP, fixed and adaptive, against the JAX
               package's; a zero-loss vector against no loss operand, and
-              the static capacity against the schedule.
+              the static capacity against the schedule;
+  9. flowcell bench_flowcell's grid (a ring of 8 on leaf_spine(4, 4, 4) at
+              25G with 100G hosts, and its hetero twin with one 100G spine):
+              SeqBalance, ECMP, flowlet_timeout and ECMP over a 4-flowcell
+              trace with the reordering cost free or at budgets 0, 4, 16;
+              the censored p99/p50/completion of each against the JAX
+              package's (src/repro_torch/netsim/flowcell_reference.json),
+              and its two acceptance facts; flowcells=1 and reorder=0.0 on
+              unsprayed traffic bit-identical to the classic run (also on
+              phase 3's SeqBalance alistorage batch; a cell that takes one
+              of two trajectories from run to run on the card must match
+              one of up to TWIN_TRIES more plain runs); the ring at 8 MB on
+              sim_2tier with adaptive dt, ff_steps beside the JAX package's;
+ 10. record   the flight recorder (RecordSpec(ring_chunks=64)) on
+              bench_obs's collective, fixed and adaptive, and on phase 3's
+              SeqBalance alistorage batch: finish times without and with
+              the ring (alternated twice; each bit-identical to a run
+              without it, as in phase 9), the overhead beside the
+              reference's 5 % floor, and the drained ring against the JAX
+              package's (src/repro_torch/netsim/record_reference.json).
 
 Then a "kernels" line and, last, {"ok": true, "device": {...}}.  Any
 failure exits non-zero before that line; so does a machine without CUDA
@@ -99,6 +119,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
+START = time.time()
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
@@ -792,6 +813,8 @@ def phase_sweep():
             walls[scheme][wl] = time.time() - t0
             results += res
         buckets = {}
+        if scheme == "seqbalance":
+            finishes = [r.finish for r in results[:2]]  # the alistorage batch
         for (wl, load), trace, res in zip(FIG12_CASES, traces, results):
             s = metrics.fct_stats(res, trace, topo, 100e9)
             stats[(scheme, f"{wl}_{load}")] = s
@@ -815,7 +838,7 @@ def phase_sweep():
           "launches_by_route_or_cluster": by, "steps_needing_the_kernel": expected})
     check(launches >= expected > 0,
           f"cascade_tiered launched {launches} times for {expected} steps")
-    return stats, (counts, by), walls
+    return stats, (counts, by), walls, finishes
 
 
 def stat_diffs(s, r) -> dict:
@@ -840,8 +863,22 @@ def compare_stats(phase: str, stats, ref_stats, against: str) -> dict:
     return worst
 
 
+def reference(name: str) -> dict:
+    """The JAX package's results src/repro_torch/netsim/<name>_reference.json."""
+    return json.loads((SRC / "repro_torch" / "netsim" / f"{name}_reference.json").read_text())
+
+
+def trajectory_stats(name: str, mode: str, trace: str) -> dict:
+    """The JAX package's FCT stats of a phase 10 run: the collective's in
+    adaptive_reference.json, the fig12 batch's in fig12_fast_reference.json."""
+    if name == "record_ls444":
+        return reference("adaptive")["cases"]["collective_ls444"]["runs"]["seqbalance"][mode][
+            "collective"]
+    return reference_stats()[1][("seqbalance", trace)]
+
+
 def reference_stats():
-    ref = json.loads((SRC / "repro_torch" / "netsim" / "fig12_fast_reference.json").read_text())
+    ref = reference("fig12_fast")
     return ref, {(scheme, case): r for scheme, cases in ref["stats"].items()
                  for case, r in cases.items()}
 
@@ -977,19 +1014,19 @@ def phase_profile(warm_steps: int = 100, steps: int = 32):
 SPEED_FLOORS = {"collective": 2.0, "fig12": 0.85}
 
 
-def adaptive_reference() -> dict:
-    return json.loads((SRC / "repro_torch" / "netsim" / "adaptive_reference.json").read_text())
-
-
-def collective_trace(topo, size: float):
-    """benchmarks/paper_benches.py::bench_adaptive_dt's trace: a 4-chunk
-    bidirectional ring of 8 with 800 us compute gaps between rounds."""
+def collective_trace(topo, size: float, link_bw: float = 100e9, gap: float = 800e-6,
+                     flowcells: int = 1, budget: float = 0.0):
+    """A 4-chunk bidirectional ring of 8, each chunk's segment cut into
+    ``flowcells`` cells sprayed over the paths; by default
+    benchmarks/paper_benches.py::bench_adaptive_dt's, with 800 us compute
+    gaps between rounds."""
     from repro_torch.dist import collectives, cosim
     from repro_torch.netsim import workloads
 
-    plan = collectives.PathPlan(n_chunks=4, directions=(1, -1, 1, -1))
-    return workloads.collective_trace(plan, cosim.ring_hosts(topo, 8), size, link_bw=100e9,
-                                      round_gap_s=800e-6, seed=0, steer_paths=topo.n_paths)
+    plan = collectives.PathPlan(n_chunks=4, directions=(1, -1, 1, -1), flowcells=flowcells,
+                                reorder_budget=budget)
+    return workloads.collective_trace(plan, cosim.ring_hosts(topo, 8), size, link_bw=link_bw,
+                                      round_gap_s=gap, seed=0, steer_paths=topo.n_paths)
 
 
 def gated_diffs(stats: dict, ref: dict, what: str) -> dict:
@@ -1022,8 +1059,8 @@ def finish_agreement(got, want, dt: float) -> dict:
 
 def timed_run(topo, cfg, traces, **operands):
     """One run_jobs job (run_batch of ``traces``) on the card with the
-    counts set to 0 just before: (results, wall, tiered launches, the
-    loop counts of compact.run_core it moved)."""
+    counts set to 0 just before: (results, their per-step outputs, wall,
+    tiered launches, the loop counts of compact.run_core it moved)."""
     import torch
 
     from repro_torch.netsim import compact, sweep
@@ -1031,18 +1068,22 @@ def timed_run(topo, cfg, traces, **operands):
     reset_counts()
     before = dict(compact.run_core.counts)
     t0 = time.time()
-    (results, _), = sweep.run_jobs([(topo, cfg, traces, operands)], device=DEVICE)
+    (results, outs), = sweep.run_jobs([(topo, cfg, traces, operands)], device=DEVICE)
     torch.cuda.synchronize()
     wall = time.time() - t0
     loop = {k: compact.run_core.counts[k] - before[k] for k in before}
-    return results, wall, read_counts()["cascade_tiered"], loop
+    return results, outs, wall, read_counts()["cascade_tiered"], loop
 
 
-def check_launches(what: str, scheme: str, launches: int, loop: dict) -> int:
+def check_launches(what: str, scheme: str, launches: int, loop: dict,
+                   reorder: bool = False) -> int:
     """The tiered kernel ran once per stepped step and once per
     steady-state check (a fast-forward reuses its check's cascade); never
-    for DRILL."""
+    for DRILL.  A run with ``reorder`` makes no steady-state check (only
+    idle spans fast-forward) and each fast-forward runs its own cascade."""
     want = 0 if scheme == "drill" else loop["scanned_steps"] + loop["steady_checks"]
+    if reorder:
+        want += loop["fast_forwards"]
     check(launches == want, f"{what} {scheme}: cascade_tiered launched {launches} times, "
                             f"expected {want} ({loop})")
     return want
@@ -1058,7 +1099,7 @@ def phase_adaptive() -> int:
     launches."""
     from repro_torch.netsim import engine, metrics, topology
 
-    ref = adaptive_reference()["cases"]
+    ref = reference("adaptive")["cases"]
     ls444 = topology.leaf_spine(4, 4, 4, 100e9, device=DEVICE)
     sim2 = topology.sim_2tier(device=DEVICE)
     fig_topo, fig_traces = fig12_traces()
@@ -1069,10 +1110,12 @@ def phase_adaptive() -> int:
               ["collective"], ("seqbalance",)),
              ("collective_sim2tier", "collective", sim2, col, [collective_trace(sim2, 8e6)],
               ["collective"], ("seqbalance", "ecmp", "letflow")),
-             ("fig12_adaptive", "fig12", fig_topo, fig, fig_traces, fig_names, FIG12_SCHEMES))
+             # the alistorage traces only: phases 9 and 10 took the time
+             ("fig12_adaptive", "fig12", fig_topo, fig, fig_traces[:2], fig_names[:2],
+              FIG12_SCHEMES))
     total = 0
     for name, kind, topo, cfg_kw, traces, names, schemes in cases:
-        check(ref[name]["flows"] == [int(t.valid.sum()) for t in traces],
+        check(ref[name]["flows"][:len(traces)] == [int(t.valid.sum()) for t in traces],
               f"{name}: the traces are not the reference's")
         case_walls = {"fixed": 0.0, "adaptive": 0.0}
         for i, scheme in enumerate(schemes):
@@ -1080,7 +1123,7 @@ def phase_adaptive() -> int:
             for mode in ("fixed", "adaptive") if i % 2 == 0 else ("adaptive", "fixed"):
                 jax = {(scheme, n): ref[name]["runs"][scheme][mode][n] for n in names}
                 cfg = engine.SimConfig(scheme=scheme, adaptive=mode == "adaptive", **cfg_kw)
-                results, wall, launched, loop = timed_run(topo, cfg, traces)
+                results, _, wall, launched, loop = timed_run(topo, cfg, traces)
                 total += check_launches(f"{name} {mode}", scheme, launched, loop)
                 stats = {(scheme, n): metrics.fct_stats(r, t, topo, 100e9)
                          for n, r, t in zip(names, results, traces)}
@@ -1127,7 +1170,7 @@ def phase_faults() -> int:
     Returns the tiered kernel's launches."""
     from repro_torch.netsim import compact, engine, faults, metrics, topology
 
-    ref = adaptive_reference()["cases"]["faults"]
+    ref = reference("adaptive")["cases"]["faults"]
     topo, traces = fig12_traces()
     trace = traces[0]
     check(ref["flows"] == [int(trace.valid.sum())], "faults: not the reference's trace")
@@ -1144,7 +1187,7 @@ def phase_faults() -> int:
     for scheme in ("seqbalance", "ecmp"):
         for mode in ("fixed", "adaptive"):
             cfg = engine.SimConfig(scheme=scheme, adaptive=mode == "adaptive", **cfg_kw)
-            (res,), wall, launched, loop = timed_run(topo, cfg, [trace], **ops)
+            (res,), _, wall, launched, loop = timed_run(topo, cfg, [trace], **ops)
             total += check_launches(f"faults {mode}", scheme, launched, loop)
             finish[scheme, mode] = res.finish
             s = metrics.fct_stats(res, trace, topo, 100e9)
@@ -1165,7 +1208,7 @@ def phase_faults() -> int:
                 "static_capacity": dict(capacity=topo.capacity, loss=loss)}
     got = {}
     for v, kw in variants.items():
-        (res,), _, launched, loop = timed_run(topo, cfg, [trace], **kw)
+        (res,), _, _, launched, loop = timed_run(topo, cfg, [trace], **kw)
         total += check_launches(f"faults {v}", "ecmp", launched, loop)
         got[v] = res.finish
     zero = finish_agreement(got["zero_loss"], got["no_loss"], 10e-6)
@@ -1173,6 +1216,496 @@ def phase_faults() -> int:
     emit({"phase": "faults", "zero_loss_vs_no_loss": zero, "static_vs_schedule": static})
     check(zero["alike"], "faults: a zero-loss vector moved ECMP's finish times")
     check(not static["alike"], "faults: the static capacity gave the schedule's finish times")
+    return total
+
+
+# bench_flowcell's fast grid (benchmarks/bench_flowcell.py:75-95): the arms
+# and their (scheme, flowcell trace?, reorder budget)
+FLOWCELL_BUDGETS = (0, 4, 16)
+GRID_ARMS = ("seqbalance", "ecmp", "flowlet_timeout", "flowcell_free") + tuple(
+    f"flowcell_b{b}" for b in FLOWCELL_BUDGETS)
+SIM2TIER_ARMS = ("seqbalance", "flowlet_timeout", "flowcell_free", "flowcell_b0",
+                 "flowcell_b16")
+# phase 4's gates on the censored percentiles (p99's, 2 %, on p50 too) and
+# the completion rate
+CENSORED_GATES = {"completion": 1e-3, "p50_us": 2e-2, "p99_us": 2e-2}
+# where the JAX package's two p99s lie this close, an acceptance fact is
+# printed and not gated
+FACT_MARGIN = 2e-2
+# flowlet_timeout where flowlets break (tests/test_torch_flowcell.py's
+# REDRAW): traffic, flowlet timeout (s), adaptive, capacity schedule
+REDRAW = {"poisson": ("poisson", 1e-6, False, False),
+          "poisson_schedule": ("poisson", 1e-6, False, True),
+          "line_rate_adaptive": ("line_rate", 1e-9, True, False)}
+
+
+def redraw_case(name: str):
+    """A REDRAW case on the card: (topology, SimConfig keywords, trace, run
+    operands) on the hetero fabric of 2 leaves with one fat spine of 4.
+    ``poisson`` is alistorage at load 0.5 over its bisection, ``line_rate``
+    three long flows from leaf 0 to leaf 1; the schedule moves leaf 0's fat
+    uplink to another spine after 0.3 ms and keeps leaf 1's."""
+    from repro_torch.netsim import topology, workloads
+
+    traffic, timeout, adaptive, schedule = REDRAW[name]
+    topo = topology.hetero_leaf_spine(2, 4, 4, 40e9, 160e9, n_fast_spines=1, device=DEVICE)
+    if traffic == "poisson":
+        trace = workloads.poisson_trace(workloads.TraceConfig(
+            workload="alistorage", load=0.5, duration_s=0.8e-3, n_hosts=topo.n_hosts,
+            host_bw=40e9, seed=2, hosts_per_leaf=topo.hosts_per_leaf,
+            load_base_bw=2 * 4 * 40e9))
+    else:
+        trace = workloads.Trace(
+            sizes=np.array([4e6, 4e6, 3e6], np.float32),
+            arrivals=np.array([0.0, 1e-5, 2e-4], np.float32),
+            src=np.array([0, 1, 2], np.int32), dst=np.array([4, 5, 6], np.int32),
+            flow_id=np.array([11, 12, 13], np.uint32), valid=np.ones(3, bool))
+    ops = {}
+    if schedule:
+        cap = np.stack([topo.capacity.cpu().numpy()] * 2).astype(np.float32)
+        up = cap[1, : topo.n_leaf * topo.n_paths].reshape(topo.n_leaf, topo.n_paths)
+        up[0] = np.roll(up[0], 1)
+        ops = dict(capacity=cap, cap_seg_steps=30)
+    return topo, dict(duration_s=3e-3, adaptive=adaptive, flowlet_timeout=timeout), trace, ops
+
+
+def arm(name: str):
+    """(scheme, runs the flowcell trace, reorder budget or None)."""
+    if name.startswith("flowcell_"):
+        return "ecmp", True, None if name == "flowcell_free" else float(name[len("flowcell_b"):])
+    return name, False, None
+
+
+def censored(res, trace, horizon_s: float) -> dict:
+    """benchmarks/bench_flowcell.py::_censored_p99: the FCT percentiles
+    with the unfinished flows censored at the horizon."""
+    from repro_torch.netsim import metrics
+
+    f, completion = metrics.fct_samples(res, trace, horizon_s=horizon_s)
+    return {"p99_us": float(np.percentile(f, 99) * 1e6),
+            "p50_us": float(np.percentile(f, 50) * 1e6), "completion": completion}
+
+
+def censored_diffs(got: dict, want: dict, what: str) -> dict:
+    diffs = {"completion": abs(got["completion"] - want["completion"]),
+             "p50_us": abs(got["p50_us"] / want["p50_us"] - 1.0),
+             "p99_us": abs(got["p99_us"] / want["p99_us"] - 1.0)}
+    for k, v in diffs.items():
+        check(v <= CENSORED_GATES[k], f"{what}: {k} differs by {v} > {CENSORED_GATES[k]}")
+    return diffs
+
+
+def finish_diff(got, want) -> dict:
+    """How two finish arrays differ: flows whose finish differs (a finish
+    against none included) and the largest gap between two finishes."""
+    got, want = np.asarray(got), np.asarray(want)
+    both = np.isfinite(got) & np.isfinite(want)
+    return {"differ": int((~((got == want) | (np.isinf(got) & np.isinf(want)))).sum()),
+            "max_gap_s": float(np.abs(got[both] - want[both]).max()) if both.any() else 0.0}
+
+
+# more plain runs made, at most, looking for a run's bit-identical twin
+TWIN_TRIES = 6
+
+
+def twins(runs: dict, plain: list, more_plain, what: str) -> dict:
+    """Each of ``runs`` (name -> (key, finish array)) bit-identical to the
+    ``key`` of one of the ``plain`` runs (dicts key -> finish array: runs
+    without the knob under test).  A cell may take one of two trajectories
+    from run to run on the card (the kernels' float atomics), so up to
+    TWIN_TRIES more plain runs (``more_plain()`` -> such a dict) are made
+    until every run has its twin.  A run whose trajectory no plain run
+    took must be ``finish_agreement``-alike to every plain run (the same
+    finished flows, 99 % within one dt: how far the two trajectories lie
+    apart), else it fails.  Returns each run's twin (0: the first plain
+    run, None: none) and its distance to the first."""
+    plain, first = list(plain), len(plain)
+    rows = {}
+    for name, (key, got) in runs.items():
+        while True:
+            twin = next((j for j, p in enumerate(plain)
+                         if finish_diff(got, p[key])["differ"] == 0), None)
+            if twin is not None or len(plain) >= first + TWIN_TRIES:
+                break
+            plain.append(more_plain())
+        rows[name] = {"twin": twin, "vs_first_plain": finish_diff(got, plain[0][key])}
+        if twin is None:
+            rows[name]["alike"] = all(finish_agreement(got, p[key], 10e-6)["alike"]
+                                      for p in plain)
+            check(rows[name]["alike"], f"{what} {name}: none of {len(plain)} plain runs gives "
+                                       f"its finish times, nor comes near ({rows[name]})")
+    return {"runs": rows, "plain_runs": len(plain),
+            "bit_identical": all(r["twin"] == 0 for r in rows.values())}
+
+
+def phase_flowcell(fig12_finish) -> int:
+    """Flowcell spraying against SeqBalance, ECMP and flowlet WCMP, each
+    held against the JAX package's (src/repro_torch/netsim/flowcell_reference.json):
+    bench_flowcell's fast grid on the 25G symmetric and hetero fabrics, the
+    degenerate cases (flowcells=1 and reorder=0.0 on unsprayed traffic,
+    then phase 3's SeqBalance alistorage batch with reorder=0.0, against
+    ``fig12_finish``), the ring on sim_2tier with adaptive dt, and
+    flowlet_timeout where flowlets break (REDRAW).  Returns the tiered
+    kernel's launches."""
+    from repro_torch.netsim import engine, metrics, topology
+
+    ref = reference("flowcell")["cases"]
+    total = 0
+
+    def run(topo, scheme, trace, reorder, window=None, ops=None, **cfg_kw):
+        nonlocal total
+        cfg = engine.SimConfig(scheme=scheme, **cfg_kw)
+        (res,), _, wall, launched, loop = timed_run(topo, cfg, [trace], reorder=reorder,
+                                                 window_slots=window, **(ops or {}))
+        total += check_launches(f"flowcell {scheme}", scheme, launched, loop,
+                                reorder=reorder is not None)
+        return res, wall, dict(loop, launches=launched, W=res.window_slots,
+                               spill_steps=res.spill_steps)
+
+    fabrics = {"symmetric": topology.leaf_spine(4, 4, 4, 25e9, host_bw=100e9, device=DEVICE),
+               "hetero": topology.hetero_leaf_spine(4, 4, 4, 25e9, 100e9, n_fast_spines=1,
+                                                    host_bw=100e9, device=DEVICE)}
+    grid = {}
+    for fabric, topo in fabrics.items():
+        traces = {False: collective_trace(topo, 16e6, 25e9, 3e-4),
+                  True: collective_trace(topo, 16e6, 25e9, 3e-4, flowcells=4)}
+        grid[fabric] = {}
+        for name in GRID_ARMS:
+            scheme, cells, reorder = arm(name)
+            want = ref["flowcell_grid"]["runs"][fabric][name]
+            check(want["flows"] == len(traces[cells].sizes), f"flowcell {name}: not the trace")
+            # the flowcell arms run with a window of every flow: the planner's
+            # window spills there (in both packages) and its retry would
+            # step them twice; a spill-free run's finishes do not depend on W
+            res, wall, loop = run(topo, scheme, traces[cells], reorder,
+                                  len(traces[cells].sizes) if cells else None,
+                                  duration_s=10e-3)
+            got = censored(res, traces[cells], 10e-3)
+            grid[fabric][name] = got
+            emit({"phase": "flowcell", "case": "flowcell_grid", "fabric": fabric, "arm": name,
+                  **got, "jax": {k: want[k] for k in got}, "wall_s": wall,
+                  "vs_jax": censored_diffs(got, want, f"flowcell_grid {fabric} {name}"),
+                  "loop": loop})
+    sym, jsym = grid["symmetric"], ref["flowcell_grid"]["runs"]["symmetric"]
+    facts = {"free_wins": ("flowcell_free", "seqbalance"), "gbn_loses": ("seqbalance",
+                                                                         "flowcell_b0")}
+    for fact, (lo, hi) in facts.items():
+        got = sym[lo]["p99_us"] <= sym[hi]["p99_us"]
+        want = ref["flowcell_grid"]["facts"][fact]
+        close = abs(jsym[lo]["p99_us"] / jsym[hi]["p99_us"] - 1.0) <= FACT_MARGIN
+        emit({"phase": "flowcell", "fact": fact, "holds": got, "jax": want,
+              "gated": not close, f"{lo}_p99_us": sym[lo]["p99_us"],
+              f"{hi}_p99_us": sym[hi]["p99_us"]})
+        check(close or got == want, f"flowcell: {fact} is {got} on the card, {want} in JAX")
+
+    topo = fabrics["symmetric"]
+    classic = collective_trace(topo, 16e6, 25e9, 3e-4)
+    plan1 = collective_trace(topo, 16e6, 25e9, 3e-4, flowcells=1, budget=9.0)
+    same = all(np.array_equal(getattr(classic, f), getattr(plan1, f))
+               for f in ("sizes", "arrivals", "src", "dst", "flow_id", "valid", "spray"))
+    check(same, "flowcell_degenerate: flowcells=1 did not render the classic trace")
+    fixed = dict(duration_s=10e-3)
+    base = run(topo, "seqbalance", classic, None, **fixed)[0]
+    one = run(topo, "seqbalance", plan1, None, **fixed)[0]
+    zero = run(topo, "seqbalance", classic, 0.0, **fixed)[0]
+    small = twins({"flowcells_1": ("plain", one.finish), "reorder_0": ("plain", zero.finish)},
+                  [{"plain": base.finish}],
+                  lambda: {"plain": run(topo, "seqbalance", classic, None, **fixed)[0].finish},
+                  "flowcell_degenerate")
+    got = censored(base, classic, 10e-3)
+    want = ref["flowcell_degenerate"]["seqbalance"]
+    emit({"phase": "flowcell", "case": "flowcell_degenerate", "fabric": "symmetric", **small,
+          "jax_bit_identical": ref["flowcell_degenerate"]["bit_identical"], **got,
+          "vs_jax": censored_diffs(got, want, "flowcell_degenerate seqbalance")})
+    fig_topo, fig_traces = fig12_traces()
+    fig_cfg = engine.SimConfig(scheme="seqbalance", duration_s=10e-3, uplink_sample_every=10)
+    batch = fig_traces[:2]
+    results, _, wall, launched, loop = timed_run(fig_topo, fig_cfg, batch, reorder=0.0)
+    total += check_launches("flowcell fig12 reorder=0", "seqbalance", launched, loop, True)
+
+    loads = (0.5, 0.8)
+
+    def plain_again():
+        nonlocal total
+        again, _, _, n, lp = timed_run(fig_topo, fig_cfg, batch)
+        total += check_launches("flowcell fig12 plain", "seqbalance", n, lp)
+        return {load: r.finish for load, r in zip(loads, again)}
+
+    fig = twins({f"alistorage_{load}": (load, r.finish) for load, r in zip(loads, results)},
+                [dict(zip(loads, fig12_finish))], plain_again, "flowcell_degenerate fig12")
+    ref_stats = reference_stats()[1]
+    stats = {("seqbalance", f"alistorage_{load}"): metrics.fct_stats(r, t, fig_topo, 100e9)
+             for load, r, t in zip((0.5, 0.8), results, batch)}
+    emit({"phase": "flowcell", "case": "flowcell_degenerate", "fabric": "sim_2tier",
+          "traces": ["alistorage_0.5", "alistorage_0.8"], "reorder": 0.0, "wall_s": wall,
+          **fig, "vs_jax": gated_diffs(stats, ref_stats, "flowcell fig12 reorder=0 vs JAX"),
+          "loop": dict(loop, launches=launched)})
+
+    sim2 = topology.sim_2tier(device=DEVICE)
+    traces = {False: collective_trace(sim2, 8e6, 100e9, 800e-6),
+              True: collective_trace(sim2, 8e6, 100e9, 800e-6, flowcells=4)}
+    for name in SIM2TIER_ARMS:
+        scheme, cells, reorder = arm(name)
+        want = ref["flowcell_sim2tier"]["runs"][name]
+        res, wall, loop = run(sim2, scheme, traces[cells], reorder, duration_s=14e-3,
+                              adaptive=True, uplink_sample_every=10)
+        got = censored(res, traces[cells], 14e-3)
+        emit({"phase": "flowcell", "case": "flowcell_sim2tier", "arm": name, **got,
+              "jax": {k: want[k] for k in got}, "ff_steps": res.ff_steps,
+              "jax_ff_steps": want["ff_steps"], "wall_s": wall,
+              "vs_jax": censored_diffs(got, want, f"flowcell_sim2tier {name}"), "loop": loop})
+
+    for name in REDRAW:  # the WCMP re-draw fires: held to the JAX package's finishes
+        topo, cfg_kw, trace, ops = redraw_case(name)
+        want = ref["flowlet_redraw"]["runs"][name]
+        jax_finish = np.array([np.inf if f is None else f for f in want["finish_s"]])
+        res, wall, loop = run(topo, "flowlet_timeout", trace, None, ops=ops, **cfg_kw)
+        ecmp = run(topo, "ecmp", trace, None, ops=ops, **cfg_kw)[0]
+        agree = finish_agreement(np.asarray(res.finish, np.float64), jax_finish, 10e-6)
+        moved = finish_diff(res.finish, ecmp.finish)
+        emit({"phase": "flowcell", "case": "flowlet_redraw", "run": name, "vs_jax": agree,
+              "ff_steps": res.ff_steps, "jax_ff_steps": want["ff_steps"],
+              "ecmp_ff_steps": ecmp.ff_steps, "vs_ecmp": moved, "wall_s": wall, "loop": loop})
+        check(agree["alike"], f"flowlet_redraw {name}: finishes off the JAX package's ({agree})")
+        check(res.ff_steps == want["ff_steps"],
+              f"flowlet_redraw {name}: ff_steps {res.ff_steps}, JAX {want['ff_steps']}")
+        check(moved["differ"] > 0, f"flowlet_redraw {name}: no re-draw (finishes = ECMP's)")
+        check(not cfg_kw["adaptive"] or ecmp.ff_steps > res.ff_steps,
+              f"flowlet_redraw {name}: the flowlet gap did not hold back the fast-forward")
+    emit({"phase": "flowcell", "kernel_launches": total})
+    return total
+
+
+# benchmarks/bench_obs.py:108: the reference's floor on the recorder's
+# overhead, printed beside the measured one and not gated
+RECORD_OVERHEAD_FLOOR_PCT = 5.0
+RING_REL = {"goodput_mean_bps": 1e-3, "queue_mean_bytes": 1e-3, "util_mean": 1e-3,
+            "cnp_pkts": 2e-2, "rate_quantiles": 2e-2}
+# the one cell seen to take a second trajectory from run to run on the
+# card (PERF.md §6).  Only its ring may be held as the other
+# trajectory's: to the JAX package's at phase 4's gates (avg 0.5 % for the
+# means, p99 2 % for the CNPs and each quantile column's chunk-weighted
+# mean), looser than RING_REL, with each row's quantiles held exactly to
+# the rates of its own run (ring_quantiles_vs_states).  Any other cell off
+# the JAX package's trajectory fails.
+BISTABLE = ("record_fig12", "fixed", "alistorage_0.5")
+RING_REL_OTHER = {"goodput_mean_bps": 5e-3, "queue_mean_bytes": 5e-3, "util_mean": 5e-3,
+                  "cnp_pkts": 2e-2, "rate_quantiles": 2e-2}
+
+
+def rel(a, b) -> float:
+    """|a - b| / |b| elementwise at most (0 where both are 0)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    err = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+    return float(np.where((a == b), 0.0, err).max()) if a.size else 0.0
+
+
+def ring_vs_outputs(drained: dict, outs) -> dict:
+    """The recorder against its own run: each kept row's queue max (exactly),
+    queue mean, CNPs and goodput (within 1e-5, another order of float32
+    sums) against the run's per-step outputs over the row's steps."""
+    f = {name: i for i, name in enumerate(drained["fields"])}
+    worst = 0.0
+    exact = True
+    for row in drained["meta"]:
+        cols = slice(int(row[f["step0"]]), int(row[f["step0"]] + row[f["steps"]]))
+        mq = np.asarray(outs.max_queue[cols], np.float64)
+        exact &= bool(row[f["queue_max"]] == np.float32(mq.max()))
+        for name, want in (("queue_mean", mq.mean()), ("cnp_pkts", outs.cnp_rate[cols].sum()),
+                           ("goodput_mean", outs.goodput_total[cols].mean())):
+            worst = max(worst, abs(row[f[name]] - want) / max(abs(want), 1e-30))
+    return {"rows": len(drained["meta"]), "queue_max_exact": exact, "max_rel": float(worst),
+            "agree": bool(exact and worst <= 1e-5)}
+
+
+def ring_quantiles_vs_states(spec, topo, cfg, traces, i: int) -> tuple[dict, int]:
+    """One more recorded run with ``obs.recorder.record_chunk`` wrapped so
+    that each row's rates and live sub-flows (the states at the chunk's
+    end) are copied to the host: each kept row of simulation ``i`` (its
+    place in the batch) against the rank quantiles recomputed from them in
+    numpy, exactly (a rank statistic selects a value).  Returns the row to
+    print and the tiered kernel's launches."""
+    from repro_torch.obs import recorder
+
+    original, want = recorder.record_chunk, {}
+
+    def capture(spec_, ring, **kw):
+        count = ring.count.cpu().numpy()
+        write = (np.ones(count.shape, bool) if kw.get("write") is None
+                 else kw["write"].cpu().numpy())
+        rc = kw["rc"].cpu().numpy().reshape(count.size, -1)
+        act = kw["active"].cpu().numpy().reshape(count.size, -1)
+        for b in np.flatnonzero(write):
+            n = int(act[b].sum())
+            vals = np.sort(np.where(act[b], rc[b], np.float32(np.inf)))
+            want[(int(b), int(count[b]))] = [
+                vals[min(max(int(np.float32(n - 1) * np.float32(q)), 0), vals.size - 1)]
+                if n > 0 else np.float32(0.0) for q in spec_.quantiles]
+        return original(spec_, ring, **kw)
+
+    recorder.record_chunk = capture
+    try:
+        results, _, _, launched, loop = timed_run(topo, cfg, traces, record=spec)
+    finally:
+        recorder.record_chunk = original
+    launches = check_launches("record quantiles", cfg.scheme, launched, loop)
+    drained = recorder.drain(spec, results[i].ring)
+    cols = [j for j, f in enumerate(drained["fields"]) if f.startswith("rc_q")]
+    first = drained["chunks_recorded"] - drained["chunks_kept"]
+    unequal = [first + r for r, row in enumerate(drained["meta"])
+               if (i, first + r) not in want
+               or not np.array_equal(row[cols], np.asarray(want[(i, first + r)], np.float32))]
+    return {"rows": int(drained["chunks_kept"]), "unequal_rows": unequal,
+            "exact": not unequal}, launches
+
+
+def ring_agreement(got: dict, want: dict, same_ff: bool,
+                   same_trajectory: bool = True) -> tuple[dict, list]:
+    """The card's drained ring (its epoch_summary) against the JAX
+    package's: chunks_recorded and the step0/steps/ff columns equal where
+    ff_steps equals the JAX package's, and there each row's rate quantiles
+    within 2 %; goodput, queue and uplink utilization means within 1e-3, the
+    CNPs within 2 %.  A ring of another trajectory than the JAX package's
+    (``same_trajectory`` False) is held to RING_REL_OTHER, its quantiles
+    by each column's chunk-weighted mean.  Returns the row to print (with
+    the worst row of each column) and what disagrees."""
+    gc, wc = got["chunks"], want["chunks"]
+    n = min(len(gc["step0"]), len(wc["step0"]))
+    worst = {}
+    for f in gc:
+        a, b = np.asarray(gc[f][:n]), np.asarray(wc[f][:n])
+        e = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+        e = np.where(a == b, 0.0, e)
+        i = int(e.argmax()) if n else 0
+        worst[f] = {"row": i, "rel": float(e[i]) if n else 0.0,
+                    "card": float(a[i]) if n else None, "jax": float(b[i]) if n else None}
+    errs = {k: rel(got[k], want[k]) for k in ("goodput_mean_bps", "queue_mean_bytes",
+                                              "cnp_pkts")}
+    errs["util_mean"] = rel(got["uplink"]["util_mean"], want["uplink"]["util_mean"])
+    if not same_trajectory:
+        gw = np.asarray(gc["steps"], np.float64) / np.sum(gc["steps"])
+        ww = np.asarray(wc["steps"], np.float64) / np.sum(wc["steps"])
+        errs["rate_quantiles"] = max(rel(np.dot(gc[f], gw), np.dot(wc[f], ww))
+                                     for f in gc if f.startswith("rc_q"))
+    elif same_ff:  # the rows are the same chunks
+        errs["rate_quantiles"] = max(worst[f]["rel"] for f in gc if f.startswith("rc_q"))
+    limits = RING_REL if same_trajectory else RING_REL_OTHER
+    columns = all(gc[f] == wc[f] for f in ("step0", "steps", "ff"))
+    row = {"chunks_recorded": got["chunks_recorded"], "jax_chunks_recorded":
+           want["chunks_recorded"], "columns_equal": columns, "gated_columns": same_ff,
+           "same_trajectory": same_trajectory, "rel": errs, "limits": limits,
+           "worst_row": worst}
+    faults = [f"{k} of the ring differs by {v} > {limits[k]}"
+              for k, v in errs.items() if v > limits[k]]
+    if same_ff and not (got["chunks_recorded"] == want["chunks_recorded"] and columns):
+        faults.append("the ring's chunks differ from the JAX package's")
+    return row, faults
+
+
+def phase_record() -> int:
+    """The flight recorder on the card, held against the JAX package's
+    rings (src/repro_torch/netsim/record_reference.json): bench_obs's
+    collective on leaf_spine(4, 4, 4), fixed and adaptive, and phase 3's
+    SeqBalance alistorage batch, each run without and with
+    RecordSpec(ring_chunks=64), alternated twice.  Finish times must not
+    move with the ring (``twins``); every recorded run's ring must be its
+    run's outputs; the ring is held against the JAX package's on a run
+    that took the JAX package's trajectory (its FCT stats within the
+    0.01 % target: a cell may take another from run to run on the card,
+    whose chunks are another run's), up to TWIN_TRIES more recorded runs
+    made to find one; only the BISTABLE cell may then be held as a ring of
+    the other trajectory (``ring_agreement``), its rows' quantiles to its
+    own run's rates (``ring_quantiles_vs_states``).  The overhead (min of
+    each) is printed beside the reference's floor.  Returns the tiered
+    kernel's launches."""
+    from repro_torch import obs
+    from repro_torch.netsim import engine, metrics, topology
+
+    ref = reference("record")
+    spec = obs.RecordSpec(ring_chunks=ref["ring_chunks"])
+    ls444 = topology.leaf_spine(4, 4, 4, 100e9, device=DEVICE)
+    fig_topo, fig_traces = fig12_traces()
+    cases = (("record_ls444", ls444, [collective_trace(ls444, 4e6)], ["fixed", "adaptive"],
+              dict(scheme="seqbalance", duration_s=14e-3, uplink_sample_every=10)),
+             ("record_fig12", fig_topo, fig_traces[:2], ["fixed"],
+              dict(scheme="seqbalance", duration_s=10e-3, uplink_sample_every=10)))
+    total, faults = 0, []
+    for name, topo, traces, modes, cfg_kw in cases:
+        jax = ref["cases"][name]
+        for mode in modes:
+            cfg = engine.SimConfig(adaptive=mode == "adaptive", **cfg_kw)
+            walls, runs = {"off": [], "on": []}, {"off": [], "on": []}
+            for _ in range(2):
+                for side in ("off", "on"):
+                    results, outs, wall, launched, loop = timed_run(
+                        topo, cfg, traces, **({"record": spec} if side == "on" else {}))
+                    total += check_launches(f"{name} {mode} record {side}", cfg.scheme,
+                                            launched, loop)
+                    walls[side].append(wall)
+                    runs[side].append((results, outs))
+            names = list(jax) if name == "record_fig12" else [mode]  # the JAX runs' keys
+
+            def plain_again(name=name, cfg=cfg, topo=topo, traces=traces):
+                nonlocal total
+                results, _, _, launched, loop = timed_run(topo, cfg, traces)
+                total += check_launches(f"{name} plain", cfg.scheme, launched, loop)
+                return {i: r.finish for i, r in enumerate(results)}
+
+            same = twins({f"{n} pass{k}": (i, runs["on"][k][0][i].finish)
+                          for i, n in enumerate(names) for k in range(2)},
+                         [{i: r.finish for i, r in enumerate(results)}
+                          for results, _ in runs["off"]], plain_again, f"{name} {mode}")
+            rows = {"finish_with_and_without": same}
+
+            def recorded_again(name=name, cfg=cfg, topo=topo, traces=traces):
+                nonlocal total
+                results, outs, _, launched, loop = timed_run(topo, cfg, traces, record=spec)
+                total += check_launches(f"{name} recorded", cfg.scheme, launched, loop)
+                return results, outs
+
+            recorded = list(runs["on"])
+            for i, trace_name in enumerate(names):
+                want = jax[trace_name]
+                row = {"own_outputs": [], "vs_jax": []}
+                k = 0
+                while True:  # the first recorded run on the JAX package's trajectory
+                    if k == len(recorded):
+                        recorded.append(recorded_again())
+                    res, outs = recorded[k][0][i], recorded[k][1][i]
+                    own = ring_vs_outputs(obs.drain(spec, res.ring), outs)
+                    check(own["agree"], f"{name} {mode} {trace_name}: the ring is not its "
+                                        f"run's outputs ({own})")
+                    drift = stat_diffs(metrics.fct_stats(res, traces[i], topo, 100e9),
+                                       trajectory_stats(name, mode, trace_name))
+                    row["own_outputs"].append(own)
+                    row["vs_jax"].append(drift)
+                    k += 1
+                    if max(drift.values()) <= TARGET or k >= len(runs["on"]) + TWIN_TRIES:
+                        break
+                on_path = max(drift.values()) <= TARGET
+                if not on_path:
+                    check((name, mode, trace_name) == BISTABLE,
+                          f"{name} {mode} {trace_name}: none of {k} recorded runs took the JAX "
+                          f"package's trajectory (FCT stats off by {drift})")
+                    own_q, launched = ring_quantiles_vs_states(spec, topo, cfg, traces, i)
+                    total += launched
+                    row["own_quantiles"] = own_q
+                    check(own_q["exact"], f"{name} {mode} {trace_name}: the ring's rate "
+                                          f"quantiles are not its run's ({own_q})")
+                ring, bad = ring_agreement(obs.epoch_summary(spec, obs.drain(spec, res.ring)),
+                                           want["summary"], res.ff_steps == want["ff_steps"],
+                                           on_path)
+                faults += [f"{name} {mode} {trace_name}: {b}" for b in bad]
+                rows[trace_name] = dict(row, recorded_runs=k, ff_steps=res.ff_steps,
+                                        jax_ff_steps=want["ff_steps"], ring=ring)
+            off, on = min(walls["off"]), min(walls["on"])
+            emit({"phase": "record", "case": name, "mode": mode, "wall_off_s": walls["off"],
+                  "wall_on_s": walls["on"], "overhead_pct": (on / off - 1.0) * 100.0,
+                  "reference_floor_pct": RECORD_OVERHEAD_FLOOR_PCT,
+                  "floor_met": (on / off - 1.0) * 100.0 <= RECORD_OVERHEAD_FLOOR_PCT,
+                  "runs": rows})
+    emit({"phase": "record", "kernel_launches": total})
+    check(not faults, "; ".join(faults))
     return total
 
 
@@ -1236,24 +1769,29 @@ def main() -> int:
     try:
         phase_device()
         rows = phase_kernel()
-        stats, sweep_counts, walls = phase_sweep()
+        stats, sweep_counts, walls, fig12_finish = phase_sweep()
         phase_agree(stats)
         dense_counts = phase_dense(stats, walls)
         phase_profile()
         adaptive_launches = phase_adaptive()
         fault_launches = phase_faults()
+        flowcell_launches = phase_flowcell(fig12_finish)
+        record_launches = phase_record()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    emit({"phase": "script", "wall_s": time.time() - START})
     kernels = []
     (sweep_counts, sweep_by), (dense_counts, dense_by) = sweep_counts, dense_counts
     for lib, row in rows.items():
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
         if name == "cascade_tiered":
-            # the main path: the fig12 sweep, the adaptive and the fault phases
-            by_path.update(adaptive=adaptive_launches, faults=fault_launches)
-            launches = sweep_counts[name] + adaptive_launches + fault_launches
+            # the main path: the fig12 sweep and phases 7-10
+            by_path.update(adaptive=adaptive_launches, faults=fault_launches,
+                           flowcell=flowcell_launches, record=record_launches)
+            launches = (sweep_counts[name] + adaptive_launches + fault_launches
+                        + flowcell_launches + record_launches)
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]

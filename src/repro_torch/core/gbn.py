@@ -1,6 +1,7 @@
 """Go-back-N retransmission model (paper §II.A), mirroring the two
 functions of ``repro.core.gbn`` that the simulator uses: DRILL's spray
-pays ``gbn_goodput_factor(ooo_probability(...))``."""
+pays ``gbn_goodput_factor(ooo_probability(...))``, and a flowcell-split
+chunk ``ooo_probability`` of its paths' skew (``dataplane.reorder_gbn_factor``)."""
 from __future__ import annotations
 
 import torch

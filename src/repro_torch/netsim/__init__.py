@@ -1,6 +1,6 @@
 """Fluid network simulator (paper §IV) on PyTorch.
 
-  topology   leaf_spine / sim_2tier / three_tier fabrics
+  topology   leaf_spine / hetero_leaf_spine / sim_2tier / three_tier fabrics
   workloads  Poisson traces from the paper's flow-size CDFs (numpy)
   dataplane  hop cascade -> queues -> ECN marks; DRILL's spray
   dcqcn      fluid DCQCN rate control

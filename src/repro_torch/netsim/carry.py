@@ -4,8 +4,8 @@ A simulator has no weights: what a run is made of is its trace, its
 configuration and its engine state.  These helpers build the port's
 counterparts from plain Python and numpy values (``dataclasses.asdict``
 of a configuration, ``np.asarray`` of state leaves), so a test can start
-both engines from the same mid-run state.  Nothing here imports the
-reference.
+both engines from the same mid-run state, and the flight recorder from
+the same ring.  Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from repro_torch.netsim.compact import CompactState, SlotCache
 from repro_torch.core.congestion_table import CongestionTable
 from repro_torch.netsim.engine import SimConfig
 from repro_torch.netsim.workloads import Trace
+from repro_torch.obs.recorder import RingState
 
 def config_from_dict(d: dict) -> SimConfig:
     """SimConfig from ``dataclasses.asdict`` of a reference SimConfig, with
@@ -93,6 +94,16 @@ def compact_state_from_numpy(leaves: dict, device) -> CompactState:
             fab=t(cache["fab"], torch.int32), sleaf=t(cache["sleaf"], torch.int32),
             dleaf=t(cache["dleaf"], torch.int32), salt=t(cache["salt"], torch.int64),
             fid=t(cache["fid"], torch.int64), src=t(cache["src"], torch.int32),
-            dst=t(cache["dst"], torch.int32),
+            dst=t(cache["dst"], torch.int32), spray=t(cache["spray"], torch.int32),
         ),
     )
+
+
+def ring_from_numpy(leaves, device) -> RingState:
+    """The port's recorder ring (B = 1) from a reference ``RingState``
+    (its fields as a dict or NamedTuple of numpy leaves: meta [R, M],
+    uplink [R, U, 2], count scalar)."""
+    lv = _leaves(leaves)
+    return RingState(meta=_tensor(lv["meta"], device).to(torch.float32),
+                     uplink=_tensor(lv["uplink"], device).to(torch.float32),
+                     count=_tensor(lv["count"], device).to(torch.int64))

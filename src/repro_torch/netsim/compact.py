@@ -24,12 +24,15 @@ gate only saves time; results are identical without it).
 If the window W is too small, arrivals wait at the NIC and admit as slots
 free; ``spill_steps`` counts the steps where that happened.
 
-Two traced operands of the reference ride along: ``capacity`` (a vector,
-or a wall-clock schedule of rows stepped every ``cap_seg_steps`` steps)
-in place of the topology's, and ``loss``, per-link loss rates that
-deflate delivered throughput by the go-back-N factor.  With
-``SimConfig.adaptive`` each chunk boundary also checks for quiescence and
-advances quiet simulations a whole macro-step in closed form
+Three traced operands of the reference ride along: ``capacity`` (a
+vector, or a wall-clock schedule of rows stepped every ``cap_seg_steps``
+steps) in place of the topology's; ``loss``, per-link loss rates that
+deflate delivered throughput by the go-back-N factor; and ``reorder``, the
+NIC's reordering budget, which charges flowcell-split flows (the trace's
+``spray`` column) their go-back-N cost.  With ``SimConfig.adaptive`` each
+chunk boundary also checks for quiescence and advances quiet simulations
+a whole macro-step in closed form, and with ``record`` the flight
+recorder (``repro_torch.obs.recorder``) writes one summary row per chunk
 (``run_core``).
 """
 from __future__ import annotations
@@ -45,7 +48,7 @@ from repro_torch import resolve_device
 from repro_torch.core import baselines, congestion_table as ctab, hashing, routing, shaper
 from repro_torch.netsim import dataplane, dcqcn as dcqcn_mod
 from repro_torch.netsim.engine import (
-    DONE_EPS_BYTES, SimConfig, StepOutputs, flow_constants, line_rate_of,
+    DONE_EPS_BYTES, SimConfig, StepOutputs, check_reorder, flow_constants, line_rate_of,
 )
 from repro_torch.netsim.topology import Topology
 from repro_torch.netsim.workloads import Trace
@@ -64,6 +67,7 @@ class SlotCache(NamedTuple):
     fid: torch.Tensor  # u32 in int64 [B, W] flow id (flowlet reroute rng)
     src: torch.Tensor  # i32[B, W] source host (DRILL spray)
     dst: torch.Tensor  # i32[B, W]
+    spray: torch.Tensor  # i32[B, W] paths the flow's chunk straddles (reorder cost)
 
 
 class CompactState(NamedTuple):
@@ -93,6 +97,7 @@ class CompactResult(NamedTuple):
     window_slots: int = 0  # W the (final) run used
     steps: int = 0  # dt steps the run executed before its early exit
     ff_steps: int = 0  # of those, the steps covered by the closed-form fast-forward
+    ring: object = None  # obs.recorder.RingState of this simulation (B = 1) when recording
 
 
 def max_concurrency_bound(sizes, arrivals, valid, line_rate: float, *,
@@ -173,7 +178,8 @@ def event_grid(cfg: SimConfig, n_steps: int, arrivals=None, valid=None,
 
 def sort_trace(trace: Trace) -> tuple[tuple, np.ndarray, int]:
     """Sort a trace by arrival (invalid flows last at +inf).  Returns
-    (sorted arrays tuple, inverse permutation, n_flows)."""
+    (sorted arrays tuple, inverse permutation, n_flows); the arrays are
+    (sizes, arrivals, src, dst, fid, valid, spray)."""
     valid = np.asarray(trace.valid, bool)
     arr = np.asarray(trace.arrivals, np.float32).copy()
     arr[~valid] = np.inf
@@ -187,12 +193,14 @@ def sort_trace(trace: Trace) -> tuple[tuple, np.ndarray, int]:
         np.asarray(trace.dst, np.int32)[order],
         np.asarray(trace.flow_id, np.uint32)[order],
         valid[order],
+        np.asarray(trace.spray, np.int32)[order],
     )
     return arrays, inv, order.size
 
 
 def pad_trace_arrays(arrays: tuple, F_pad: int) -> tuple:
-    sizes, arr, src, dst, fid, valid = arrays
+    """The sorted arrays padded to F_pad flows (invalid, spray 1)."""
+    sizes, arr, src, dst, fid, valid, spray = arrays
     pad = F_pad - sizes.shape[0]
     if pad < 0:
         raise ValueError(f"{sizes.shape[0]} flows do not fit F_pad={F_pad}")
@@ -205,19 +213,22 @@ def pad_trace_arrays(arrays: tuple, F_pad: int) -> tuple:
         np.concatenate([dst, np.zeros(pad, np.int32)]),
         np.concatenate([fid, np.zeros(pad, np.uint32)]),
         np.concatenate([valid, np.zeros(pad, bool)]),
+        np.concatenate([spray, np.ones(pad, np.int32)]),
     )
 
 
 def trace_tensors(stacked: tuple, device) -> tuple:
     """Stacked [B, F_pad] numpy trace arrays -> tensors on ``device`` (flow
-    ids widened to int64, as every uint32 in this package)."""
-    sizes, arr, src, dst, fid, valid = stacked
+    ids widened to int64, as every uint32 in this package); all seven
+    columns, ``spray`` the last."""
+    sizes, arr, src, dst, fid, valid, spray = stacked
     return (torch.as_tensor(sizes, dtype=torch.float32, device=device),
             torch.as_tensor(arr, dtype=torch.float32, device=device).contiguous(),
             torch.as_tensor(src, dtype=torch.int32, device=device),
             torch.as_tensor(dst, dtype=torch.int32, device=device),
             torch.as_tensor(np.asarray(fid).astype(np.int64), device=device),
-            torch.as_tensor(valid, dtype=torch.bool, device=device))
+            torch.as_tensor(valid, dtype=torch.bool, device=device),
+            torch.as_tensor(spray, dtype=torch.int32, device=device))
 
 
 def line_rate_for(topo: Topology, capacity=None) -> float:
@@ -244,7 +255,7 @@ def init_compact_state(topo: Topology, cfg: SimConfig, W: int, F_pad: int,
     cache = SlotCache(
         tx=zi(B, W), rx=zi(B, W), fab=zi(B, W, N, hf), sleaf=zi(B, W), dleaf=zi(B, W),
         salt=zi(B, W, N, dtype=torch.int64), fid=zi(B, W, dtype=torch.int64),
-        src=zi(B, W), dst=zi(B, W),
+        src=zi(B, W), dst=zi(B, W), spray=torch.ones((B, W), dtype=torch.int32, device=dev),
     )
     return CompactState(
         slot_fid=torch.full((B, W), F_pad, dtype=torch.int64, device=dev),
@@ -266,9 +277,10 @@ def init_compact_state(topo: Topology, cfg: SimConfig, W: int, F_pad: int,
 
 
 def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: int,
-                      F_pad: int, A: int, capacity=None, loss=None, cap_seg_steps: int = 0):
-    """trace_arrays = (sizes, arrivals, src, dst, fid, valid), tensors
-    [B, F_pad] on the topology's device, each row SORTED by arrival
+                      F_pad: int, A: int, capacity=None, loss=None, cap_seg_steps: int = 0,
+                      reorder=None):
+    """trace_arrays = (sizes, arrivals, src, dst, fid, valid, spray),
+    tensors [B, F_pad] on the topology's device, each row SORTED by arrival
     (invalid flows last, arrival = +inf).
 
     ``capacity`` (f32[n_links + 1] on the topology's device, sentinel slot
@@ -279,23 +291,31 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
     multiplies delivered throughput by ``dataplane.lossy_gbn_factor`` after
     the cascade, while the offered load stays at the DCQCN rate; it needs
     ``capacity`` and refuses DRILL, whose spray pins no hops.
-    ``capacity=None`` runs the program without either operand.
+    ``reorder`` (an f32 scalar tensor on the device, packets) divides
+    delivered throughput by ``dataplane.reorder_gbn_factor`` of the
+    queues along each path (``path_queue_2tier``) and the step's capacity,
+    wherever a flow's spray is above 1; it refuses DRILL and fabrics that
+    are not 2-tier.  ``capacity=None`` runs the
+    program without any of the three operands, ``reorder=None`` without the
+    reordering cost.
 
     Returns (init_state, step_fn, phases): ``step_fn(state) -> (state,
     StepOutputs)`` advances all B simulations by one ``dt``; ``phases``
     holds the adaptive engine's ``quiesce`` and ``fast_forward``."""
     dev = topo.device
-    sizes, arrivals, src, dst, fid, valid = trace_arrays[:6]
+    sizes, arrivals, src, dst, fid, valid, spray = trace_arrays
     B = sizes.shape[0]
     N = cfg.n_sub
     P = topo.n_paths
     nl = topo.n_links
-    if cfg.scheme in ("conga", "drill") and topo.kind != "leaf_spine":
+    if cfg.scheme in ("conga", "drill", "flowlet_timeout") and topo.kind != "leaf_spine":
         raise ValueError(f"{cfg.scheme} is 2-tier only (paper §IV.B)")
     if loss is not None and capacity is None:
         raise ValueError("the loss operand needs an explicit capacity operand")
     if loss is not None and cfg.scheme == "drill":
         raise ValueError("lossy links with DRILL's spray are not modelled (no pinned hops)")
+    if reorder is not None:
+        check_reorder(topo, cfg)
     fc = flow_constants(topo, cfg, sizes, src, dst, fid)
     line_rate = line_rate_for(topo, capacity)
     cap = topo.capacity if capacity is None else capacity
@@ -316,6 +336,7 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
     # fabric link ids in the SlotCache; flowlet schemes may reroute any
     # slot any step, so their (N=1) fabric row is rebuilt from leaf ids
     cached_fab = cfg.scheme in ("seqbalance", "ecmp")
+    flowlet = cfg.scheme in ("letflow", "conga", "flowlet_timeout")
     ranks = torch.arange(A, dtype=torch.int64, device=dev)
     slots = torch.arange(W, dtype=torch.int64, device=dev).expand(B, W)
     b_lane = torch.arange(B, device=dev)[:, None].expand(B, A)
@@ -371,6 +392,7 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
             fid=set_rows(ca.fid, slot_of_rank, at_rank(fid, rank_fid)),
             src=set_rows(ca.src, slot_of_rank, src_a),
             dst=set_rows(ca.dst, slot_of_rank, dst_a),
+            spray=set_rows(ca.spray, slot_of_rank, at_rank(spray, rank_fid)),
         )
         remaining = set_rows(state.remaining, slot_of_rank, at_rank(fc.sub_sizes, rank_fid))
         sub_done = set_rows(state.sub_done, slot_of_rank, false_)
@@ -386,7 +408,7 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
             rows = dataplane.take_rows(inact, sleaf_a)[:, :, None, :].expand(B, A, N, P)
             s5_a = tuple(at_rank(a, rank_fid) for a in fc.s5)  # each [B, A, N]
             p_new = routing.select_paths(*s5_a, rows, P)
-        elif cfg.scheme in ("ecmp", "letflow", "conga"):
+        elif cfg.scheme in ("ecmp", "letflow", "conga", "flowlet_timeout"):
             f5_a = tuple(at_rank(a, rank_fid) for a in fc.f5)  # each [B, A]
             p_new = routing.ecmp_paths(*f5_a, P)[..., None]
         else:  # drill: nominal path 0; the real split is the spray weights
@@ -408,12 +430,19 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
         slots that were occupied before admission."""
         occ_prev = state.slot_fid < F_pad
         st = admission(state)
-        if cfg.scheme in ("letflow", "conga"):
+        if flowlet:
             rng = hashing.fmix32(st.cache.fid ^ hashing.mul32(st.step[:, None], 0x85EBCA77))
             gap = baselines.flowlet_gap_occurs(st.cc.rc[..., 0], dp.mtu_bytes,
                                                cfg.flowlet_timeout)
             if cfg.scheme == "letflow":
                 p_re = baselines.letflow_paths(st.path[..., 0], gap, rng, P)
+            elif cfg.scheme == "flowlet_timeout":
+                # WCMP re-draw over the step's uplink capacities (a traced
+                # schedule counts): fat uplinks take more flowlets
+                cap_up = cap_of(st)[: topo.n_leaf * P].reshape(topo.n_leaf, P)
+                w_leaf = baselines.wcmp_weights(cap_up)  # [L, P]
+                p_re = baselines.flowlet_wcmp_paths(st.path[..., 0], gap, rng,
+                                                    w_leaf[st.cache.sleaf.to(torch.int64)])
             else:
                 pq = dataplane.path_queue_2tier(topo, st.queue, st.cache.sleaf,
                                                 st.cache.dleaf)
@@ -459,6 +488,14 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
             if loss is not None:
                 thr = thr * dataplane.lossy_gbn_factor(
                     fab, ca.tx, ca.rx, loss, n_links=nl, window_pkts=cfg.gbn_window_pkts)
+            if reorder is not None:
+                # each delivered byte of a path-straddling chunk costs the
+                # go-back-N rewinds; the offered load stays the DCQCN rate
+                pq = dataplane.path_queue_2tier(topo, state.queue, ca.sleaf, ca.dleaf)
+                thr = thr / dataplane.reorder_gbn_factor(
+                    topo, pq, ca.spray, rc[..., 0], reorder, mtu_bytes=dp.mtu_bytes,
+                    jitter_mtus=cfg.drill_jitter_mtus, window_pkts=cfg.gbn_window_pkts,
+                    capacity=capv)[..., None]
         return arrival, new_queue, thr, p_sub, p_sub_fabric, rc, active
 
     def finish_phase(state: CompactState, t, thr, active, rc, p_sub_fabric):
@@ -523,7 +560,6 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
 
     # ---- adaptive dt: the quiescence check and the closed-form macro-step
     n_valid = valid.sum(1)
-    flowlet = cfg.scheme in ("letflow", "conga")
 
     def arrival_check(state: CompactState, span: int) -> torch.Tensor:
         """bool[B]: no flow arrives inside the ``span`` steps from
@@ -541,11 +577,12 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
         offered load, no sub-flow able to finish within span +
         ff_margin_steps steps, and for the flowlet schemes no occupied slot
         at a flowlet gap.  DRILL's spray follows the queues, so it only
-        counts idle spans and runs no cascade here.  ``frozen`` is the
+        counts idle spans and runs no cascade here, and so does a run with
+        ``reorder``, whose cost follows the queues too.  ``frozen`` is the
         cascade's (arrival, thr, active) for the fast-forward to reuse."""
         occupied = state.slot_fid < F_pad
         idle = ~occupied.any(1)
-        if cfg.scheme == "drill":
+        if cfg.scheme == "drill" or reorder is not None:
             return idle, None
         arrival, _, thr, _, _, rc, active = cascade_phase(state)
         delta = (arrival - cap_of(state)) * (cfg.dt / 8.0)
@@ -644,10 +681,50 @@ def _select(mask: torch.Tensor, a, b):
     return torch.where(mask.reshape(-1, *([1] * (a.dim() - 1))), a, b)
 
 
+class _Recorder:
+    """The flight recorder's side of ``run_core``: the ring, and one row per
+    block from the outputs the loop has already written (the chunk's
+    per-step slab, or the fast-forward's constants), the block's uplink
+    offered load, the state at its end and the uplink capacity of its first
+    step."""
+
+    def __init__(self, spec, topo: Topology, capacity, cap_seg_steps: int, B: int,
+                 F_pad: int):
+        from repro_torch.obs import recorder
+
+        self.recorder, self.spec, self.F_pad = recorder, spec, F_pad
+        dev = topo.device
+        self.uplink_flat = torch.as_tensor(topo.uplink_ids.ravel().astype(np.int64), device=dev)
+        self.ring = recorder.ring_init(spec, self.uplink_flat.numel(), B, dev)
+        self.cap = topo.capacity if capacity is None else capacity
+        self.seg = max(int(cap_seg_steps), 1)
+
+    def cap_row(self, k: int) -> torch.Tensor:
+        cap = self.cap
+        if cap.dim() == 2:
+            cap = cap[min(k // self.seg, cap.shape[0] - 1)]
+        return cap[self.uplink_flat]
+
+    def write(self, st, per_step, k0: int, length: int, ff, offered, write) -> None:
+        """One row per simulation where ``write`` (bool[B]): the block of
+        ``length`` steps from ``k0``; ``ff`` a number or bool[B];
+        ``offered`` f32[B, U] the block's mean uplink load."""
+        cols = slice(k0, k0 + length)
+        mq = per_step[2][:, cols]
+        active = (st.slot_fid < self.F_pad)[..., None] & ~st.sub_done
+        self.ring = self.recorder.record_chunk(
+            self.spec, self.ring, step0=k0, steps=length, ff=ff,
+            queue_max=mq.amax(1), queue_mean=mq.mean(1), cnp=per_step[1][:, cols].sum(1),
+            goodput=per_step[0][:, cols].mean(1), offered=offered,
+            cap=self.cap_row(k0), rc=st.cc.rc, active=active, write=write)
+
+
 def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps: int,
-             trace_arrays: tuple, *, capacity=None, loss=None, cap_seg_steps: int = 0):
+             trace_arrays: tuple, *, capacity=None, loss=None, cap_seg_steps: int = 0,
+             reorder=None, record=None):
     """Run B simulations to the horizon (or to the early exit), with the
-    traced ``capacity`` and ``loss`` operands of ``build_compact_sim``.
+    traced ``capacity``, ``loss`` and ``reorder`` operands of
+    ``build_compact_sim``.
 
     Returns (final_state, outs, steps): ``outs`` is a StepOutputs of
     [B, n_steps] tensors (uplink_load [B, n_steps // s, L, S], window
@@ -672,15 +749,22 @@ def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps
     and raises NotImplementedError (``sweep.run_batch`` runs such a
     batch one simulation at a time).
 
+    ``record`` (an ``obs.recorder.RecordSpec``) carries the flight
+    recorder's ring beside the state and returns it as a fourth output:
+    each simulation that is still running at a block's start writes one row
+    for the block (a fast-forwarded macro-step with ``ff`` = 1), the row it
+    would write alone.  Recording reads the loop's outputs and changes no
+    result; ``record=None`` adds no operation to the step loop.
+
     ``run_core.counts`` adds up, over calls, the steps stepped
     (``scanned_steps``), the steady-state checks that launched a cascade
-    (``steady_checks``; DRILL's launch none), those of them at a boundary
-    where some simulation was live and none of the live ones passed the
-    arrival check (``checks_ruled_out``), and the macro-steps fast-forwarded
+    (``steady_checks``; DRILL's and a ``reorder`` run's launch none), those
+    of them at a boundary where some simulation was live and none of the
+    live ones passed the arrival check (``checks_ruled_out``), and the macro-steps fast-forwarded
     (``fast_forwards``, of which ``mixed_fast_forwards`` were taken by part
     of the batch)."""
     init_state, step_fn, phases = build_compact_sim(
-        topo, cfg, trace_arrays, W, F_pad, A, capacity, loss, cap_seg_steps)
+        topo, cfg, trace_arrays, W, F_pad, A, capacity, loss, cap_seg_steps, reorder)
     st = init_state()
     dev = topo.device
     B = trace_arrays[0].shape[0]
@@ -694,6 +778,7 @@ def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps
     uplink = torch.zeros((B, n_samples, *up_shape), dtype=torch.float32, device=dev)
     per_step = [torch.zeros((B, n_steps), dtype=torch.float32, device=dev) for _ in range(3)]
     up_acc = torch.zeros((B, *up_shape), dtype=torch.float32, device=dev)
+    rec = None if record is None else _Recorder(record, topo, capacity, cap_seg_steps, B, F_pad)
 
     def alive_mask(st) -> torch.Tensor:
         return ((st.admitted < n_valid)
@@ -703,19 +788,32 @@ def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps
     k = 0
 
     def run_block(st, length):
+        """Step ``length`` steps: (state, the block's mean uplink load
+        f32[B, U] for the recorder, None without it)."""
         nonlocal k, up_acc
+        block_up = None
         for _ in range(length):
             st, o = step_fn(st)
             per_step[0][:, k] = o.goodput_total
             per_step[1][:, k] = o.cnp_rate
             per_step[2][:, k] = o.max_queue
             up_acc = up_acc + o.uplink_load
+            if rec is not None:
+                block_up = o.uplink_load if block_up is None else block_up + o.uplink_load
             if (k + 1) % s == 0:
                 if k // s < n_samples:
                     uplink[:, k // s] = up_acc / s
                 up_acc = torch.zeros_like(up_acc)
             k += 1
         _count(scanned_steps=length)
+        return st, None if rec is None else (block_up / length).reshape(B, -1)
+
+    def stepped(st0, length, write):
+        """A stepped block, recorded where ``write``."""
+        k0 = k
+        st, offered = run_block(st0, length)
+        if rec is not None:
+            rec.write(st, per_step, k0, length, 0, offered, write)
         return st
 
     def write_ff(k0, rows, span, up, goodput, mq):
@@ -728,6 +826,10 @@ def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps
         v = up[:, None].expand_as(uplink[:, wins])
         uplink[:, wins] = v if rows is None else torch.where(
             rows.reshape(B, 1, *([1] * len(up_shape))), v, uplink[:, wins])
+
+    def ff_offered(k0, span):
+        """The fast-forward's mean uplink load over its windows, f32[B, U]."""
+        return uplink[:, k0 // s:(k0 + span) // s].mean(1).reshape(B, -1)
 
     if cfg.adaptive:
         macro = K * cfg.ff_macro_chunks
@@ -748,37 +850,53 @@ def run_core(topo: Topology, cfg: SimConfig, W: int, F_pad: int, A: int, n_steps
             quiet, frozen = none, None
             if maybe.any():
                 cheap, quiet_t, frozen = quiesce(st, macro)
-                live, cheap, quiet = torch.stack([alive_mask(st), cheap, quiet_t]).cpu().numpy()
+                flags = torch.stack([alive_mask(st), cheap, quiet_t])
+                live, cheap, quiet = flags.cpu().numpy()
+                live_t = flags[0]
                 cheap, quiet = cheap & live, quiet & live
                 if frozen is not None:  # a check at the exit boundary is not ruled out
                     _count(steady_checks=1,
                            checks_ruled_out=int(live.any() and not cheap.any()))
             else:
-                live = alive_mask(st).cpu().numpy()
+                live_t = alive_mask(st)
+                live = live_t.cpu().numpy()
             if not live.any():
                 break
             if not quiet.any():
-                st = run_block(st, K)
+                st = stepped(st, K, live_t)
                 continue
             rows = torch.as_tensor(quiet, device=dev)
             st_ff, (up, goodput, mq) = fast_forward(st, macro, rows, frozen)
+            k0 = k
             if (quiet | ~live).all():
-                write_ff(k, None, macro, up, goodput, mq)
+                write_ff(k0, None, macro, up, goodput, mq)
                 st = st_ff
                 k += macro
+                if rec is not None:
+                    rec.write(st, per_step, k0, macro, 1, ff_offered(k0, macro), live_t)
                 _count(fast_forwards=1)
             else:
-                k0 = k
-                st = _select(rows, st_ff, run_block(st, K))
+                st_run, offered = run_block(st, K)
+                st = _select(rows, st_ff, st_run)
                 write_ff(k0, rows, K, up, goodput, mq)
+                if rec is not None:
+                    rec.write(st, per_step, k0, K, rows,
+                              torch.where(rows[:, None], ff_offered(k0, K), offered), live_t)
                 _count(fast_forwards=1, mixed_fast_forwards=1)
     else:
-        while k < horizon and bool(alive_mask(st).any()):
-            st = run_block(st, K)
-    if tail and bool(alive_mask(st).any()):
-        st = run_block(st, tail)
+        while k < horizon:
+            live_t = alive_mask(st)
+            if not bool(live_t.any()):
+                break
+            st = stepped(st, K, live_t)
+    if tail:
+        live_t = alive_mask(st)
+        if bool(live_t.any()):
+            st = stepped(st, tail, live_t)
     outs = StepOutputs(uplink, per_step[0], per_step[1], per_step[2])
-    return st, outs, k
+    if rec is None:
+        return st, outs, k
+    return st, outs, k, rec.ring
 
 
 run_core.counts = dict(scanned_steps=0, steady_checks=0, checks_ruled_out=0,
@@ -786,10 +904,11 @@ run_core.counts = dict(scanned_steps=0, steady_checks=0, checks_ruled_out=0,
 
 
 def simulate_compact(topo: Topology, cfg: SimConfig, trace: Trace, *,
-                     window_slots: int | None = None, device=None):
+                     window_slots: int | None = None, reorder=None, device=None):
     """One-shot compact run of a single trace (for sweeps use
-    netsim/sweep.py).  Returns (CompactResult, StepOutputs of numpy
-    arrays without the batch dimension)."""
+    netsim/sweep.py).  ``reorder`` (packets or None) turns on the flowcell
+    reordering cost.  Returns (CompactResult, StepOutputs of numpy arrays
+    without the batch dimension)."""
     device = resolve_device(device)
     topo = topo.to(device)
     arrays, inv, F = sort_trace(trace)
@@ -799,8 +918,10 @@ def simulate_compact(topo: Topology, cfg: SimConfig, trace: Trace, *,
         W = max(8, min(int(window_slots), F_pad))
     n_steps = int(round(cfg.duration_s / cfg.dt))
     stacked = tuple(a[None] for a in pad_trace_arrays(arrays, F_pad))
+    if reorder is not None:
+        reorder = torch.tensor(reorder, dtype=torch.float32, device=device)
     st, outs, steps = run_core(topo, cfg, W, F_pad, A, n_steps,
-                               trace_tensors(stacked, device))
+                               trace_tensors(stacked, device), reorder=reorder)
     res = CompactResult(
         finish=st.finish[0].cpu().numpy()[:F][inv],
         cnp_pkts=st.cnp_pkts[0].cpu().numpy(),

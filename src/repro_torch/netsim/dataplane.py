@@ -161,6 +161,33 @@ def lossy_gbn_factor(fab_links, tx_link, rx_link, loss, *, n_links: int,
     return gbn.gbn_goodput_factor(p_loss, window_pkts)
 
 
+def reorder_gbn_factor(topo: Topology, pq, spray, rc0, reorder, *, mtu_bytes: float,
+                       jitter_mtus: float, window_pkts: float, capacity=None):
+    """Go-back-N byte amplification f32[B, n] (>= 1) of flowcell-split flows.
+
+    pq f32[B, n, P] per-path queue bytes (``path_queue_2tier``); spray
+    i32[B, n] the paths a flow's parent chunk straddles; rc0 f32[B, n] its
+    offered rate; reorder the f32 scalar tensor budget in packets.  A chunk
+    over k of P paths sees (k - 1) / (P - 1) of the inter-path delay spread
+    (floored by the mean queue's jitter, as DRILL's); the NIC re-sequences
+    ``reorder`` packets' worth of it for free, and each out-of-order packet
+    past that rewinds half a window: ``1 + p_ooo * window / 2``.  Exactly 1
+    where ``spray <= 1`` (``torch.where``, no product that could round)."""
+    P = topo.n_paths
+    cap = topo.capacity if capacity is None else capacity
+    up_cap = torch.clamp(cap[0], min=1.0)  # uplink block starts at 0 (2-tier)
+    d_path = pq * 8.0 / up_cap  # [B, n, P] seconds
+    full_spread = d_path.amax(-1) - d_path.amin(-1)
+    k = torch.clamp(spray.to(torch.float32), 1.0, float(P))
+    frac = (k - 1.0) / float(max(P - 1, 1))
+    jitter_bytes = torch.clamp(0.5 * pq.mean(-1), max=jitter_mtus * mtu_bytes)
+    jitter = jitter_bytes * 8.0 / up_cap
+    skew = torch.maximum(full_spread, jitter) * frac
+    budget_s = reorder * mtu_bytes * 8.0 / torch.clamp(rc0, min=1.0)
+    p_ooo = gbn.ooo_probability(torch.clamp(skew - budget_s, min=0.0), rc0, mtu_bytes)
+    return torch.where(spray > 1, 1.0 + p_ooo * (window_pkts / 2.0), 1.0)
+
+
 def queue_mask_for(topo: Topology) -> torch.Tensor:
     """1.0 on links that queue and ECN-mark, 0.0 on host_tx (NIC-internal
     backlog, no ECN there) and on the sentinel slot."""

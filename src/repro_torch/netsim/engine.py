@@ -75,8 +75,6 @@ class SimConfig:
     def __post_init__(self):
         if self.scheme not in SCHEMES:
             raise ValueError(f"unknown scheme {self.scheme!r}")
-        if self.scheme == "flowlet_timeout":
-            raise NotImplementedError("the flowlet_timeout scheme is not ported yet")
         if self.dataplane not in dataplane.BACKENDS:
             raise ValueError(f"dataplane {self.dataplane!r} not in {dataplane.BACKENDS}")
         if self.chunk_steps < 1 or self.uplink_sample_every < 1:
@@ -148,16 +146,27 @@ def line_rate_of(topo: Topology) -> float:
     return float(topo.capacity[topo.n_links - 2 * topo.n_hosts])
 
 
+def check_reorder(topo: Topology, cfg: SimConfig) -> None:
+    """The flowcell reordering cost is modelled on 2-tier fabrics, and not
+    for DRILL, whose spray pays its own go-back-N factor."""
+    if topo.kind != "leaf_spine":
+        raise ValueError("the reorder cost model is 2-tier only")
+    if cfg.scheme == "drill":
+        raise ValueError("DRILL carries its own go-back-N factor (drill_gbn_factor)")
+
+
 def build_sim(topo: Topology, cfg: SimConfig, trace: Trace, reorder=None):
     """Returns (init_state, step_fn) for the scheme, topology and trace, on
     the topology's device; ``step_fn(state) -> (state, StepOutputs)``.
 
-    ``reorder`` (the reference's flowcell reordering cost) is not ported
-    yet and raises."""
-    if reorder is not None:
-        raise NotImplementedError("the reorder cost model is not ported yet")
-    if cfg.scheme in ("conga", "drill") and topo.kind != "leaf_spine":
+    ``reorder`` (packets, a float or None) turns on the flowcell reordering
+    cost: delivered throughput divides by ``dataplane.reorder_gbn_factor``
+    wherever the trace's ``spray`` column says a flow's chunk straddles more
+    than one path.  ``None`` runs the program without it."""
+    if cfg.scheme in ("conga", "drill", "flowlet_timeout") and topo.kind != "leaf_spine":
         raise ValueError(f"{cfg.scheme} is 2-tier only (paper §IV.B)")
+    if reorder is not None:
+        check_reorder(topo, cfg)
     dev = topo.device
     F = len(trace.sizes)
     N = cfg.n_sub
@@ -169,6 +178,9 @@ def build_sim(topo: Topology, cfg: SimConfig, trace: Trace, reorder=None):
     dst = torch.as_tensor(np.asarray(trace.dst), dtype=torch.int32, device=dev)
     fid = torch.as_tensor(np.asarray(trace.flow_id).astype(np.int64), device=dev)
     valid = torch.as_tensor(np.asarray(trace.valid), dtype=torch.bool, device=dev)
+    spray = torch.as_tensor(np.asarray(trace.spray), dtype=torch.int32, device=dev)
+    if reorder is not None:
+        reorder = torch.tensor(reorder, dtype=torch.float32, device=dev)
 
     fc = flow_constants(topo, cfg, sizes, src, dst, fid)
     src_leaf, dst_leaf = fc.src_leaf, fc.dst_leaf
@@ -179,6 +191,11 @@ def build_sim(topo: Topology, cfg: SimConfig, trace: Trace, reorder=None):
     tx_link, rx_link = topo.nic_links(src, dst)  # i32[F], path-independent
     uplink_ids = torch.as_tensor(topo.uplink_ids.astype(np.int64), device=dev)
     cell_leaf = src_leaf.to(torch.int64)[:, None].expand(F, N) * P  # intensity rows
+    if cfg.scheme == "flowlet_timeout":
+        # WCMP re-draw weights from the static uplink capacities: fat
+        # uplinks take proportionally more flowlets
+        up_w = baselines.wcmp_weights(cap[: topo.n_leaf * P].reshape(topo.n_leaf, P))
+        up_w = up_w[src_leaf.to(torch.int64)]  # [F, P]
 
     def init_state() -> SimState:
         return SimState(
@@ -211,13 +228,15 @@ def build_sim(topo: Topology, cfg: SimConfig, trace: Trace, reorder=None):
         if cfg.scheme == "ecmp":
             p_new = routing.ecmp_paths(*fc.f5, P)[:, None]
             return torch.where(newly[:, None], p_new, path)
-        if cfg.scheme in ("letflow", "conga"):
+        if cfg.scheme in ("letflow", "conga", "flowlet_timeout"):
             rng = hashing.fmix32(fid ^ hashing.mul32(state.step, 0x85EBCA77))
             p_init = routing.ecmp_paths(*fc.f5, P)
             gap = baselines.flowlet_gap_occurs(state.cc.rc[:, 0], dp.mtu_bytes,
                                                cfg.flowlet_timeout)
             if cfg.scheme == "letflow":
                 p_re = baselines.letflow_paths(path[:, 0], gap, rng, P)
+            elif cfg.scheme == "flowlet_timeout":
+                p_re = baselines.flowlet_wcmp_paths(path[:, 0], gap, rng, up_w)
             else:
                 pq = dataplane.path_queue_2tier(topo, state.queue[None], src_leaf[None],
                                                 dst_leaf[None])[0]
@@ -252,6 +271,13 @@ def build_sim(topo: Topology, cfg: SimConfig, trace: Trace, reorder=None):
                 dt=cfg.dt, qmax_bytes=cfg.qmax_bytes, backend=cfg.dataplane)
             p_sub, p_sub_fabric = dataplane.subflow_mark_probs_nic(
                 fab, tx_link[None], rx_link[None], p_mark, nl)
+            if reorder is not None:
+                pq = dataplane.path_queue_2tier(topo, state.queue[None], src_leaf[None],
+                                                dst_leaf[None])
+                thr = thr / dataplane.reorder_gbn_factor(
+                    topo, pq, spray[None], rc[None, :, 0], reorder, mtu_bytes=dp.mtu_bytes,
+                    jitter_mtus=cfg.drill_jitter_mtus,
+                    window_pkts=cfg.gbn_window_pkts)[..., None]
         return arrival[0], new_queue[0], thr[0], p_sub[0], p_sub_fabric[0]
 
     def step_fn(state: SimState):
@@ -314,7 +340,8 @@ def simulate(topo: Topology, cfg: SimConfig, trace: Trace, reorder=None,
              device=None) -> tuple[SimState, StepOutputs]:
     """Run the dense fluid simulation for ``cfg.duration_s``; returns
     (final_state, per-step outputs stacked to [T, ...]), tensors on
-    ``device`` (``None`` means ``"cuda"``)."""
+    ``device`` (``None`` means ``"cuda"``).  ``reorder`` (packets or None):
+    the flowcell reordering cost of ``build_sim``."""
     topo = topo.to(resolve_device(device))
     init_state, step_fn = build_sim(topo, cfg, trace, reorder)
     n_steps = int(round(cfg.duration_s / cfg.dt))

@@ -21,6 +21,7 @@ from repro_torch.netsim import compact
 from repro_torch.netsim.engine import SimConfig, StepOutputs, line_rate_of
 from repro_torch.netsim.topology import Topology
 from repro_torch.netsim.workloads import Trace
+from repro_torch.obs.recorder import RingState
 
 F_BUCKET = 2048
 W_BUCKET = 256
@@ -33,6 +34,7 @@ _SCHEME_SLACK = {
     "ecmp": (8.0, 100e-6),
     "letflow": (8.0, 100e-6),
     "conga": (8.0, 100e-6),
+    "flowlet_timeout": (8.0, 100e-6),
     "seqbalance": (12.0, 150e-6),
 }
 
@@ -79,12 +81,6 @@ def _observed_concurrency(prepped, finish, horizon_s: float) -> int:
     return worst
 
 
-def _unsupported(**ops):
-    given = [k for k, v in ops.items() if v is not None]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)} not ported yet")
-
-
 def plan_group(topo: Topology, cfg: SimConfig, prepped: list, window_slots=None):
     """The shapes of one batched run over sorted traces (``sort_trace``
     outputs) sharing an F_pad bucket: ``(F_pad, W, A, padded)``, with each
@@ -106,9 +102,10 @@ def stack_group(padded: list, rows: list[int], device) -> tuple:
                                        for k in range(len(padded[0]))), device)
 
 
-def _operands(topo: Topology, capacity, loss):
-    """The traced capacity and loss operands as contiguous float32 tensors
-    on the topology's device (placed once for every group of a sweep)."""
+def _operands(topo: Topology, capacity, loss, reorder):
+    """The traced capacity, loss and reorder operands as contiguous float32
+    tensors on the topology's device (placed once for every group of a
+    sweep; ``reorder`` a scalar)."""
     L1 = topo.n_links + 1
 
     def place(x, name, shapes):
@@ -120,38 +117,46 @@ def _operands(topo: Topology, capacity, loss):
         return t
 
     return (None if capacity is None else place(capacity, "capacity", (1, 2)),
-            None if loss is None else place(loss, "loss", (1,)))
+            None if loss is None else place(loss, "loss", (1,)),
+            None if reorder is None else torch.tensor(float(reorder), dtype=torch.float32,
+                                                      device=topo.device))
 
 
-def _dispatch(topo, cfg, W, F_pad, A, n_steps, padded, rows, ops):
+def _dispatch(topo, cfg, W, F_pad, A, n_steps, padded, rows, ops, record):
     """One run of the simulations ``rows`` of a group: (finish, cnp,
-    spill, ff, outs) as numpy with a leading [len(rows)] axis, and the
-    steps each ran.  An adaptive configuration whose macro-step spans
-    several chunks runs one simulation at a time (see run_core)."""
+    spill, ff, outs, ring) as numpy (the ring as CPU tensors, None without
+    ``record``) with a leading [len(rows)] axis, and the steps each ran.
+    An adaptive configuration whose macro-step spans several chunks runs
+    one simulation at a time (see run_core)."""
     if cfg.adaptive and cfg.ff_macro_chunks > 1 and len(rows) > 1:
-        parts = [_dispatch(topo, cfg, W, F_pad, A, n_steps, padded, [r], ops) for r in rows]
+        parts = [_dispatch(topo, cfg, W, F_pad, A, n_steps, padded, [r], ops, record)
+                 for r in rows]
         got = tuple(np.concatenate([p[0][i] for p in parts]) for i in range(4))
         outs = StepOutputs(*(np.concatenate([p[0][4][f] for p in parts]) for f in range(4)))
-        return got + (outs,), [p[1][0] for p in parts]
-    st, outs, steps = compact.run_core(topo, cfg, W, F_pad, A, n_steps,
-                                       stack_group(padded, rows, topo.device),
-                                       capacity=ops[0], loss=ops[1], cap_seg_steps=ops[2])
+        ring = None if record is None else RingState(
+            *(torch.cat([p[0][5][f] for p in parts]) for f in range(3)))
+        return got + (outs, ring), [p[1][0] for p in parts]
+    out = compact.run_core(topo, cfg, W, F_pad, A, n_steps,
+                           stack_group(padded, rows, topo.device), capacity=ops[0],
+                           loss=ops[1], reorder=ops[2], cap_seg_steps=ops[3], record=record)
+    st, outs, steps = out[:3]
+    ring = None if record is None else RingState(*(x.cpu() for x in out[3]))
     got = tuple(x.cpu().numpy() for x in (st.finish, st.cnp_pkts, st.spill_steps, st.ff_steps))
-    return got + (StepOutputs(*(o.cpu().numpy() for o in outs)),), [steps] * len(rows)
+    return got + (StepOutputs(*(o.cpu().numpy() for o in outs)), ring), [steps] * len(rows)
 
 
-def _run_group(topo, cfg, prepped, n_steps, window_slots, ops):
+def _run_group(topo, cfg, prepped, n_steps, window_slots, ops, record):
     """One batched run over traces sharing an F_pad bucket, with the
-    spill-retry loop: spill-free simulations keep their first-run results,
-    only the offenders are rerun with a larger window (and the same
-    operands)."""
+    spill-retry loop: spill-free simulations keep their first-run results
+    (each with its own slice of the recorder's ring), only the offenders
+    are rerun with a larger window (and the same operands)."""
     F_pad, W, A, padded = plan_group(topo, cfg, prepped, window_slots)
     results: list = [None] * len(prepped)
     outs_list: list = [None] * len(prepped)
     pending = list(range(len(prepped)))
     while pending:
-        (finish, cnp, spill, ff, outs), steps = _dispatch(topo, cfg, W, F_pad, A, n_steps,
-                                                          padded, pending, ops)
+        (finish, cnp, spill, ff, outs, ring), steps = _dispatch(
+            topo, cfg, W, F_pad, A, n_steps, padded, pending, ops, record)
         still, still_rows = [], []
         for b, i in enumerate(pending):
             if spill[b] == 0 or W >= F_pad:
@@ -159,7 +164,8 @@ def _run_group(topo, cfg, prepped, n_steps, window_slots, ops):
                 results[i] = compact.CompactResult(
                     finish=finish[b, :F][inv], cnp_pkts=cnp[b],
                     spill_steps=int(spill[b]), window_slots=W, steps=steps[b],
-                    ff_steps=int(ff[b]))
+                    ff_steps=int(ff[b]),
+                    ring=None if ring is None else RingState(*(x[b:b + 1] for x in ring)))
                 outs_list[i] = StepOutputs(*(o[b] for o in outs))
             else:
                 still.append(i)
@@ -175,26 +181,30 @@ def _run_group(topo, cfg, prepped, n_steps, window_slots, ops):
 
 def run_batch(topo: Topology, cfg: SimConfig, traces: list[Trace], *,
               window_slots: int | None = None, device=None, capacity=None,
-              loss=None, cap_seg_steps: int = 0, reorder=None, record=None
-              ) -> tuple[list[compact.CompactResult], list[StepOutputs]]:
+              loss=None, cap_seg_steps: int = 0, reorder: float | None = None,
+              record=None) -> tuple[list[compact.CompactResult], list[StepOutputs]]:
     """Run every trace under one (scheme, topology) pair, one batched
     simulation per F_pad bucket.
 
     ``capacity`` (f32[n_links + 1], sentinel slot included, or a wall-clock
     schedule f32[K, n_links + 1] stepped every ``cap_seg_steps`` steps) takes
     the place of ``topo.capacity`` for the whole batch; ``loss``
-    (f32[n_links + 1]) adds per-link loss rates (go-back-N goodput), and
-    when it comes alone the capacity becomes ``topo.capacity``, as in the
-    reference.  Numpy arrays or tensors; they go to the device once.  The
-    reference's ``reorder`` operand and flight recorder are not ported
-    yet."""
-    _unsupported(reorder=reorder, record=record)
+    (f32[n_links + 1]) adds per-link loss rates (go-back-N goodput).
+    ``reorder`` (packets) turns on the flowcell reordering cost: flows
+    whose trace ``spray`` is above 1 pay ``dataplane.reorder_gbn_factor``
+    beyond that budget.  When ``loss`` or ``reorder`` comes without a
+    capacity, the capacity becomes ``topo.capacity``, as in the reference.
+    Numpy arrays or tensors; they go to the device once.
+
+    ``record`` (an ``obs.RecordSpec``) turns on the flight recorder: each
+    result's ``ring`` is its simulation's ring (B = 1; ``obs.drain(spec,
+    result.ring)``).  ``record=None`` leaves every result as it was."""
     if not traces:
         raise ValueError("empty sweep")
     topo = topo.to(resolve_device(device))
-    if loss is not None and capacity is None:
+    if (loss is not None or reorder is not None) and capacity is None:
         capacity = topo.capacity
-    ops = _operands(topo, capacity, loss) + (int(cap_seg_steps),)
+    ops = _operands(topo, capacity, loss, reorder) + (int(cap_seg_steps),)
     prepped = [compact.sort_trace(t) for t in traces]
     n_steps = int(round(cfg.duration_s / cfg.dt))
     groups: dict[int, list[int]] = {}
@@ -204,7 +214,7 @@ def run_batch(topo: Topology, cfg: SimConfig, traces: list[Trace], *,
     outs_list: list = [None] * len(traces)
     for idxs in groups.values():
         res, outs = _run_group(topo, cfg, [prepped[i] for i in idxs], n_steps,
-                               window_slots, ops)
+                               window_slots, ops, record)
         for i, r, o in zip(idxs, res, outs):
             results[i] = r
             outs_list[i] = o

@@ -1,7 +1,7 @@
 """Datacenter topologies for the fluid simulator (paper §IV), mirroring
-``repro.netsim.topology`` for ``leaf_spine``, ``sim_2tier`` and
-``three_tier``, and the fault layer's link maps ``spine_links`` and
-``paths_for_link``.
+``repro.netsim.topology`` for ``leaf_spine`` (with per-link capacity
+overrides), ``hetero_leaf_spine``, ``sim_2tier`` and ``three_tier``, and
+the fault layer's link maps ``spine_links`` and ``paths_for_link``.
 
 Links live in one flat capacity vector with a sentinel slot last
 (capacity 1e30), onto which absent (-1) hops land.  The link-id builders
@@ -86,12 +86,20 @@ class Topology:
         return torch.cat([tx[..., None], fab, rx[..., None]], -1)
 
 
+def _apply_overrides(cap: np.ndarray, overrides) -> np.ndarray:
+    for link_id, new_cap in (overrides or {}).items():
+        cap[link_id] = new_cap
+    return cap
+
+
 def leaf_spine(n_leaf: int, n_spine: int, hosts_per_leaf: int, link_bw: float,
                host_bw: float | None = None, base_rtt_s: float = 4e-6,
+               capacity_overrides: dict[int, float] | None = None,
                device=None) -> Topology:
     """2-tier Clos.  Link layout:
     up[l,s] = l*S + s;  down[s,l] = L*S + s*L + l;
-    host_tx[h] = 2*L*S + h;  host_rx[h] = 2*L*S + H + h."""
+    host_tx[h] = 2*L*S + h;  host_rx[h] = 2*L*S + H + h.
+    ``capacity_overrides`` maps link ids to their own bandwidth."""
     device = resolve_device(device)
     L, S, H = n_leaf, n_spine, n_leaf * hosts_per_leaf
     host_bw = link_bw if host_bw is None else host_bw
@@ -101,6 +109,7 @@ def leaf_spine(n_leaf: int, n_spine: int, hosts_per_leaf: int, link_bw: float,
     cap[L * S: 2 * L * S] = link_bw
     cap[2 * L * S: 2 * L * S + 2 * H] = host_bw
     cap[-1] = np.float32(1e30)
+    cap = _apply_overrides(cap, capacity_overrides)
     up0, dn0, tx0, rx0 = 0, L * S, 2 * L * S, 2 * L * S + H
 
     uplink_ids = (np.arange(L)[:, None] * S + np.arange(S)[None, :]).astype(np.int32)
@@ -162,6 +171,27 @@ def three_tier(n_tor: int = 20, n_agg: int = 20, n_core: int = 16,
 def sim_2tier(device=None) -> Topology:
     """Paper §IV.B: 8 leaves x 12 spines x 16 hosts, 100G everywhere."""
     return leaf_spine(8, 12, 16, 100e9, base_rtt_s=4e-6, device=device)
+
+
+def hetero_leaf_spine(n_leaf: int = 4, n_spine: int = 4, hosts_per_leaf: int = 4,
+                      slow_bw: float = 100e9, fast_bw: float = 400e9,
+                      n_fast_spines: int = 1, host_bw: float | None = None,
+                      base_rtt_s: float = 4e-6, device=None) -> Topology:
+    """Mixed-speed 2-tier Clos: the last ``n_fast_spines`` spine planes run
+    at ``fast_bw`` (uplinks up[l, s] and downlinks down[s, l]), the rest at
+    ``slow_bw``; hosts at ``slow_bw`` unless ``host_bw`` says otherwise.
+    Hash-based schemes split uniformly over the planes; the capacity-
+    weighted ``flowlet_timeout`` scheme sees the fast planes' headroom."""
+    if not 0 <= n_fast_spines <= n_spine:
+        raise ValueError(f"n_fast_spines {n_fast_spines} not in [0, {n_spine}]")
+    L, S = n_leaf, n_spine
+    overrides: dict[int, float] = {}
+    for s in range(S - n_fast_spines, S):
+        for leaf in range(L):
+            overrides[leaf * S + s] = fast_bw  # up[l, s]
+            overrides[L * S + s * L + leaf] = fast_bw  # down[s, l]
+    return leaf_spine(L, S, hosts_per_leaf, slow_bw, host_bw=host_bw,
+                      base_rtt_s=base_rtt_s, capacity_overrides=overrides, device=device)
 
 
 def spine_links(topo: Topology, spine: int) -> tuple[int, ...]:

@@ -248,7 +248,7 @@ def test_mixed_batch_ends_each_simulation_as_alone():
             np.testing.assert_array_equal(getattr(o, f), getattr(alone_outs, f), err_msg=f)
     with pytest.raises(NotImplementedError, match="one at a time"):
         arrays = [tc.pad_trace_arrays(tc.sort_trace(t)[0], 2048) for t in traces]
-        stacked = tuple(np.stack([a[i] for a in arrays]) for i in range(6))
+        stacked = tuple(np.stack([a[i] for a in arrays]) for i in range(7))
         tc.run_core(topo, dataclasses.replace(cfg, ff_macro_chunks=2), 512, 2048, 64,
                     1400, tc.trace_tensors(stacked, "cpu"))
 

@@ -86,7 +86,7 @@ def test_one_step_from_carried_congested_state(scheme):
 
     cfg = carry.config_from_dict(
         {**dataclasses.asdict(jcfg), "dcqcn": jcfg.dcqcn._asdict()})
-    t_arrays = tc.trace_tensors(tuple(a[None] for a in arrays[:6]), "cpu")
+    t_arrays = tc.trace_tensors(tuple(a[None] for a in arrays), "cpu")
     _, t_step, _ = tc.build_compact_sim(ttopo, cfg, t_arrays, W, F_pad, A)
     state = carry.compact_state_from_numpy(
         jax.tree.map(np.asarray, _leaves(mid)), "cpu")
@@ -148,16 +148,19 @@ def test_carried_config_lets_the_device_pick_the_dataplane(backend):
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError):
-        te.SimConfig(scheme="flowlet_timeout")
+    """The features that raised until the single-run engine was whole now
+    run: the flowlet_timeout scheme (carried configurations too), the dense
+    engine's reorder cost and the sweep's recorder."""
+    from repro_torch.obs import RecordSpec
+
+    assert te.SimConfig(scheme="flowlet_timeout").n_sub == 1
+    assert carry.config_from_dict({"scheme": "flowlet_timeout"}).scheme == "flowlet_timeout"
     _, ttopo, trace = _setup(0.5, dur=1e-4)
-    with pytest.raises(NotImplementedError):
-        te.simulate(ttopo, te.SimConfig(duration_s=1e-4), trace, reorder=1.0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        carry.config_from_dict({"scheme": "flowlet_timeout"})
-    with pytest.raises(NotImplementedError):
-        tsweep.run_one(ttopo, te.SimConfig(duration_s=1e-4), trace, device="cpu",
-                       record=object())
+    st, _ = te.simulate(ttopo, te.SimConfig(duration_s=1e-4), trace, reorder=1.0, device="cpu")
+    assert int(st.step) == 10
+    res, _ = tsweep.run_one(ttopo, te.SimConfig(duration_s=1e-4), trace, device="cpu",
+                            record=RecordSpec())
+    assert int(res.ring.count[0]) > 0
 
 
 def test_carried_adaptive_config_comes_across_whole():

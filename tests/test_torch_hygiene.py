@@ -33,7 +33,7 @@ def test_no_jax_or_repro_import(path):
 
 def test_importing_the_sweep_leaves_jax_out():
     code = ("import sys; import repro_torch.netsim.sweep, repro_torch.netsim.carry, "
-            "repro_torch.netsim.engine, repro_torch.kernels.ops; "
+            "repro_torch.netsim.engine, repro_torch.kernels.ops, repro_torch.obs; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -70,8 +70,8 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.linkload(np.zeros((4, 2), np.int32), np.ones(4, np.float32),
                      np.zeros(3, np.float32), np.ones(3, np.float32), n_links=3)
-    with pytest.raises(NotImplementedError):
-        sweep.run_one(topo, cfg, trace, device="cpu", reorder=1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.run_one(topo, cfg, trace, reorder=1.0)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

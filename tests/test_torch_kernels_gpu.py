@@ -444,3 +444,36 @@ def test_adaptive_collective_on_the_card_matches_the_cpu(cuda):
     done = np.isfinite(cpu.finish)
     assert done.all() and np.all(np.abs(gpu.finish[done] - cpu.finish[done]) <= 10e-6 + 1e-9)
     assert np.isfinite(outs.max_queue).all() and outs.uplink_load.shape == (140, 4, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,flowcells,reorder", [("ecmp", 4, 2.0),
+                                                      ("flowlet_timeout", 1, None)])
+def test_flowcells_and_the_recorder_on_the_card_match_the_cpu(cuda, scheme, flowcells,
+                                                               reorder):
+    """bench_flowcell's ring (4 MB) on its hetero fabric, recorded: a
+    flowcell trace under the reorder cost, and the WCMP flowlet scheme.  On
+    the card against the CPU: the same finished flows, 99 % of them within
+    one dt, the same chunks in the ring, and one tiered launch a step."""
+    from repro_torch import obs
+    from repro_torch.dist import collectives, cosim
+    from repro_torch.netsim import sweep
+
+    topo = topology.hetero_leaf_spine(4, 4, 4, 25e9, 100e9, n_fast_spines=1, host_bw=100e9,
+                                      device="cpu")
+    plan = collectives.PathPlan(n_chunks=4, directions=(1, -1, 1, -1), flowcells=flowcells)
+    trace = workloads.collective_trace(plan, cosim.ring_hosts(topo, 8), 4e6, link_bw=25e9,
+                                       round_gap_s=3e-4, seed=0, steer_paths=topo.n_paths)
+    cfg = engine.SimConfig(scheme=scheme, duration_s=4e-3, uplink_sample_every=10)
+    spec = obs.RecordSpec(ring_chunks=16)
+    before, loop0 = ct.cascade_tiered.launches, dict(compact.run_core.counts)
+    gpu, _ = sweep.run_one(topo, cfg, trace, reorder=reorder, record=spec, device=cuda)
+    loop = {k: compact.run_core.counts[k] - loop0[k] for k in loop0}
+    assert ct.cascade_tiered.launches - before == loop["scanned_steps"]
+    cpu, _ = sweep.run_one(topo, cfg, trace, reorder=reorder, record=spec, device="cpu")
+    np.testing.assert_array_equal(np.isfinite(gpu.finish), np.isfinite(cpu.finish))
+    done = np.isfinite(cpu.finish)
+    assert done.any() and (np.abs(gpu.finish[done] - cpu.finish[done]) <= 10e-6 + 1e-9).mean() >= 0.99
+    g, c = obs.drain(spec, gpu.ring), obs.drain(spec, cpu.ring)
+    assert g["chunks_recorded"] == c["chunks_recorded"] > 0
+    np.testing.assert_array_equal(g["meta"][:, :3], c["meta"][:, :3])  # step0, steps, ff
