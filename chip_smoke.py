@@ -45,7 +45,11 @@ Phases, each printed as JSON lines:
   3. sweep    the fig12 fast sweep (5 schemes x 4 cases, sim_2tier, 10 ms
               horizon) through repro_torch.netsim.sweep.run_jobs, checking
               0 spill and that the kernel ran every step of the four
-              schemes that use it;
+              schemes that use it; then its SeqBalance alistorage batch
+              twice more with the recorder on: the three runs' finish
+              arrays and per-step outputs and the two rings must be
+              bit-identical (the kernels' sums do not depend on the order
+              of their additions);
   4. agree    the sweep's FCT stats against the JAX package's, recorded in
               src/repro_torch/netsim/fig12_fast_reference.json;
   5. dense    the dense oracle repro_torch.netsim.engine.simulate on the
@@ -83,17 +87,25 @@ Phases, each printed as JSON lines:
               package's (src/repro_torch/netsim/flowcell_reference.json),
               and its two acceptance facts; flowcells=1 and reorder=0.0 on
               unsprayed traffic bit-identical to the classic run (also on
-              phase 3's SeqBalance alistorage batch; a cell that takes one
-              of two trajectories from run to run on the card must match
-              one of up to TWIN_TRIES more plain runs); the ring at 8 MB on
+              phase 3's SeqBalance alistorage batch); the ring at 8 MB on
               sim_2tier with adaptive dt, ff_steps beside the JAX package's;
  10. record   the flight recorder (RecordSpec(ring_chunks=64)) on
               bench_obs's collective, fixed and adaptive, and on phase 3's
               SeqBalance alistorage batch: finish times without and with
-              the ring (alternated twice; each bit-identical to a run
-              without it, as in phase 9), the overhead beside the
-              reference's 5 % floor, and the drained ring against the JAX
-              package's (src/repro_torch/netsim/record_reference.json).
+              the ring (alternated twice; each bit-identical to the first
+              run without it, and the two rings to each other), the
+              overhead beside the reference's 5 % floor, and the drained
+              ring against the JAX package's
+              (src/repro_torch/netsim/record_reference.json);
+ 11. cosim    the dist/ epoch driver (repro_torch.dist.cosim.run_cosim,
+              each epoch simulated on the card) on bench_cosim.py's
+              cases (cosim_cases: the three_tier acceptance row at full
+              width, the leaf_spine grid through run_cosim_grid with the
+              recorder and a flight log, the mixed chaos campaign with
+              adaptive dt, the degraded telemetry and blackout cells),
+              each held per epoch against the JAX package's run of the
+              same spec (src/repro_torch/netsim/cosim_reference.json), its
+              wall and us per step printed.
 
 Then a "kernels" line and, last, {"ok": true, "device": {...}}.  Any
 failure exits non-zero before that line; so does a machine without CUDA
@@ -406,6 +418,9 @@ class Spec(NamedTuple):
     launch: Callable | None = None
     # case -> the cluster size the wrapper asks for; None without clusters
     cluster: Callable | None = None
+    # the kernel's sums do not depend on the order of their additions: a
+    # second launch on the same inputs must give bitwise-equal outputs
+    repeats: bool = False
 
 
 def cascade_shapes():
@@ -670,14 +685,15 @@ def kernel_specs():
         Spec("cascade_tiered", ("linkload_cascade_tiered", f"{LL}:288"),
              ct.cascade_tiered, ct.cascade_tiered_torch, OUTPUTS,
              cascade_tols, tiered_cases, tiered_bound, ran_as="C",
-             launch=tiered_launch, cluster=tiered_cluster),
+             launch=tiered_launch, cluster=tiered_cluster, repeats=True),
         Spec("cascade_flat", ("linkload_cascade", f"{LL}:372"),
              ll.linkload_cascade, ll.linkload_cascade_torch, OUTPUTS,
              cascade_tols, flat_cases, flat_bound,
              entry=("dataplane.cascade(backend='cuda')",
                     lambda c: dataplane.cascade(*c.args, n_links=c.info["links"],
                                                 backend="cuda", **c.kw)),
-             more=tiered_vs_flat, ran_as="C", launch=flat_launch, cluster=flat_cluster),
+             more=tiered_vs_flat, ran_as="C", launch=flat_launch, cluster=flat_cluster,
+             repeats=True),
         Spec("linkload", ("linkload", f"{LL}:61"),
              ll.linkload, ll.linkload_torch, ("load", "queue", "mark"),
              lambda case: LINKLOAD_TOLS, linkload_cases, linkload_bound,
@@ -720,6 +736,14 @@ def kernel_row(spec: Spec, case: Case) -> dict:
     tally = tallies().get(spec.name)
     before = dict(tally or {})
     got = run(spec.kernel)
+    repeat = {}
+    if spec.repeats:
+        again = run(spec.kernel)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"{spec.name} {case.name}: a second launch on the same inputs "
+                    "gave other outputs")
+        repeat = {"second_launch_bitwise_equal": same}
+        del again
     ran = {}
     if spec.ran_as:
         moved = [k for k, n in tally.items() if n != before.get(k, 0)]
@@ -757,7 +781,7 @@ def kernel_row(spec: Spec, case: Case) -> dict:
     row = {"phase": "kernel", "kernel": spec.name, "case": case.name, **case.info, **ran,
            **({"library_source": f"csrc/{case.library}.cu"} if case.library else {}),
            **{k: v for k, v in case.kw.items() if k not in KW and k != "qmax_bytes"},
-           "max_abs_err": errs, "tolerances": dict(zip(spec.outputs, tols)), **more,
+           "max_abs_err": errs, "tolerances": dict(zip(spec.outputs, tols)), **repeat, **more,
            "ms": ms, "c_entry_ms": c_entry, "wrapper_ms": wrapper, "plain_ms": plain,
            "bound_ms": bound_ms, "bound_by": by,
            **({"bound_peak": peak[0], "tflop_per_s": peak[1] / ms / 1e9} if peak else {}),
@@ -808,13 +832,16 @@ def phase_sweep():
         results, walls[scheme] = [], {}
         for wl, part in (("alistorage", traces[:2]), ("websearch", traces[2:])):
             t0 = time.time()
-            (res, _), = sweep.run_jobs([(topo, cfg, part)], device=DEVICE)
+            (res, outs), = sweep.run_jobs([(topo, cfg, part)], device=DEVICE)
             torch.cuda.synchronize()
             walls[scheme][wl] = time.time() - t0
             results += res
+            if wl == "alistorage":
+                alistorage_outs = outs
         buckets = {}
         if scheme == "seqbalance":
             finishes = [r.finish for r in results[:2]]  # the alistorage batch
+            batch_outs = alistorage_outs
         for (wl, load), trace, res in zip(FIG12_CASES, traces, results):
             s = metrics.fct_stats(res, trace, topo, 100e9)
             stats[(scheme, f"{wl}_{load}")] = s
@@ -838,7 +865,45 @@ def phase_sweep():
           "launches_by_route_or_cluster": by, "steps_needing_the_kernel": expected})
     check(launches >= expected > 0,
           f"cascade_tiered launched {launches} times for {expected} steps")
-    return stats, (counts, by), walls, finishes
+    return stats, (counts, by), walls, (finishes, batch_outs)
+
+
+def same_outputs(a, b) -> bool:
+    """Two runs' per-step outputs (StepOutputs of numpy arrays) bit for bit."""
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_repeat(fig12) -> int:
+    """Runs on the card repeat bit for bit: phase 3's SeqBalance alistorage
+    batch (B = 2) twice more, with the recorder on (RecordSpec(ring_chunks
+    =64)); the three runs' finish arrays and per-step outputs, and the two
+    rings, must be bit-identical.  Returns the tiered kernel's launches."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.netsim import engine
+
+    finishes, outs0 = fig12
+    topo, traces = fig12_traces()
+    cfg = engine.SimConfig(scheme="seqbalance", duration_s=10e-3, uplink_sample_every=10)
+    spec = obs.RecordSpec(ring_chunks=64)
+    runs, total = [], 0
+    for _ in range(2):
+        results, outs, wall, launched, loop = timed_run(topo, cfg, traces[:2], record=spec)
+        total += check_launches("repeat", "seqbalance", launched, loop)
+        runs.append((results, outs, wall))
+    (r1, o1, w1), (r2, o2, w2) = runs
+    rows = {}
+    for i, load in enumerate((0.5, 0.8)):
+        rows[f"alistorage_{load}"] = {
+            "finish_equal": [bool(np.array_equal(r.finish, finishes[i])) for r in (r1[i], r2[i])],
+            "outputs_equal": [same_outputs(o[i], outs0[i]) for o in (o1, o2)],
+            "ring_equal": all(torch.equal(a, b) for a, b in zip(r1[i].ring, r2[i].ring))}
+    emit({"phase": "repeat", "runs": 3, "wall_s": [w1, w2], "by_trace": rows})
+    for name, row in rows.items():
+        check(all(row["finish_equal"]) and all(row["outputs_equal"]) and row["ring_equal"],
+              f"repeat {name}: three runs of one program on the card differ ({row})")
+    return total
 
 
 def stat_diffs(s, r) -> dict:
@@ -1045,9 +1110,7 @@ def finish_agreement(got, want, dt: float) -> dict:
     """The same set of finished flows? The share of them within one dt,
     the largest gap, and whether the two are equal.  ``alike``: the same
     finished flows and at least 99 % of them within one dt, the agreement
-    tests/test_torch_kernels_gpu.py asks of the card against the CPU (two
-    runs of one program on the card differ in a few finish times: the
-    kernels sum their float loads with atomics, in no fixed order)."""
+    tests/test_torch_kernels_gpu.py asks of the card against the CPU."""
     done = np.isfinite(got) & np.isfinite(want)
     gap = np.abs(got[done] - want[done])
     same = bool(np.array_equal(np.isfinite(got), np.isfinite(want)))
@@ -1304,40 +1367,6 @@ def finish_diff(got, want) -> dict:
             "max_gap_s": float(np.abs(got[both] - want[both]).max()) if both.any() else 0.0}
 
 
-# more plain runs made, at most, looking for a run's bit-identical twin
-TWIN_TRIES = 6
-
-
-def twins(runs: dict, plain: list, more_plain, what: str) -> dict:
-    """Each of ``runs`` (name -> (key, finish array)) bit-identical to the
-    ``key`` of one of the ``plain`` runs (dicts key -> finish array: runs
-    without the knob under test).  A cell may take one of two trajectories
-    from run to run on the card (the kernels' float atomics), so up to
-    TWIN_TRIES more plain runs (``more_plain()`` -> such a dict) are made
-    until every run has its twin.  A run whose trajectory no plain run
-    took must be ``finish_agreement``-alike to every plain run (the same
-    finished flows, 99 % within one dt: how far the two trajectories lie
-    apart), else it fails.  Returns each run's twin (0: the first plain
-    run, None: none) and its distance to the first."""
-    plain, first = list(plain), len(plain)
-    rows = {}
-    for name, (key, got) in runs.items():
-        while True:
-            twin = next((j for j, p in enumerate(plain)
-                         if finish_diff(got, p[key])["differ"] == 0), None)
-            if twin is not None or len(plain) >= first + TWIN_TRIES:
-                break
-            plain.append(more_plain())
-        rows[name] = {"twin": twin, "vs_first_plain": finish_diff(got, plain[0][key])}
-        if twin is None:
-            rows[name]["alike"] = all(finish_agreement(got, p[key], 10e-6)["alike"]
-                                      for p in plain)
-            check(rows[name]["alike"], f"{what} {name}: none of {len(plain)} plain runs gives "
-                                       f"its finish times, nor comes near ({rows[name]})")
-    return {"runs": rows, "plain_runs": len(plain),
-            "bit_identical": all(r["twin"] == 0 for r in rows.values())}
-
-
 def phase_flowcell(fig12_finish) -> int:
     """Flowcell spraying against SeqBalance, ECMP and flowlet WCMP, each
     held against the JAX package's (src/repro_torch/netsim/flowcell_reference.json):
@@ -1408,38 +1437,31 @@ def phase_flowcell(fig12_finish) -> int:
     base = run(topo, "seqbalance", classic, None, **fixed)[0]
     one = run(topo, "seqbalance", plan1, None, **fixed)[0]
     zero = run(topo, "seqbalance", classic, 0.0, **fixed)[0]
-    small = twins({"flowcells_1": ("plain", one.finish), "reorder_0": ("plain", zero.finish)},
-                  [{"plain": base.finish}],
-                  lambda: {"plain": run(topo, "seqbalance", classic, None, **fixed)[0].finish},
-                  "flowcell_degenerate")
+    small = {"flowcells_1": finish_diff(one.finish, base.finish),
+             "reorder_0": finish_diff(zero.finish, base.finish)}
     got = censored(base, classic, 10e-3)
     want = ref["flowcell_degenerate"]["seqbalance"]
-    emit({"phase": "flowcell", "case": "flowcell_degenerate", "fabric": "symmetric", **small,
-          "jax_bit_identical": ref["flowcell_degenerate"]["bit_identical"], **got,
-          "vs_jax": censored_diffs(got, want, "flowcell_degenerate seqbalance")})
+    emit({"phase": "flowcell", "case": "flowcell_degenerate", "fabric": "symmetric",
+          "vs_plain": small, "jax_bit_identical": ref["flowcell_degenerate"]["bit_identical"],
+          **got, "vs_jax": censored_diffs(got, want, "flowcell_degenerate seqbalance")})
     fig_topo, fig_traces = fig12_traces()
     fig_cfg = engine.SimConfig(scheme="seqbalance", duration_s=10e-3, uplink_sample_every=10)
     batch = fig_traces[:2]
     results, _, wall, launched, loop = timed_run(fig_topo, fig_cfg, batch, reorder=0.0)
     total += check_launches("flowcell fig12 reorder=0", "seqbalance", launched, loop, True)
-
-    loads = (0.5, 0.8)
-
-    def plain_again():
-        nonlocal total
-        again, _, _, n, lp = timed_run(fig_topo, fig_cfg, batch)
-        total += check_launches("flowcell fig12 plain", "seqbalance", n, lp)
-        return {load: r.finish for load, r in zip(loads, again)}
-
-    fig = twins({f"alistorage_{load}": (load, r.finish) for load, r in zip(loads, results)},
-                [dict(zip(loads, fig12_finish))], plain_again, "flowcell_degenerate fig12")
+    fig = {f"alistorage_{load}": finish_diff(r.finish, f)
+           for load, r, f in zip((0.5, 0.8), results, fig12_finish)}
     ref_stats = reference_stats()[1]
     stats = {("seqbalance", f"alistorage_{load}"): metrics.fct_stats(r, t, fig_topo, 100e9)
              for load, r, t in zip((0.5, 0.8), results, batch)}
     emit({"phase": "flowcell", "case": "flowcell_degenerate", "fabric": "sim_2tier",
           "traces": ["alistorage_0.5", "alistorage_0.8"], "reorder": 0.0, "wall_s": wall,
-          **fig, "vs_jax": gated_diffs(stats, ref_stats, "flowcell fig12 reorder=0 vs JAX"),
+          "vs_plain": fig,
+          "vs_jax": gated_diffs(stats, ref_stats, "flowcell fig12 reorder=0 vs JAX"),
           "loop": dict(loop, launches=launched)})
+    for name, d in {**small, **{f"fig12 {k}": v for k, v in fig.items()}}.items():
+        check(d["differ"] == 0, f"flowcell_degenerate {name}: {d['differ']} finish times "
+                                "moved from the plain run's")
 
     sim2 = topology.sim_2tier(device=DEVICE)
     traces = {False: collective_trace(sim2, 8e6, 100e9, 800e-6),
@@ -1481,8 +1503,12 @@ def phase_flowcell(fig12_finish) -> int:
 RECORD_OVERHEAD_FLOOR_PCT = 5.0
 RING_REL = {"goodput_mean_bps": 1e-3, "queue_mean_bytes": 1e-3, "util_mean": 1e-3,
             "cnp_pkts": 2e-2, "rate_quantiles": 2e-2}
-# the one cell seen to take a second trajectory from run to run on the
-# card (PERF.md §6).  Only its ring may be held as the other
+# the one cell whose run on the card lies off the JAX package's trajectory
+# (0.35 % on p99, 0.018 % on avg: the stats of the second of the two
+# trajectories it took before; the card's order-free sums round
+# otherwise than the JAX package's float sums; PERF.md §6).  It used to
+# take either trajectory from run to run; since the sums are order-free it
+# takes that one every run.  Only its ring may be held as the other
 # trajectory's: to the JAX package's at phase 4's gates (avg 0.5 % for the
 # means, p99 2 % for the CNPs and each quantile column's chunk-weighted
 # mean), looser than RING_REL, with each row's quantiles held exactly to
@@ -1607,17 +1633,18 @@ def phase_record() -> int:
     rings (src/repro_torch/netsim/record_reference.json): bench_obs's
     collective on leaf_spine(4, 4, 4), fixed and adaptive, and phase 3's
     SeqBalance alistorage batch, each run without and with
-    RecordSpec(ring_chunks=64), alternated twice.  Finish times must not
-    move with the ring (``twins``); every recorded run's ring must be its
-    run's outputs; the ring is held against the JAX package's on a run
-    that took the JAX package's trajectory (its FCT stats within the
-    0.01 % target: a cell may take another from run to run on the card,
-    whose chunks are another run's), up to TWIN_TRIES more recorded runs
-    made to find one; only the BISTABLE cell may then be held as a ring of
-    the other trajectory (``ring_agreement``), its rows' quantiles to its
-    own run's rates (``ring_quantiles_vs_states``).  The overhead (min of
-    each) is printed beside the reference's floor.  Returns the tiered
-    kernel's launches."""
+    RecordSpec(ring_chunks=64), alternated twice.  Every run's finish
+    times must equal the first plain run's and the two rings must be
+    bit-identical; each ring must be its run's outputs, and the first is
+    held against the JAX package's; only the BISTABLE cell, if its run
+    lies off the JAX package's trajectory (its FCT stats past the 0.01 %
+    target), may be held as a ring of another trajectory
+    (``ring_agreement``), its rows' quantiles to its own run's rates
+    (``ring_quantiles_vs_states``).  The overhead (min of each) is
+    printed beside the reference's floor.  Returns the tiered kernel's
+    launches."""
+    import torch
+
     from repro_torch import obs
     from repro_torch.netsim import engine, metrics, topology
 
@@ -1644,49 +1671,30 @@ def phase_record() -> int:
                     walls[side].append(wall)
                     runs[side].append((results, outs))
             names = list(jax) if name == "record_fig12" else [mode]  # the JAX runs' keys
-
-            def plain_again(name=name, cfg=cfg, topo=topo, traces=traces):
-                nonlocal total
-                results, _, _, launched, loop = timed_run(topo, cfg, traces)
-                total += check_launches(f"{name} plain", cfg.scheme, launched, loop)
-                return {i: r.finish for i, r in enumerate(results)}
-
-            same = twins({f"{n} pass{k}": (i, runs["on"][k][0][i].finish)
-                          for i, n in enumerate(names) for k in range(2)},
-                         [{i: r.finish for i, r in enumerate(results)}
-                          for results, _ in runs["off"]], plain_again, f"{name} {mode}")
-            rows = {"finish_with_and_without": same}
-
-            def recorded_again(name=name, cfg=cfg, topo=topo, traces=traces):
-                nonlocal total
-                results, outs, _, launched, loop = timed_run(topo, cfg, traces, record=spec)
-                total += check_launches(f"{name} recorded", cfg.scheme, launched, loop)
-                return results, outs
-
-            recorded = list(runs["on"])
+            plain = runs["off"][0][0]
+            rows = {}
             for i, trace_name in enumerate(names):
                 want = jax[trace_name]
-                row = {"own_outputs": [], "vs_jax": []}
-                k = 0
-                while True:  # the first recorded run on the JAX package's trajectory
-                    if k == len(recorded):
-                        recorded.append(recorded_again())
-                    res, outs = recorded[k][0][i], recorded[k][1][i]
-                    own = ring_vs_outputs(obs.drain(spec, res.ring), outs)
-                    check(own["agree"], f"{name} {mode} {trace_name}: the ring is not its "
-                                        f"run's outputs ({own})")
-                    drift = stat_diffs(metrics.fct_stats(res, traces[i], topo, 100e9),
-                                       trajectory_stats(name, mode, trace_name))
-                    row["own_outputs"].append(own)
-                    row["vs_jax"].append(drift)
-                    k += 1
-                    if max(drift.values()) <= TARGET or k >= len(runs["on"]) + TWIN_TRIES:
-                        break
+                moved = [finish_diff(r[i].finish, plain[i].finish)["differ"]
+                         for r in (runs["off"][1][0], runs["on"][0][0], runs["on"][1][0])]
+                rings = [runs["on"][k][0][i].ring for k in range(2)]
+                same_ring = all(torch.equal(a, b) for a, b in zip(*rings))
+                check(not any(moved) and same_ring,
+                      f"{name} {mode} {trace_name}: finish times moved from the first plain "
+                      f"run's ({moved}: second plain, with the ring) or the rings differ")
+                res, outs = runs["on"][0][0][i], runs["on"][0][1][i]
+                own = ring_vs_outputs(obs.drain(spec, res.ring), outs)
+                check(own["agree"], f"{name} {mode} {trace_name}: the ring is not its "
+                                    f"run's outputs ({own})")
+                drift = stat_diffs(metrics.fct_stats(res, traces[i], topo, 100e9),
+                                   trajectory_stats(name, mode, trace_name))
                 on_path = max(drift.values()) <= TARGET
+                row = {"finish_moved": moved, "rings_equal": same_ring, "own_outputs": own,
+                       "vs_jax": drift}
                 if not on_path:
                     check((name, mode, trace_name) == BISTABLE,
-                          f"{name} {mode} {trace_name}: none of {k} recorded runs took the JAX "
-                          f"package's trajectory (FCT stats off by {drift})")
+                          f"{name} {mode} {trace_name}: off the JAX package's trajectory "
+                          f"(FCT stats off by {drift})")
                     own_q, launched = ring_quantiles_vs_states(spec, topo, cfg, traces, i)
                     total += launched
                     row["own_quantiles"] = own_q
@@ -1696,7 +1704,7 @@ def phase_record() -> int:
                                            want["summary"], res.ff_steps == want["ff_steps"],
                                            on_path)
                 faults += [f"{name} {mode} {trace_name}: {b}" for b in bad]
-                rows[trace_name] = dict(row, recorded_runs=k, ff_steps=res.ff_steps,
+                rows[trace_name] = dict(row, ff_steps=res.ff_steps,
                                         jax_ff_steps=want["ff_steps"], ring=ring)
             off, on = min(walls["off"]), min(walls["on"])
             emit({"phase": "record", "case": name, "mode": mode, "wall_off_s": walls["off"],
@@ -1706,6 +1714,280 @@ def phase_record() -> int:
                   "runs": rows})
     emit({"phase": "record", "kernel_launches": total})
     check(not faults, "; ".join(faults))
+    return total
+
+
+# chip_smoke.py phase 11 and its reference: the co-simulation cases of
+# benchmarks/bench_cosim.py, each a list of (label, run_cosim keywords)
+COSIM_KILL = dict(spine=3, epoch=2, recover_epoch=6)
+# the leaf_spine cases run 8 epochs (the blackout cell 10), not
+# bench_cosim's 10 (12): the script's time limit (PERF.md §4); every fault
+# window and every convergence still falls inside them
+COSIM_LS_EPOCHS = 8
+# the per-epoch fields that must equal the JAX package's, case by case
+COSIM_EQUAL = {
+    "cosim_three_tier": ("quarantined", "reported_slow", "plan_version", "plan_churn",
+                         "spill_steps"),
+    "cosim_grid": ("quarantined", "reported_slow", "plan_version", "plan_churn",
+                   "spill_steps"),
+    "cosim_campaign": ("quarantined", "reported_slow", "plan_version", "plan_churn",
+                       "spill_steps", "replan_round", "straggler_quarantined",
+                       "straggler_scale"),
+    "cosim_telemetry": ("quarantined", "reported_slow", "plan_version", "plan_churn",
+                        "spill_steps", "reports_sent", "reports_delivered",
+                        "reports_admitted", "reports_stale", "reports_duplicate",
+                        "safe_mode"),
+}
+COSIM_FIELDS = sorted({f for fs in COSIM_EQUAL.values() for f in fs}
+                      | {"fct_p99_s", "fct_p50_s", "completion", "new_builds", "ff_steps"})
+
+
+def cosim_cases(cosim, faults, topology, obs, topo_kw: dict, flight_dir) -> dict:
+    """Phase 11's cases, built from either package's modules (``topo_kw``
+    the port's device); fresh objects each call (a telemetry channel
+    keeps state).  ``flight_dir``: where the grid's SeqBalance run writes
+    its flight log.
+
+      cosim_three_tier  bench_cosim.py:96-106, the acceptance row at full
+                        width: three_tier() (320 hosts and paths), a ring
+                        of 20 at 16 MB, ECMP, aggregation switch 3 killed
+                        at epoch 2 and back at 6, 10 epochs;
+      cosim_grid        bench_cosim.py:118-139's fast grid on
+                        leaf_spine(8, 12, 16, 100e9), ECMP and SeqBalance,
+                        a ring of 8 at 8 MB, spine 3 killed at 2 and back
+                        at 6; SeqBalance with the recorder
+                        (RecordSpec(ring_chunks=64)) and a flight log;
+      cosim_campaign    bench_cosim.py:159-185's mixed campaign on the
+                        same fabric and ring, ECMP, adaptive dt: a flap
+                        kill of spine 3 at onset 0.02 for epochs 2-6, 1 %
+                        loss on spine 5 for epochs 3-7, rank 4 a 3x
+                        straggler for epochs 4-7, cooldown_steps=2;
+      cosim_telemetry   bench_cosim.py:268-297 and :336-345: the killed-
+                        spine run through TelemetryChannel(loss=0.3,
+                        delay_epochs=2, seed=7) with staleness_bound=2,
+                        and the blackout cell (blackout=(0, 5),
+                        blackout_epochs=2, spine back at 8);
+    the leaf_spine cases for COSIM_LS_EPOCHS epochs (the blackout cell two
+    more), the three_tier row for bench_cosim's 10."""
+    topo3 = topology.three_tier(**topo_kw)
+    topo2 = topology.leaf_spine(8, 12, 16, 100e9, **topo_kw)
+
+    def killed(topo, ring, size, scheme, recover_epoch=6, epochs=COSIM_LS_EPOCHS, **kw):
+        return dict(topo=topo, hosts=cosim.ring_hosts(topo, ring), size_bytes=size,
+                    scheme=scheme, epochs=epochs, phi_steps=2, n_chunks=4, seed=0,
+                    faults=(cosim.kill_spine(topo, COSIM_KILL["spine"], epoch=COSIM_KILL["epoch"],
+                                             recover_epoch=recover_epoch),), **kw)
+
+    spine_links = topology.spine_links
+    campaign = faults.FaultCampaign(events=(
+        faults.LinkFlap(links=spine_links(topo2, 3), start_epoch=2, end_epoch=6, duty=1.0,
+                        onset_frac=0.02, scale=0.0),
+        faults.LossyLink(links=spine_links(topo2, 5), loss_rate=0.01, start_epoch=3,
+                         end_epoch=7),
+        faults.Straggler(rank=4, slowdown=3.0, start_epoch=4, end_epoch=7)))
+
+    def channel(**kw):
+        return dict(telemetry=faults.TelemetryChannel(seed=7, **kw), staleness_bound=2)
+
+    return {
+        "cosim_three_tier": [("ecmp", killed(topo3, 20, 16e6, "ecmp", epochs=10))],
+        "cosim_grid": [
+            ("ecmp", killed(topo2, 8, 8e6, "ecmp")),
+            ("seqbalance", killed(topo2, 8, 8e6, "seqbalance",
+                                  record=obs.RecordSpec(ring_chunks=64),
+                                  flight=str(pathlib.Path(flight_dir) / "cosim_grid.jsonl")))],
+        "cosim_campaign": [("ecmp", dict(
+            topo=topo2, hosts=cosim.ring_hosts(topo2, 8), size_bytes=8e6, scheme="ecmp",
+            epochs=COSIM_LS_EPOCHS, phi_steps=2, cooldown_steps=2, n_chunks=4, seed=0,
+            campaign=campaign,
+            adaptive=True))],
+        "cosim_telemetry": [
+            ("loss30_delay2", killed(topo2, 8, 8e6, "ecmp", **channel(loss=0.3, delay_epochs=2))),
+            ("blackout", killed(topo2, 8, 8e6, "ecmp", recover_epoch=8,
+                                epochs=COSIM_LS_EPOCHS + 2,
+                                blackout_epochs=2,
+                                **channel(loss=0.0, delay_epochs=0, blackout=(0, 5))))],
+    }
+
+
+# phase 11's recorder rows: a queue under one byte is float noise of a link
+# loaded exactly to its capacity (the JAX package's float sums leave 0.02-0.12
+# bytes there where the card's exact sums leave 0, and the run then ends a
+# step later, which shifts a full ring's window by one row)
+QUEUE_NOISE_BYTES = 1.0
+
+
+def insim_agreement(got: dict, want: dict) -> tuple[dict, list]:
+    """One epoch's recorder summary against the JAX package's, row by row
+    over the chunks both rings kept (matched by step0): steps and ff
+    equal, goodput within RING_REL's 1e-3, CNPs, live sub-flows and rate
+    quantiles within its 2 %, queues within 1e-3 or QUEUE_NOISE_BYTES; the
+    rings at most one chunk apart.  Returns the row to print and what
+    disagrees."""
+    gc, wc = got.get("chunks", {}), want.get("chunks", {})
+    g_at = {s: i for i, s in enumerate(gc.get("step0", []))}
+    w_at = {s: i for i, s in enumerate(wc.get("step0", []))}
+    common = sorted(set(g_at) & set(w_at))
+    faults = []
+    if abs(got["chunks_recorded"] - want["chunks_recorded"]) > 1 or \
+            len(common) < min(len(g_at), len(w_at)) - 1:
+        faults.append(f"the rings kept other chunks ({got['chunks_recorded']} recorded, "
+                      f"JAX {want['chunks_recorded']}; {len(common)} in common)")
+    worst = {}
+    for f in gc:
+        if f in ("step0", "steps", "ff"):
+            continue
+        a = np.array([gc[f][g_at[s]] for s in common], np.float64)
+        b = np.array([wc[f][w_at[s]] for s in common], np.float64)
+        err = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+        noise = QUEUE_NOISE_BYTES if f.startswith("queue") else 0.0
+        err = np.where(np.abs(a - b) <= noise, 0.0, err)
+        worst[f] = float(err.max(initial=0.0))
+        limit = RING_REL["cnp_pkts"] if f in ("cnp_pkts", "active_subflows") or \
+            f.startswith("rc_q") else RING_REL["goodput_mean_bps"]
+        if worst[f] > limit:
+            faults.append(f"{f} of the ring differs by {worst[f]} > {limit}")
+    for f in ("steps", "ff"):
+        if any(gc[f][g_at[s]] != wc[f][w_at[s]] for s in common):
+            faults.append(f"the ring's {f} column differs from the JAX package's")
+    return {"rows_compared": len(common), "chunks_recorded": got["chunks_recorded"],
+            "jax_chunks_recorded": want["chunks_recorded"], "worst_rel": worst}, faults
+
+
+def cosim_row(hist) -> dict:
+    """What phase 11 compares of a history, JSON-able: the fields of
+    COSIM_FIELDS per epoch, each epoch's recorder summary, the convergence
+    epoch after the kill and the refused plans."""
+    epochs = {f: [getattr(r, f) for r in hist.records] for f in COSIM_FIELDS}
+    epochs = {f: [list(v) if isinstance(v, tuple) else v for v in vs]
+              for f, vs in epochs.items()}
+    return {"epochs": epochs, "insim": [r.insim for r in hist.records],
+            "convergence_epoch": hist.convergence_epoch(COSIM_KILL["epoch"]),
+            "plan_refused": hist.plan_refused, "steps_per_epoch":
+            int(round(hist.duration_s / 10e-6))}
+
+
+def same_history(a, b) -> bool:
+    """Two histories bit for bit: every record field (the censored FCT
+    samples and imbalance arrays included) and the plans."""
+    import dataclasses
+
+    def flat(h):
+        return [{k: (v.tobytes() if isinstance(v, np.ndarray) else v)
+                 for k, v in dataclasses.asdict(r).items()} for r in h.records]
+    return (flat(a) == flat(b) and a.plans == b.plans and a.final_plan == b.final_plan
+            and a.plan_refused == b.plan_refused)
+
+
+def phase_cosim() -> int:
+    """The dist/ epoch driver on the card: each case of ``cosim_cases``
+    through repro_torch.dist.cosim.run_cosim (the grid through
+    run_cosim_grid on two threads, each history also run alone and held
+    to it bit for bit), against the JAX package's runs of the same specs
+    (src/repro_torch/netsim/cosim_reference.json): per epoch the fields of
+    COSIM_EQUAL equal, the censored p99 and p50 within 2 % and the
+    completion within 1e-3, no kernel library built after epoch 0, the
+    same convergence epoch; the grid's flight log read back, its
+    recorder summaries against the JAX package's under phase 10's ring
+    limits; the telemetry cases' plan versions strictly increasing, none
+    refused.  Returns the tiered kernel's launches."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.dist import cosim
+    from repro_torch.netsim import compact, faults, topology
+
+    ref = reference("cosim")["cases"]
+    gates = {"fct_p99_s": CENSORED_GATES["p99_us"], "fct_p50_s": CENSORED_GATES["p50_us"]}
+    total, failures, start = 0, [], time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        def cases():
+            return cosim_cases(cosim, faults, topology, obs, dict(device=DEVICE), tmp)
+
+        for name, runs in cases().items():
+            reset_counts()
+            before = dict(compact.run_core.counts)
+            t0 = time.time()
+            if name == "cosim_grid":
+                hists = cosim.run_cosim_grid([spec for _, spec in runs], workers=2,
+                                             device=DEVICE)
+            else:
+                hists = [cosim.run_cosim(**spec, device=DEVICE) for _, spec in runs]
+            wall = time.time() - t0
+            loop = {k: compact.run_core.counts[k] - before[k] for k in before}
+            launched = read_counts()["cascade_tiered"]
+            want = loop["scanned_steps"] + loop["steady_checks"]
+            check(launched == want > 0, f"{name}: cascade_tiered launched {launched} times, "
+                                        f"expected {want} ({loop})")
+            total += launched
+            steps = sum(len(h.records) * cosim_row(h)["steps_per_epoch"] for h in hists)
+            row = {"phase": "cosim", "case": name, "wall_s": wall,
+                   "us_per_step": wall / steps * 1e6, "epoch_steps": steps,
+                   "loop": dict(loop, launches=launched), "runs": {}}
+            for (label, spec), hist in zip(runs, hists):
+                got, jax = cosim_row(hist), ref[name][label]
+                diffs = {}
+                for f in COSIM_EQUAL[name]:
+                    if got["epochs"][f] != jax["epochs"][f]:
+                        failures.append(f"{name} {label}: {f} {got['epochs'][f]} on the card, "
+                                        f"{jax['epochs'][f]} in JAX")
+                for f, gate in gates.items():
+                    g, w = np.asarray(got["epochs"][f]), np.asarray(jax["epochs"][f])
+                    diffs[f] = float(np.max(np.abs(g / w - 1.0)))
+                    if diffs[f] > gate:
+                        failures.append(f"{name} {label}: {f} differs by {diffs[f]} > {gate}")
+                diffs["completion"] = float(np.max(np.abs(
+                    np.asarray(got["epochs"]["completion"])
+                    - np.asarray(jax["epochs"]["completion"]))))
+                if diffs["completion"] > CENSORED_GATES["completion"]:
+                    failures.append(f"{name} {label}: completion differs by "
+                                    f"{diffs['completion']}")
+                if any(got["epochs"]["new_builds"][1:]):
+                    failures.append(f"{name} {label}: libraries built after epoch 0 "
+                                    f"{got['epochs']['new_builds']}")
+                if got["convergence_epoch"] != jax["convergence_epoch"]:
+                    failures.append(f"{name} {label}: converged at {got['convergence_epoch']}, "
+                                    f"JAX at {jax['convergence_epoch']}")
+                run = {"vs_jax": diffs, "convergence_epoch": got["convergence_epoch"],
+                       "jax_convergence_epoch": jax["convergence_epoch"],
+                       "p99_us": [round(x * 1e6, 3) for x in got["epochs"]["fct_p99_s"]],
+                       "quarantined": got["epochs"]["quarantined"],
+                       "ff_steps": got["epochs"]["ff_steps"],
+                       "jax_ff_steps": jax["epochs"]["ff_steps"],
+                       "new_builds": got["epochs"]["new_builds"],
+                       "plan_refused": got["plan_refused"]}
+                if name == "cosim_telemetry":
+                    vs = got["epochs"]["plan_version"]
+                    run["versions_increase"] = all(b > a for a, b in zip(vs, vs[1:]))
+                    run["safe_mode"] = got["epochs"]["safe_mode"]
+                    if not run["versions_increase"] or got["plan_refused"]:
+                        failures.append(f"{name} {label}: plan versions {vs}, "
+                                        f"{got['plan_refused']} refused")
+                if spec.get("record") is not None:
+                    rings = [insim_agreement(g, w) for g, w in zip(got["insim"], jax["insim"])]
+                    failures += [f"{name} {label} epoch {e}: {b}"
+                                 for e, (_, bad) in enumerate(rings) for b in bad]
+                    run["insim"] = [r for r, _ in rings]
+                if spec.get("flight") is not None:
+                    _, events = obs.read_flight(spec["flight"])
+                    kinds = [e["kind"] for e in events]
+                    run["flight_events"] = {k: kinds.count(k) for k in sorted(set(kinds))}
+                    if run["flight_events"] != {"campaign": 1, "epoch": len(hist.records),
+                                                "run_end": 1}:
+                        failures.append(f"{name} {label}: flight log {run['flight_events']}")
+                row["runs"][label] = run
+            if name == "cosim_grid":  # each history alone, bit for bit
+                t0 = time.time()
+                alone = {label: cosim.run_cosim(**spec, device=DEVICE)
+                         for label, spec in cases()[name]}
+                row["alone_wall_s"] = time.time() - t0
+                row["grid_equals_alone"] = {label: same_history(h, alone[label])
+                                            for (label, _), h in zip(runs, hists)}
+                failures += [f"cosim_grid {label}: the grid's history is not the spec's alone"
+                             for label, same in row["grid_equals_alone"].items() if not same]
+            emit(row)
+    emit({"phase": "cosim", "kernel_launches": total, "wall_s": time.time() - start})
+    check(not failures, "; ".join(failures))
     return total
 
 
@@ -1769,7 +2051,9 @@ def main() -> int:
     try:
         phase_device()
         rows = phase_kernel()
-        stats, sweep_counts, walls, fig12_finish = phase_sweep()
+        stats, sweep_counts, walls, fig12 = phase_sweep()
+        repeat_launches = phase_repeat(fig12)
+        fig12_finish = fig12[0]
         phase_agree(stats)
         dense_counts = phase_dense(stats, walls)
         phase_profile()
@@ -1777,6 +2061,7 @@ def main() -> int:
         fault_launches = phase_faults()
         flowcell_launches = phase_flowcell(fig12_finish)
         record_launches = phase_record()
+        cosim_launches = phase_cosim()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1787,11 +2072,14 @@ def main() -> int:
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
         if name == "cascade_tiered":
-            # the main path: the fig12 sweep and phases 7-10
-            by_path.update(adaptive=adaptive_launches, faults=fault_launches,
-                           flowcell=flowcell_launches, record=record_launches)
-            launches = (sweep_counts[name] + adaptive_launches + fault_launches
-                        + flowcell_launches + record_launches)
+            # the main path: the fig12 sweep and phases 7-11
+            by_path.update(repeat=repeat_launches, adaptive=adaptive_launches,
+                           faults=fault_launches,
+                           flowcell=flowcell_launches, record=record_launches,
+                           cosim=cosim_launches)
+            launches = (sweep_counts[name] + repeat_launches + adaptive_launches
+                        + fault_launches + flowcell_launches + record_launches
+                        + cosim_launches)
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]

@@ -1,10 +1,25 @@
 // Pieces shared by the link-load kernels (cascade_tiered.cu,
 // cascade_flat.cu, linkload.cu).  Link vectors live in shared memory:
-// L1 = L + 1 floats in the cascades, slot L the sentinel (capacity 1e30)
+// L1 = L + 1 entries in the cascades, slot L the sentinel (capacity 1e30)
 // onto which absent hops land.  One simulation spreads over the C CTAs of
 // a thread-block cluster, each with its own partial link load, summed over
 // the cluster through distributed shared memory; the host side below
 // configures, sizes and launches such clusters.
+//
+// The cascades sum link loads in integer fixed point, so that a sum does
+// not depend on the order in which threads add to it: each rate is
+// rounded to a multiple of 1/64 bps (kUnitsPerBps), the partials are
+// unsigned 64-bit integers added with shared-memory atomics (an integer
+// sum is associative, so it is exact in any order), and the sum over the
+// cluster is converted to float once, in cluster_scale_pass.  Rates of
+// 131 kbps and above are multiples of 1/64 in float32 already and enter
+// exactly.  Overflow bound: a link's load is at most the sum of all
+// sub-flow rates of a simulation, so n sub-flows of at most
+// kernels/cascade_common.py::RATE_BOUND_BPS (400 Gb/s, four times the
+// paper's line rate) stay below 2^63 units while n * 4e11 * 64 < 2^63,
+// i.e. n <= 360,287; the dense engine's shape (W = 56,116, N = 4: 224,464
+// sub-flows) fits.  The wrappers check n against that bound
+// (cascade_common.py::check_fixed_point).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -15,6 +30,20 @@ namespace cascade {
 
 __device__ __forceinline__ void zero(float* buf, int L1) {
   for (int l = threadIdx.x; l < L1; l += blockDim.x) buf[l] = 0.0f;
+}
+
+// Fixed-point link loads: units of 1/64 bps in an unsigned 64-bit integer
+// (two's complement, so a sum of signed values wraps back correctly).
+typedef unsigned long long fixed_t;
+constexpr float kUnitsPerBps = 64.0f;
+constexpr float kBpsPerUnit = 1.0f / 64.0f;
+
+__device__ __forceinline__ fixed_t to_fixed(float bps) {
+  return (fixed_t)__float2ll_rn(bps * kUnitsPerBps);
+}
+
+__device__ __forceinline__ void zero(fixed_t* buf, int L1) {
+  for (int l = threadIdx.x; l < L1; l += blockDim.x) buf[l] = 0ull;
 }
 
 // A link id of the sentinel layout: absent (-1) hops land on slot L1 - 1.
@@ -53,19 +82,21 @@ __device__ __forceinline__ void share(int n, int rank, int C, int* lo, int* hi) 
 }
 
 // One pass's link load summed over the cluster.  On entry every CTA has
-// scattered its own flows into its `partial`; on exit `scale` holds
-// min(1, cap / max(load, 1)), `arr` has the load added (sentinel
-// excluded), both bit-identical in every CTA because each sums the C
-// partials in rank order 0..C-1, and `partial` is zero again.  Two cluster
-// barriers: the partials complete before anyone reads them, and read by
-// everyone before they are zeroed for the next pass.
+// scattered its own flows into its fixed-point `partial`; on exit `scale`
+// holds min(1, cap / max(load, 1)), `arr` has the load added (sentinel
+// excluded), both bit-identical in every CTA and from run to run (the
+// integer sum of the C partials is exact, and is converted to float once),
+// and `partial` is zero again.  Two cluster barriers: the partials
+// complete before anyone reads them, and read by everyone before they are
+// zeroed for the next pass.
 __device__ __forceinline__ void cluster_scale_pass(cooperative_groups::cluster_group& cluster,
-                                                   int C, float* partial, float* scale,
+                                                   int C, fixed_t* partial, float* scale,
                                                    float* arr, const float* cap, int L1) {
   cluster.sync();
   for (int l = threadIdx.x; l < L1; l += blockDim.x) {
-    float v = 0.0f;
-    for (int r = 0; r < C; ++r) v += cluster.map_shared_rank(partial, r)[l];
+    fixed_t sum = 0ull;
+    for (int r = 0; r < C; ++r) sum += cluster.map_shared_rank(partial, r)[l];
+    float v = __ll2float_rn((long long)sum) * kBpsPerUnit;
     if (l < L1 - 1) arr[l] += v;
     scale[l] = fminf(1.0f, cap[l] / fmaxf(v, 1.0f));
   }
@@ -75,16 +106,17 @@ __device__ __forceinline__ void cluster_scale_pass(cooperative_groups::cluster_g
 }
 
 // One hop h of a cascade over the cluster: the CTA's sub-flows [i_lo, i_hi)
-// of link ids lid [., H] scatter their running rates thr into its partial,
+// of link ids lid [., H] scatter their running rates thr, in fixed point,
+// into its partial,
 // cluster_scale_pass sums the partials, and each rate takes its link's
 // scale.  thr entries are read and written only by the CTA that owns them,
 // and each thread rereads only those it wrote.
 __device__ __forceinline__ void cluster_hop_pass(
     cooperative_groups::cluster_group& cluster, int C, const int32_t* __restrict__ lid,
-    int H, int h, float* __restrict__ thr, int i_lo, int i_hi, float* partial,
+    int H, int h, float* __restrict__ thr, int i_lo, int i_hi, fixed_t* partial,
     float* scale, float* arr, const float* cap, int L1) {
   for (int i = i_lo + threadIdx.x; i < i_hi; i += blockDim.x)
-    atomicAdd(&partial[slot(lid[i * H + h], L1)], thr[i]);
+    atomicAdd(&partial[slot(lid[i * H + h], L1)], to_fixed(thr[i]));
   cluster_scale_pass(cluster, C, partial, scale, arr, cap, L1);
   for (int i = i_lo + threadIdx.x; i < i_hi; i += blockDim.x)
     thr[i] *= scale[slot(lid[i * H + h], L1)];

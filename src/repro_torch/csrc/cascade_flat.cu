@@ -32,12 +32,12 @@
 // read and written by that CTA only).  Each hop is
 // cascade_common.cuh::cluster_hop_pass, the tiered kernel's fabric hop:
 // each CTA scatters its sub-flows into its own shared-memory partial link
-// load with shared atomics, the C partials are summed through distributed
-// shared memory in rank order between two cluster barriers (so every CTA
-// derives the same scales and running arrival bit for bit), and each CTA
-// scales its own sub-flows.  The queue and mark of link l are written by
-// CTA l mod C.  Float atomics within a CTA make the summation order vary
-// from run to run.  A cluster that does not schedule is a launch error:
+// load with 64-bit integer atomics (fixed point, cascade_common.cuh), the C
+// partials are summed through distributed shared memory between two
+// cluster barriers and converted to float once (so every CTA derives the
+// same scales and running arrival bit for bit, run after run), and each
+// CTA scales its own sub-flows.  The queue and mark of link l are written
+// by CTA l mod C.  A cluster that does not schedule is a launch error:
 // nothing falls back to fewer CTAs.
 
 #include <cuda_runtime.h>
@@ -48,6 +48,7 @@
 namespace {
 
 namespace cg = cooperative_groups;
+using cascade::fixed_t;
 using cascade::zero;
 
 constexpr int kThreads = 1024;
@@ -64,10 +65,11 @@ __global__ void __launch_bounds__(kThreads) cascade_flat_kernel(
     float* __restrict__ thr,            // [B, n]
     int n, int H, int L1, int C,
     float kmin, float kmax, float pmax, float dt, float qmax) {
-  extern __shared__ float smem[];
-  float* partial = smem;          // [L1] this CTA's share of the pass's link load
-  float* scale = smem + L1;       // [L1] the pass's scale, the same in every CTA
-  float* arr = smem + 2 * L1;     // [L1] running arrival, the same in every CTA
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [L1] this CTA's share of the pass's link load, in fixed point
+  fixed_t* partial = reinterpret_cast<fixed_t*>(smem);
+  float* scale = reinterpret_cast<float*>(partial + L1);  // [L1] the same in every CTA
+  float* arr = scale + L1;        // [L1] running arrival, the same in every CTA
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / C;
@@ -94,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) cascade_flat_kernel(
                         kmin, kmax, pmax, dt, qmax, rank, C);
 }
 
-size_t smem_bytes(int L1) { return 3 * (size_t)L1 * sizeof(float); }
+size_t smem_bytes(int L1) { return (size_t)L1 * (sizeof(fixed_t) + 2 * sizeof(float)); }
 
 }  // namespace
 

@@ -37,14 +37,16 @@
 // flows [r W / C, (r + 1) W / C) and their thr entries (the running rates,
 // updated in place each pass, read and written by that CTA only).  Per
 // pass each CTA scatters its flows into its own shared-memory partial link
-// load with shared atomics; then cascade_common.cuh::cluster_scale_pass
-// sums the C partials through distributed shared memory in rank order
-// between two cluster barriers, so every CTA derives the same scales and
-// running arrival bit for bit, and applies them to its own flows (a fabric
-// hop is cascade_common.cuh::cluster_hop_pass, which the flat kernel
-// shares).  The queue and mark of link l are written by CTA l mod C.
-// Float atomics within a CTA make the summation order vary from run to
-// run, so results agree with the plain version to float round-off.  A
+// load with shared atomics on 64-bit integers (fixed point, 1/64 bps a
+// unit: cascade_common.cuh); then cascade_common.cuh::cluster_scale_pass
+// sums the C partials through distributed shared memory between two
+// cluster barriers and converts the sum to float once, so every CTA
+// derives the same scales and running arrival bit for bit, and applies
+// them to its own flows (a fabric hop is cascade_common.cuh::
+// cluster_hop_pass, which the flat kernel shares).  The queue and mark of
+// link l are written by CTA l mod C.  An integer sum does not depend on
+// the order of its additions, so a launch repeats bit for bit; results
+// agree with the plain version (float index_add_) to float round-off.  A
 // cluster that does not schedule is a launch error: nothing falls back to
 // fewer CTAs.
 
@@ -56,6 +58,7 @@
 namespace {
 
 namespace cg = cooperative_groups;
+using cascade::fixed_t;
 using cascade::zero;
 
 constexpr int kThreads = 1024;
@@ -74,10 +77,11 @@ __global__ void __launch_bounds__(kThreads) cascade_tiered_kernel(
     float* __restrict__ thr,            // [B, W, N]
     int W, int N, int Hf, int L1, int C,
     float kmin, float kmax, float pmax, float dt, float qmax) {
-  extern __shared__ float smem[];
-  float* partial = smem;          // [L1] this CTA's share of the pass's link load
-  float* scale = smem + L1;       // [L1] the pass's scale, the same in every CTA
-  float* arr = smem + 2 * L1;     // [L1] running arrival, the same in every CTA
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [L1] this CTA's share of the pass's link load, in fixed point
+  fixed_t* partial = reinterpret_cast<fixed_t*>(smem);
+  float* scale = reinterpret_cast<float*>(partial + L1);  // [L1] the same in every CTA
+  float* arr = scale + L1;        // [L1] running arrival, the same in every CTA
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / C;
@@ -102,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) cascade_tiered_kernel(
   for (int w = w_lo + threadIdx.x; w < w_hi; w += blockDim.x) {
     float s = 0.0f;
     for (int n = 0; n < N; ++n) s += rates[w * N + n];
-    atomicAdd(&partial[tx[w]], s);
+    atomicAdd(&partial[tx[w]], cascade::to_fixed(s));
   }
   cascade::cluster_scale_pass(cluster, C, partial, scale, arr, cap, L1);
   for (int w = w_lo + threadIdx.x; w < w_hi; w += blockDim.x) {
@@ -121,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) cascade_tiered_kernel(
   for (int w = w_lo + threadIdx.x; w < w_hi; w += blockDim.x) {
     float s = 0.0f;
     for (int n = 0; n < N; ++n) s += thr[w * N + n];
-    atomicAdd(&partial[rx[w]], s);
+    atomicAdd(&partial[rx[w]], cascade::to_fixed(s));
   }
   cascade::cluster_scale_pass(cluster, C, partial, scale, arr, cap, L1);
   for (int w = w_lo + threadIdx.x; w < w_hi; w += blockDim.x) {
@@ -134,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) cascade_tiered_kernel(
                         kmin, kmax, pmax, dt, qmax, rank, C);
 }
 
-size_t smem_bytes(int L1) { return 3 * (size_t)L1 * sizeof(float); }
+size_t smem_bytes(int L1) { return (size_t)L1 * (sizeof(fixed_t) + 2 * sizeof(float)); }
 
 }  // namespace
 

@@ -30,6 +30,9 @@ KERNELS = ("cascade_tiered", "cascade_flat", "linkload", "flash_attention",
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+# what this process built: libraries compiled with nvcc and libraries
+# loaded (once each); netsim.sweep.cache_stats reports their sum as builds
+STATS = {"compiled": 0, "loaded": 0}
 
 
 def nvcc_path() -> str:
@@ -78,6 +81,7 @@ def build_many(names) -> list[pathlib.Path]:
                 failed.append(f"nvcc failed for {name}.cu:\n{err}")
             else:
                 os.replace(tmp, out)
+                STATS["compiled"] += 1
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:
@@ -97,6 +101,7 @@ def build(name: str) -> pathlib.Path:
 
 @functools.lru_cache(maxsize=None)
 def _load(path: str) -> ctypes.CDLL:
+    STATS["loaded"] += 1
     return ctypes.CDLL(path)
 
 

@@ -20,6 +20,12 @@ an absent hop scales by exactly 1.
   -> arrival, new_queue, p_mark  f32[B, L + 1],  thr  f32[B, W, N]
 
 with ``arrival[:, L] == 0`` and ``p_mark[:, L] == 0``.
+
+The kernel sums link loads in int64 fixed point (1/64 bps a unit,
+``cascade_common.FIXED_UNITS_PER_BPS``), so a launch repeats bit for bit;
+``W * N`` is checked against the overflow bound
+(``cascade_common.check_fixed_point``: at most 360,287 sub-flows of up to
+400 Gb/s).  The plain version sums floats with ``index_add_``.
 """
 from __future__ import annotations
 
@@ -29,8 +35,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.cascade_common import (  # noqa: F401 (re-exported)
-    MAX_CLUSTER, check_cluster, check_smem, cluster_size, device_index, gather, red_mark, scale,
-    segment_sum,
+    CASCADE_SMEM_PER_LINK, MAX_CLUSTER, check_cluster, check_fixed_point, check_smem,
+    cluster_size, device_index, gather, red_mark, scale, segment_sum,
 )
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -95,7 +101,8 @@ def cascade_tiered(fab, tx, rx, rates, queue, capacity, queue_mask, *,
             ("capacity", capacity, torch.float32, (L1,)),
             ("queue_mask", queue_mask, torch.float32, (L1,))):
         build.check(name, t, dtype, shape, dev)
-    check_smem("cascade_tiered", 3, L1)
+    check_smem("cascade_tiered", CASCADE_SMEM_PER_LINK, L1)
+    check_fixed_point("cascade_tiered", W * N)
     C = cluster_size(W, N, L1)
     check_cluster("cascade_tiered", device_index(dev), C, L1)
     arrival = torch.empty((B, L1), dtype=torch.float32, device=dev)

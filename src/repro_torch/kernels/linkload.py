@@ -20,6 +20,11 @@ scales by exactly 1.
   capacity, queue_mask  f32[L + 1]
   -> arrival, new_queue, p_mark  f32[B, L + 1],  thr  f32[B, n]
 
+The flat cascade sums link loads in int64 fixed point, as the tiered one
+does (``cascade_common.FIXED_UNITS_PER_BPS``), so a launch repeats bit for
+bit.  ``linkload`` still adds float atomics, whose order varies from run
+to run (no engine calls it).
+
 ``linkload`` keeps the JAX entry point's unbatched layout, with no
 sentinel slot: ids outside [0, L) are dropped.
 
@@ -34,7 +39,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.cascade_common import (
-    check_cluster, check_smem, cluster_size, device_index, gather, red_mark, scale, segment_sum,
+    CASCADE_SMEM_PER_LINK, check_cluster, check_fixed_point, check_smem, cluster_size,
+    device_index, gather, red_mark, scale, segment_sum,
 )
 
 QMAX_BYTES = 8e6  # linkload's fixed queue cap (the JAX kernel's)
@@ -89,7 +95,8 @@ def linkload_cascade(lid, rates, queue, capacity, queue_mask, *, kmin: float,
             ("capacity", capacity, torch.float32, (L1,)),
             ("queue_mask", queue_mask, torch.float32, (L1,))):
         build.check(name, t, dtype, shape, dev)
-    check_smem("cascade_flat", 3, L1)
+    check_smem("cascade_flat", CASCADE_SMEM_PER_LINK, L1)
+    check_fixed_point("cascade_flat", n)
     C = cluster_size(n, 1, L1)
     check_cluster("cascade_flat", device_index(dev), C, L1)
     arrival = torch.empty((B, L1), dtype=torch.float32, device=dev)
@@ -145,7 +152,7 @@ def linkload(lid, rates, queue, capacity, *, kmin: float, kmax: float, pmax: flo
             ("queue", queue, torch.float32, (L,)),
             ("capacity", capacity, torch.float32, (L,))):
         build.check(name, t, dtype, shape, dev)
-    check_smem("linkload", 1, L)
+    check_smem("linkload", 4, L)
     C = cluster_size(n, hops, L)
     check_cluster("linkload", device_index(dev), C, L)
     load = torch.empty((L,), dtype=torch.float32, device=dev)

@@ -524,8 +524,8 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
             cell = (state.cache.sleaf.to(torch.int64)[..., None] * P
                     + torch.clamp(state.path, 0, P - 1).to(torch.int64))
             cell = cell + torch.arange(B, device=dev)[:, None, None] * (nleaf * P)
-            intensity = torch.zeros(B * nleaf * P, dtype=torch.float32, device=dev)
-            intensity.index_add_(0, cell.reshape(-1), marked.reshape(-1))
+            intensity = dataplane.congestion_intensity(
+                cell, marked, B * nleaf * P, max_pkts=line_rate * cfg.dt / (8.0 * dp.mtu_bytes))
             dense = intensity.view(B, nleaf, P) >= cfg.cong_threshold_pkts
             table = ctab.mark_congested_dense(table, dense, t[:, None, None], cfg.phi)
         slot_fid = torch.where(all_done, F_pad, state.slot_fid)

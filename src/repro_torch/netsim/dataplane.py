@@ -34,10 +34,13 @@ import torch
 
 from repro_torch.core import baselines, gbn
 from repro_torch.kernels import cascade_tiered as ct, linkload as ll
-from repro_torch.kernels.cascade_common import red_mark, segment_sum
+from repro_torch.kernels.cascade_common import (
+    fixed_point_index_add, link_segment_sum, red_mark,
+)
 from repro_torch.netsim.topology import Topology
 
 BACKENDS = ("auto", "torch", "cuda")
+INTENSITY_UNITS = 2.0 ** 32  # fixed-point units an expected marked packet
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
@@ -235,6 +238,26 @@ def path_queue_2tier(topo: Topology, queue, src_leaf, dst_leaf) -> torch.Tensor:
     return take_rows(q_up, src_leaf) + take_rows(q_dn, dst_leaf)
 
 
+def congestion_intensity(cell, marked, n_cells: int, *, max_pkts: float):
+    """SeqBalance's congestion intensity, f32[n_cells]: the sum of ``marked``
+    (expected marked packets a sub-flow this step) over the entries whose
+    ``cell`` (source ToR x path, flattened) is j.  Both engines call it
+    before the ``>= cong_threshold_pkts`` test.  On the card the sum is
+    taken in int64 fixed point (2**-32 packets a unit), so that the test
+    reads the same sum run after run (``float`` atomics in ``index_add_``
+    would add in another order each time); on the CPU ``index_add_`` adds
+    in order, as the JAX package's segment sum does.  ``max_pkts`` bounds
+    one entry (a sub-flow's packets a step at line rate); the fixed point
+    holds while ``marked.numel() * max_pkts < 2**31``."""
+    if marked.device.type != "cuda":
+        out = torch.zeros(n_cells, dtype=torch.float32, device=marked.device)
+        return out.index_add_(0, cell.reshape(-1), marked.reshape(-1))
+    if marked.numel() * max_pkts * INTENSITY_UNITS >= 2.0 ** 63:
+        raise ValueError(f"congestion_intensity: {marked.numel()} entries of up to "
+                         f"{max_pkts:g} packets overflow the int64 fixed point")
+    return fixed_point_index_add(cell, marked, n_cells, INTENSITY_UNITS)
+
+
 def drill_spray(topo: Topology, queue, rc0, src, dst, src_leaf, dst_leaf, active0,
                 drill_q0: float, capacity=None):
     """DRILL's per-packet spray on a 2-tier Clos: inverse-queue weights over
@@ -257,7 +280,7 @@ def drill_spray(topo: Topology, queue, rc0, src, dst, src_leaf, dst_leaf, active
     oh_d = (dst_leaf.to(torch.int64)[..., None] == leaves).to(torch.float32)
     arrival = torch.zeros((B, nl + 1), dtype=torch.float32, device=dev)
     # hop 0: host NIC
-    tx_load = segment_sum(rc0, src, H)  # [B, H]
+    tx_load = link_segment_sum(rc0, src, H)  # [B, H]
     arrival[:, h0: h0 + H] = tx_load
     s_tx = torch.clamp(cap[h0 + src.to(torch.int64)]
                        / torch.clamp(take(tx_load, src), min=1.0), max=1.0)
@@ -277,7 +300,7 @@ def drill_spray(topo: Topology, queue, rc0, src, dst, src_leaf, dst_leaf, active
     r2 = r1 * torch.matmul(oh_d, s_dn)
     # hop 3: receiver NIC
     r2sum = r2.sum(-1)
-    rx_load = segment_sum(r2sum, dst, H)
+    rx_load = link_segment_sum(r2sum, dst, H)
     arrival[:, h0 + H: h0 + 2 * H] = rx_load
     s_rx = torch.clamp(cap[h0 + H + dst.to(torch.int64)]
                        / torch.clamp(take(rx_load, dst), min=1.0), max=1.0)

@@ -315,8 +315,8 @@ def build_sim(topo: Topology, cfg: SimConfig, trace: Trace, reorder=None):
         exp_cong_pkts = marked.sum()
         if cfg.scheme == "seqbalance":
             cell = cell_leaf + torch.clamp(path, 0, P - 1).to(torch.int64)
-            intensity = torch.zeros(topo.n_leaf * P, dtype=torch.float32, device=dev)
-            intensity.index_add_(0, cell.reshape(-1), marked.reshape(-1))
+            intensity = dataplane.congestion_intensity(
+                cell, marked, topo.n_leaf * P, max_pkts=line_rate * cfg.dt / (8.0 * dp.mtu_bytes))
             dense = intensity.view(topo.n_leaf, P) >= cfg.cong_threshold_pkts
             table = ctab.mark_congested_dense(table, dense, t, cfg.phi)
 

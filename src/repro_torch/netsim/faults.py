@@ -1,9 +1,7 @@
 """Chaos campaign framework: heterogeneous fault schedules, a copy of
 ``repro.netsim.faults`` (numpy only, so one seed draws the same campaign
 and the same arrays in both packages).  It takes the port's topologies,
-whose capacity is a tensor read back to numpy here.  Not carried:
-``FaultCampaign.has_stragglers`` and ``activations`` (the flight log's),
-which come with the ``dist/`` and ``obs/`` slices.
+whose capacity is a tensor read back to numpy here.
 
 The co-sim's original fault vocabulary (``dist.cosim.FaultEvent``) covers
 clean capacity faults at EPOCH granularity — a spine dies at epoch k and
@@ -293,6 +291,9 @@ class FaultCampaign:
                 out[ev.rank] = max(out.get(ev.rank, 1.0), ev.slowdown)
         return out
 
+    def has_stragglers(self) -> bool:
+        return any(isinstance(ev, Straggler) for ev in self.events)
+
     def midepoch_onset(self, topo, epoch: int) -> Onset | None:
         """The earliest intra-epoch capacity-fault onset starting THIS
         epoch, with the fabric paths its links take down — None when no
@@ -312,6 +313,24 @@ class FaultCampaign:
 
     def summary(self) -> list[str]:
         return [f"{type(ev).__name__} {ev}" for ev in self.events]
+
+    def activations(self, epoch: int) -> list[dict]:
+        """JSON-able descriptions of every event active THIS epoch — the
+        flight log's ``faults`` field, so the perfetto exporter can lay
+        each fault's span under the epochs it perturbs."""
+        out = []
+        for ev in self.events:
+            if not ev.active(epoch):
+                continue
+            d = dict(kind=type(ev).__name__, start_epoch=ev.start_epoch,
+                     end_epoch=ev.end_epoch)
+            for f in ("links", "rank", "scale", "loss_rate", "slowdown",
+                      "duty", "period_frac", "onset_frac", "width_frac"):
+                if hasattr(ev, f):
+                    v = getattr(ev, f)
+                    d[f] = list(v) if isinstance(v, tuple) else v
+            out.append(d)
+        return out
 
 def random_campaign(topo, *, seed: int, epochs: int, n_faults: int = 3,
                     kinds: tuple[str, ...] = ("flap", "brownout", "lossy",

@@ -8,15 +8,26 @@ simulation that spills (an arrived flow found no free slot) is rerun with
 a window re-planned from the concurrency it actually showed.
 
 Entry points take ``device=None``, which means ``"cuda"``.
+
+``cache_stats`` and ``obs_stats`` are the counters the co-sim driver
+(``dist.cosim``) reads each epoch.  The port builds no program per shape
+(the JAX package compiles one executable per shape bucket and counts
+those): what it builds are the kernel libraries of ``kernels/build.py``,
+compiled with nvcc and loaded once per process, so ``builds`` counts
+those.  No path of the engines captures a CUDA graph.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
+import threading
+import time
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import build
 from repro_torch.netsim import compact
 from repro_torch.netsim.engine import SimConfig, StepOutputs, line_rate_of
 from repro_torch.netsim.topology import Topology
@@ -25,6 +36,38 @@ from repro_torch.obs.recorder import RingState
 
 F_BUCKET = 2048
 W_BUCKET = 256
+
+RETRY_JITTER = 0.5  # retry_sleep_s's jitter in run_jobs, the JAX package's default
+
+_STATS_LOCK = threading.Lock()
+_OBS_STATS = {"spill_retries": 0, "job_retries": 0, "job_timeouts": 0, "job_failures": 0}
+
+
+def _bump(key: str) -> None:
+    with _STATS_LOCK:
+        _OBS_STATS[key] += 1
+
+
+def cache_stats() -> dict:
+    """``builds``: kernel libraries compiled or loaded in this process
+    (``kernels.build.STATS``).  With every library loaded, a co-sim epoch
+    adds none."""
+    return {"builds": build.STATS["compiled"] + build.STATS["loaded"]}
+
+
+def obs_stats() -> dict:
+    """``cache_stats`` and the runner's resilience counters: spill retries
+    (``_run_group``'s larger window) and job retries, timeouts and
+    salvaged failures (``run_jobs``), for the co-sim's flight log."""
+    with _STATS_LOCK:
+        return {**cache_stats(), **_OBS_STATS}
+
+
+def clear_cache() -> None:
+    """Zero the runner's counters (the libraries stay loaded)."""
+    with _STATS_LOCK:
+        for k in _OBS_STATS:
+            _OBS_STATS[k] = 0
 
 # per-scheme lifetime slack for the concurrency bound: flowlet/hash schemes
 # track near-ideal FCTs; SeqBalance holds more sub-flows.  DRILL keeps the
@@ -172,6 +215,7 @@ def _run_group(topo, cfg, prepped, n_steps, window_slots, ops, record):
                 still_rows.append(b)
         pending = still
         if pending:
+            _bump("spill_retries")
             seen = _observed_concurrency([prepped[i] for i in pending],
                                          finish[still_rows], n_steps * cfg.dt)
             W = min(max(W * 2, _round_up(int(seen * 1.2) + 64, W_BUCKET)), F_pad)
@@ -231,21 +275,100 @@ def run_one(topo: Topology, cfg: SimConfig, trace: Trace, *,
 
 
 def _run_job(job, device):
-    """One ``run_jobs`` entry: ``(topo, cfg, traces)`` or
-    ``(topo, cfg, traces, run_batch_kwargs)``."""
+    """One ``run_jobs`` entry: ``(topo, cfg, traces)``,
+    ``(topo, cfg, traces, run_batch_kwargs)``, or any callable without
+    arguments (e.g. one ``dist.cosim.run_cosim`` loop), which picks its own
+    device."""
+    if callable(job):
+        return job()
     topo, cfg, traces, *rest = job
     kw = dict(rest[0]) if rest else {}
     kw.setdefault("device", device)
     return run_batch(topo, cfg, traces, **kw)
 
 
-def run_jobs(jobs: list, *, workers: int = 1, device=None) -> list:
-    """Run independent sweep jobs (e.g. one per scheme); results come back
-    in job order.  ``workers > 1`` runs them on a thread pool (the jobs
-    then interleave their launches on the device)."""
+@dataclasses.dataclass(frozen=True)
+class JobFailure:
+    """What a salvaged job returns in its place: the grid completes, and
+    the failure stays visible at its index (``failed`` is True)."""
+
+    index: int  # the job's place in the run_jobs list
+    attempts: int
+    error: str  # "ExcType: message" of the last attempt
+    elapsed_s: float
+    timed_out: bool = False
+
+    @property
+    def failed(self) -> bool:
+        return True
+
+
+def retry_sleep_s(index: int, attempt: int, backoff_s: float, jitter_frac: float) -> float:
+    """The backoff before retry ``attempt`` of job ``index``:
+    ``backoff_s * 2**(attempt - 1)`` (at most 30 s) stretched by a factor
+    in [1, 1 + jitter_frac] drawn from a generator seeded on (index,
+    attempt), so jobs that failed together do not retry together and a
+    test replays the same sleeps."""
+    base = min(backoff_s * (2 ** (attempt - 1)), 30.0)
+    if base <= 0.0 or jitter_frac <= 0.0:
+        return base
+    u = float(np.random.default_rng((index, attempt)).uniform())
+    return base * (1.0 + jitter_frac * u)
+
+
+def _run_job_resilient(job, index: int, device, *, retries: int, backoff_s: float,
+                       salvage: bool):
+    t0 = time.time()
+    for attempt in range(1, retries + 2):
+        try:
+            return _run_job(job, device)
+        except Exception as e:  # noqa: BLE001 (a grid cell may fail in any way)
+            if attempt <= retries:
+                _bump("job_retries")
+                time.sleep(retry_sleep_s(index, attempt, backoff_s, RETRY_JITTER))
+                continue
+            if not salvage:
+                raise
+            _bump("job_failures")
+            return JobFailure(index=index, attempts=attempt,
+                              error=f"{type(e).__name__}: {e}", elapsed_s=time.time() - t0)
+
+
+def run_jobs(jobs: list, *, workers: int = 1, device=None, timeout_s: float | None = None,
+             retries: int = 0, backoff_s: float = 0.5, salvage: bool = False) -> list:
+    """Run independent sweep jobs (one per scheme, or one co-sim loop per
+    grid point: see ``_run_job``); results come back in job order.
+    ``workers > 1`` runs them on a thread pool, where they interleave
+    their launches on the one device.
+
+    ``retries``: a job that raises runs again up to this many times, after
+    ``retry_sleep_s``.  ``salvage``: a job that still fails returns a
+    ``JobFailure`` at its index instead of raising.  ``timeout_s``: a job
+    not done this long after its result is awaited is abandoned (a thread
+    cannot be killed; it ends with the process) and salvaged as timed
+    out; only with a pool (``workers > 1``)."""
     device = resolve_device(device)
+    kw = dict(retries=retries, backoff_s=backoff_s, salvage=salvage)
     if workers <= 1 or len(jobs) <= 1:
-        return [_run_job(j, device) for j in jobs]
-    with cf.ThreadPoolExecutor(max_workers=workers) as pool:
-        futs = [pool.submit(_run_job, j, device) for j in jobs]
-        return [f.result() for f in futs]
+        return [_run_job_resilient(j, i, device, **kw) for i, j in enumerate(jobs)]
+    pool = cf.ThreadPoolExecutor(max_workers=workers)
+    timed_out = False
+    try:
+        futs = [pool.submit(_run_job_resilient, j, i, device, **kw)
+                for i, j in enumerate(jobs)]
+        out = []
+        for i, f in enumerate(futs):
+            try:
+                out.append(f.result(timeout=timeout_s))
+            except cf.TimeoutError:
+                timed_out = True
+                _bump("job_timeouts")
+                if not salvage:
+                    raise
+                out.append(JobFailure(index=i, attempts=1,
+                                      error="TimeoutError: job still running",
+                                      elapsed_s=float(timeout_s or 0.0), timed_out=True))
+        return out
+    finally:
+        # waiting on a hung job's thread would wedge the whole pool behind it
+        pool.shutdown(wait=not timed_out, cancel_futures=timed_out)

@@ -33,7 +33,8 @@ def test_no_jax_or_repro_import(path):
 
 def test_importing_the_sweep_leaves_jax_out():
     code = ("import sys; import repro_torch.netsim.sweep, repro_torch.netsim.carry, "
-            "repro_torch.netsim.engine, repro_torch.kernels.ops, repro_torch.obs; "
+            "repro_torch.netsim.engine, repro_torch.kernels.ops, repro_torch.obs, "
+            "repro_torch.dist; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -72,6 +73,12 @@ def test_entry_points_default_to_cuda():
                      np.zeros(3, np.float32), np.ones(3, np.float32), n_links=3)
     with pytest.raises(RuntimeError, match="CUDA"):
         sweep.run_one(topo, cfg, trace, reorder=1.0)
+    from repro_torch.dist import cosim
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cosim.run_cosim(topo, cosim.ring_hosts(topo, 4), 1e6, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cosim.run_cosim_grid([dict(topo=topo, hosts=[0, 4], size_bytes=1e6, epochs=1)])
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

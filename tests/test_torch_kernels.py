@@ -277,3 +277,59 @@ def test_flat_and_linkload_cluster_sizes_at_the_smoke_shapes(kernel, rows, per_r
     if kernel == "flat":
         topo = tt.three_tier(device="cpu") if n_links == 2081 else tt.sim_2tier(device="cpu")
         assert topo.n_links + 1 == n_links
+
+
+# ------------------------------------------- fixed-point (order-free) sums
+@pytest.mark.parametrize("units,scale", [(64.0, 1e11), (2.0 ** 32, 125.0)],
+                         ids=["link_load_bps", "intensity_pkts"])
+def test_fixed_point_sum_equals_index_add_and_ignores_order(units, scale):
+    """``cascade_common.fixed_point_index_add`` (the cascades' link-load
+    quantum, and SeqBalance's intensity quantum) against a float64 sum:
+    within half a quantum an entry plus one float32 rounding of the sum,
+    so within float32 round-off of ``index_add_``; and bitwise the same
+    when its (index, value) pairs come in another order."""
+    from repro_torch.kernels import cascade_common as cc
+
+    rng = np.random.default_rng(int(units) % 97)
+    n, size = 20000, 37
+    idx = rng.integers(0, size, n)
+    vals = (rng.random(n) * scale * (rng.random(n) < 0.9)).astype(np.float32)
+    got = cc.fixed_point_index_add(torch.as_tensor(idx), torch.as_tensor(vals), size, units)
+    exact = np.zeros(size)
+    np.add.at(exact, idx, vals.astype(np.float64))
+    per_cell = np.bincount(idx, minlength=size)
+    bound = per_cell * 0.5 / units + np.spacing(np.abs(exact).astype(np.float32))
+    assert (np.abs(got.numpy().astype(np.float64) - exact) <= bound).all()
+    plain = torch.zeros(size).index_add_(0, torch.as_tensor(idx), torch.as_tensor(vals))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5, atol=1e-3 / units * n)
+    for seed in range(3):
+        perm = np.random.default_rng(seed).permutation(n)
+        again = cc.fixed_point_index_add(torch.as_tensor(idx[perm]), torch.as_tensor(vals[perm]),
+                                         size, units)
+        assert torch.equal(again, got)
+
+
+def test_intensity_and_link_sums_on_the_cpu_keep_index_add():
+    """On CPU tensors ``dataplane.congestion_intensity`` and
+    ``cascade_common.link_segment_sum`` are the plain in-order float sums
+    (as the JAX package's segment sums)."""
+    from repro_torch.kernels import cascade_common as cc
+
+    rng = np.random.default_rng(4)
+    cell = torch.as_tensor(rng.integers(0, 16, (2, 50, 4)))
+    marked = torch.as_tensor(rng.random((2, 50, 4)).astype(np.float32))
+    want = torch.zeros(16).index_add_(0, cell.reshape(-1), marked.reshape(-1))
+    assert torch.equal(td.congestion_intensity(cell, marked, 16, max_pkts=1.0), want)
+    vals = torch.as_tensor(rng.random((2, 30)).astype(np.float32) * 1e10)
+    idx = torch.as_tensor(rng.integers(0, 7, (2, 30)))
+    assert torch.equal(cc.link_segment_sum(vals, idx, 7), cc.segment_sum(vals, idx, 7))
+
+
+def test_fixed_point_bound_at_the_dense_shape():
+    """The dense engine's W = 56,116 flows of N = 4 sub-flows fit the
+    cascades' int64 link loads at 400 Gb/s a sub-flow; 400,000 do not."""
+    from repro_torch.kernels import cascade_common as cc
+
+    cc.check_fixed_point("cascade_tiered", 56116 * 4)
+    with pytest.raises(ValueError, match="overflow"):
+        cc.check_fixed_point("cascade_tiered", 100000 * 4)

@@ -33,7 +33,8 @@ def cuda():
 @pytest.mark.parametrize("n,n_sub,hf,L", [(100, 4, 2, 50), (1000, 4, 4, 2080)])
 def test_cascade_kernel_matches_plain_on_the_card(cuda, n, n_sub, hf, L):
     """The CUDA kernel against its plain version on the same CUDA inputs
-    (float atomics: the tolerances above); each call counts one launch."""
+    (its fixed-point sums against the plain float ones: the tolerances
+    above); each call counts one launch."""
     rng = np.random.default_rng(n)
     B = 2
 
@@ -477,3 +478,97 @@ def test_flowcells_and_the_recorder_on_the_card_match_the_cpu(cuda, scheme, flow
     g, c = obs.drain(spec, gpu.ring), obs.drain(spec, cpu.ring)
     assert g["chunks_recorded"] == c["chunks_recorded"] > 0
     np.testing.assert_array_equal(g["meta"][:, :3], c["meta"][:, :3])  # step0, steps, ff
+
+
+def _tiered_inputs(cuda, B, W, N, hf, L, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=cuda).contiguous()
+
+    cap = torch.full((L + 1,), 100e9, device=cuda)
+    cap[L] = 1e30
+    return (t(rng.integers(-1, L, (B, W, N, hf)), torch.int32),
+            t(rng.integers(0, L, (B, W)), torch.int32), t(rng.integers(0, L, (B, W)), torch.int32),
+            t(rng.random((B, W, N)) * 50e9, torch.float32),
+            t(rng.random((B, L + 1)) * 2e6, torch.float32), cap, torch.ones(L + 1, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,W,N,hf,L", [(2, 5376, 4, 2, 448), (1, 56116, 4, 2, 448),
+                                        (3, 1000, 4, 4, 2080)])
+def test_cascade_kernels_repeat_bit_for_bit(cuda, B, W, N, hf, L):
+    """The tiered and flat kernels sum their link loads in fixed point, so
+    two launches on the same inputs give bitwise-equal outputs (float
+    atomics would add in another order each time)."""
+    args = _tiered_inputs(cuda, B, W, N, hf, L)
+    first, second = (ct.cascade_tiered(*args, **KW) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    fab, tx, rx, rates, queue, cap, qmask = args
+    lid = torch.cat([tx[:, :, None, None].expand(B, W, N, 1), fab,
+                     rx[:, :, None, None].expand(B, W, N, 1)], -1).reshape(B, W * N, hf + 2)
+    flat = [ll.linkload_cascade(lid.contiguous(), rates.reshape(B, -1).contiguous(), queue,
+                                cap, qmask, **KW) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
+
+
+@pytest.mark.gpu
+def test_fixed_point_overflow_check_raises_past_its_bound(cuda):
+    """400,000 sub-flows at up to 400 Gb/s could overflow the int64 link
+    loads: both cascades raise before they launch; SeqBalance's intensity
+    raises past its own bound."""
+    args = _tiered_inputs(cuda, 1, 100000, 4, 2, 64)
+    before = (ct.cascade_tiered.launches, ll.linkload_cascade.launches)
+    with pytest.raises(ValueError, match="overflow"):
+        ct.cascade_tiered(*args, **KW)
+    lid = torch.zeros((1, 400000, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="overflow"):
+        ll.linkload_cascade(lid, args[3].reshape(1, -1), args[4], args[5], args[6], **KW)
+    assert (ct.cascade_tiered.launches, ll.linkload_cascade.launches) == before
+    marked = torch.ones(1000, device=cuda)
+    cell = torch.zeros(1000, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="overflow"):
+        dataplane.congestion_intensity(cell, marked, 4, max_pkts=1e7)
+    got = [dataplane.congestion_intensity(cell, marked, 4, max_pkts=1.0) for _ in range(2)]
+    assert torch.equal(*got) and float(got[0][0]) == 1000.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["seqbalance", "drill"])
+def test_engine_repeats_bit_for_bit_on_the_card(cuda, scheme):
+    """Two runs of one program on the card give the same finish times and
+    per-step outputs, bit for bit (the cascade's sums, SeqBalance's
+    intensity and DRILL's NIC loads do not depend on the order of their
+    additions)."""
+    topo = topology.leaf_spine(2, 4, 4, 100e9, device=cuda)
+    trace = workloads.poisson_trace(workloads.TraceConfig(
+        workload="alistorage", load=0.8, duration_s=1.5e-3, n_hosts=8, host_bw=100e9,
+        hosts_per_leaf=4, seed=0))
+    cfg = engine.SimConfig(scheme=scheme, duration_s=6e-3)
+    runs = [compact.simulate_compact(topo, cfg, trace, window_slots=len(trace.sizes),
+                                     device=cuda) for _ in range(2)]
+    (r1, o1), (r2, o2) = runs
+    np.testing.assert_array_equal(r1.finish, r2.finish)
+    assert all(np.array_equal(a, b) for a, b in zip(o1, o2))
+
+
+@pytest.mark.gpu
+def test_cosim_on_the_card_matches_the_cpu(cuda):
+    """The epoch driver on the card: tests/test_torch_cosim.py's killed-spine
+    scenario gives the CPU's quarantined sets, reports and plans, and
+    p99 within one dt in every epoch; a second run on the card repeats it
+    bit for bit."""
+    from repro_torch.dist import cosim
+
+    def run(device):
+        topo = topology.leaf_spine(4, 4, 4, 100e9, device=device)
+        return cosim.run_cosim(topo, cosim.ring_hosts(topo, 8), 4e6, scheme="seqbalance",
+                               epochs=4, phi_steps=2, n_chunks=4, seed=0, device=device,
+                               faults=(cosim.kill_spine(topo, 2, epoch=1, recover_epoch=3),))
+    cpu, card, again = run("cpu"), run(cuda), run(cuda)
+    for c, g, a in zip(cpu.records, card.records, again.records):
+        assert (g.quarantined, g.reported_slow, g.plan_version) == \
+            (c.quarantined, c.reported_slow, c.plan_version)
+        assert abs(g.fct_p99_s - c.fct_p99_s) <= 10e-6 + 1e-9
+        np.testing.assert_array_equal(g.fct, a.fct)
+    assert card.convergence_epoch(1) == cpu.convergence_epoch(1)
