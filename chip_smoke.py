@@ -26,12 +26,16 @@ Phases, each printed as JSON lines:
                 flat layout (n = W * N sub-flows of H = Hf + 2 hops), and
                 the tiered kernel held against it, each row with its C;
               - linkload at bench_kernels' n=8192, hops=6, L=512 and at
-                the fig12 flat shape, each row with its C;
+                the fig12 flat shape, each row with its C, each case
+                launched twice (bitwise-equal: fixed-point sums);
               - flash_attention at the full width of qwen3-32b and
                 gemma2-2b in bfloat16 with q scaled so that the scores
                 reach the softcap's range (the "wgmma" route,
-                csrc/flash_attention_sm90.cu), and a float32 case (the
-                "simt" route, csrc/flash_attention.cu), each row with the
+                csrc/flash_attention_sm90.cu), at phase 13's prefill shape
+                (B = 4, S = 5,120) for a local layer (window 4,096) and a
+                global one (no window), and at S = 4,999, and in
+                float32 (the "simt" route, csrc/flash_attention.cu) with
+                phase 12's prefill shape among them, each row with the
                 route it ran on, checked against the case's: elementwise
                 within tests/test_kernels.py's tolerances and every output
                 row within FLASH_ROW_REL of the plain version, a limit that
@@ -106,6 +110,24 @@ Phases, each printed as JSON lines:
               each held per epoch against the JAX package's run of the
               same spec (src/repro_torch/netsim/cosim_reference.json), its
               wall and us per step printed.
+ 12. serve_ref gemma2-2b at full width cut to 4 layers and a 256-token
+              window (weights from repro_torch.models.weights.numpy_params),
+              two prompts of 384 and 600 tokens, 32 new tokens, served in
+              float32 (flash route "simt") and bfloat16 ("wgmma"), each
+              against the JAX package's serving of the same case
+              (src/repro_torch/models/serve_reference.json): decode
+              teacher-forced on its tokens, the logits at its top-8 ids
+              within SERVE_TOL of the row's RMS, and ServeEngine's own
+              tokens equal to its tokens up to the first near-tie (the
+              rules of repro_torch.serve.compare);
+ 13. serve    the slice's main path: gemma2-2b as published (26 layers,
+              window 4,096, bfloat16, weights from model.init_params on
+              the card), 4 prompts of 4,500-5,120 tokens, 32 new tokens,
+              through repro_torch.serve.engine.ServeEngine: 26 wgmma flash
+              launches a prefill and none on simt, held against the same
+              weights served with the plain attention, run twice (bit for
+              bit); prefill and decode walls, tokens/s, peak memory, and
+              one prefill and 8 decode ticks under torch.profiler.
 
 Then a "kernels" line and, last, {"ok": true, "device": {...}}.  Any
 failure exits non-zero before that line; so does a machine without CUDA
@@ -118,6 +140,13 @@ shapes launched on clusters of 1, 2, 4, 8 and 16 CTAs through the
 library's C entry (past the wrapper, so these launches are not counted;
 timed as phase 2's "ms"), each held against the plain version, with the card's cluster occupancy
 for each size, the size cluster_size picks and the fastest.
+
+With --planted-faults DIR it shows what the serving checks catch: for
+each fault of PLANTED it copies this checkout to DIR/<fault>, plants the
+fault in the copy's csrc/flash_attention_sm90.cu, and runs there phase
+2's bf16 serving rows, phase 12 and phase 13, printing what each check
+read against its limit; it fails if a fault passes every check.  DIR
+must lie outside the checkout.
 """
 from __future__ import annotations
 
@@ -258,14 +287,19 @@ def close_enough(name: str, outs, got, want, tols) -> dict:
     return errs
 
 
-def phase_device():
-    from repro_torch.kernels import build
-
+def card_name() -> str:
+    """nvidia-smi's name and power limit of the first card."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    from repro_torch.kernels import build
+
+    card = card_name()
     print(card, flush=True)
     t0 = time.time()
     missing = [k for k in build.KERNELS if not build.library_path(k).exists()]
@@ -499,13 +533,25 @@ def linkload_cases():
 
 
 # full widths of two of the repo's configurations (src/repro/configs/), the
-# factor q is scaled by (see flash_cases) and the route that must serve each
+# factor q is scaled by (see flash_cases) and the route that must serve each;
+# the serving phases' shapes: phase 13's prefill (gemma2-2b, 4 prompts
+# padded to 5,120) for a local layer and for a global one (softcap, no
+# window), the local one at a length that is not a multiple of a block, and
+# phase 12's float32 prefill (2 prompts padded to 600, window 256); the
+# local serving shapes are the main cases (the "kernels" line)
+GEMMA2_LOCAL = dict(causal=True, window=4096, softcap=50.0)
 FLASH_CASES = [
     ("qwen3-32b", 1, 4096, 64, 8, 128, "bfloat16", dict(causal=True), 10.0, "wgmma"),
-    ("gemma2-2b", 1, 8192, 8, 4, 256, "bfloat16",
-     dict(causal=True, window=4096, softcap=50.0), 10.0, "wgmma"),
+    ("gemma2-2b", 1, 8192, 8, 4, 256, "bfloat16", GEMMA2_LOCAL, 10.0, "wgmma"),
+    ("gemma2-2b-serve", 4, 5120, 8, 4, 256, "bfloat16", GEMMA2_LOCAL, 10.0, "wgmma"),
+    ("gemma2-2b-serve-global", 4, 5120, 8, 4, 256, "bfloat16",
+     dict(causal=True, softcap=50.0), 10.0, "wgmma"),
+    ("gemma2-2b-ragged", 4, 4999, 8, 4, 256, "bfloat16", GEMMA2_LOCAL, 10.0, "wgmma"),
     ("float32", 1, 2048, 16, 4, 128, "float32", dict(causal=True), 1.0, "simt"),
+    ("gemma2-2b-serve-ref", 2, 600, 8, 4, 256, "float32",
+     dict(causal=True, window=256, softcap=50.0), 3.0, "simt"),
 ]
+FLASH_MAIN = ("gemma2-2b-serve", "gemma2-2b-serve-ref")
 FLASH_LIBRARY = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
 
 
@@ -517,7 +563,9 @@ def flash_cases():
     its elementwise limit (2e-5) is already 1e-3 of its typical output of
     0.05, and at scores of deviation 10 the float32 rounding of the scores
     alone moves an output by about 3e-5 (the plain version against
-    float64), past that limit for any float32 kernel."""
+    float64), past that limit for any float32 kernel.  The float32 case
+    with a softcap scales q by 3: at unit scores the softcap of 50 moves a
+    row by about 1e-4, too little to show a kernel that drops it."""
     import torch
 
     dev = torch.device(DEVICE)
@@ -530,7 +578,7 @@ def flash_cases():
                           dict(kw, window=kw.get("window", 0), softcap=kw.get("softcap", 0.0)),
                           {"dtype": dtype, "B": B, "S": S, "H": H, "K": K, "hd": hd,
                            "q_scale": q_scale},
-                          main=name in ("qwen3-32b", "float32"),
+                          main=name in FLASH_MAIN,
                           library=FLASH_LIBRARY[route], ran_as=route))
     return cases
 
@@ -699,7 +747,7 @@ def kernel_specs():
              lambda case: LINKLOAD_TOLS, linkload_cases, linkload_bound,
              entry=("ops.linkload",
                     lambda c: ops.linkload(*c.args, n_links=c.info["links"], **c.kw)),
-             ran_as="C", launch=linkload_launch, cluster=linkload_cluster),
+             ran_as="C", launch=linkload_launch, cluster=linkload_cluster, repeats=True),
         Spec("flash_attention", ("flash_attention", "src/repro/kernels/flash_attention.py:75"),
              fa.flash_attention, fa.flash_attention_torch, ("out",),
              flash_tols, flash_cases, flash_bound,
@@ -1991,6 +2039,227 @@ def phase_cosim() -> int:
     return total
 
 
+# phase 13: gemma2-2b as published, 4 prompts over the 4,096-token window
+SERVE_PROMPTS = (4500, 4700, 4900, 5120)
+SERVE_NEW_TOKENS = 32
+SERVE_SEED = 13
+
+
+def serve_engine_run(cfg, params, prompts, max_len: int, new_tokens: int):
+    """The main path: ServeEngine.admit (prefill) and ServeEngine.step
+    until every request is done (decode ticks), with the launch counts set
+    to 0 just before; (each request's tokens, prefill wall, decode wall,
+    decode ticks, kernel launches, flash_attention's routes)."""
+    import torch
+
+    from repro_torch.serve import engine
+
+    reqs = [engine.Request(i, p, new_tokens) for i, p in enumerate(prompts)]
+    eng = engine.ServeEngine(cfg, params, batch_size=len(prompts), max_len=max_len,
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        eng.admit(reqs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ticks = 1  # the tick that ends the run returns 0 active requests
+        while eng.step() > 0:
+            ticks += 1
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts, routes = read_counts(), read_tallies()["flash_attention"]
+    del eng
+    return [r.out_tokens for r in reqs], t1 - t0, t2 - t1, ticks, counts, routes
+
+
+def phase_serve_ref() -> dict:
+    """gemma2-2b at full width, cut to 4 layers and a 256-token window,
+    served in float32 (route simt) and bfloat16 (route wgmma), each held
+    against the JAX package's serving of the same case
+    (src/repro_torch/models/serve_reference.json): decode teacher-forced on
+    the JAX tokens, logits at the JAX top-8 ids and greedy token within
+    SERVE_TOL of the row's RMS; ServeEngine's own tokens equal the JAX ones
+    up to each request's first near-tie.  Returns each route's launches in
+    its ServeEngine run."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import weights
+    from repro_torch.serve import compare
+
+    ref = json.loads((SRC / "repro_torch" / "models" / "serve_reference.json").read_text())
+    case = ref["case"]
+    prompts = [np.asarray(p, np.int32) for p in ref["prompts"]]
+    base = registry.get_config(case["arch"]).replace(**case["replace"])
+    t0 = time.time()
+    tree = weights.numpy_params(base, case["weights_seed"])
+    draw_s = time.time() - t0
+    launches = {}
+    for dtype, route in (("float32", "simt"), ("bfloat16", "wgmma")):
+        cfg = base.replace(dtype=dtype)
+        params = weights.from_jax_params(tree, cfg, device=DEVICE)
+        steps = ref["runs"][dtype]
+        jax_tokens = torch.as_tensor([s["token"] for s in steps], device=DEVICE)
+        top = torch.as_tensor([s["top_values"] for s in steps], device=DEVICE)
+        top_ids = torch.as_tensor([s["top_ids"] for s in steps], device=DEVICE)
+        rms = torch.as_tensor([s["norm"] for s in steps], device=DEVICE) / cfg.vocab ** 0.5
+        _, got = compare.serve_steps(params, cfg, prompts, case["max_len"], len(steps),
+                                     forced=jax_tokens)
+        ids = torch.cat([top_ids, jax_tokens[..., None]], -1)
+        want = torch.cat([top, torch.as_tensor([s["chosen_logit"] for s in steps],
+                                               device=DEVICE)[..., None]], -1)
+        err = float(((torch.gather(got, -1, ids) - want).abs() / rms[..., None]).max())
+        tol = compare.SERVE_TOL[dtype]
+        margin = torch.as_tensor([s["margin"] for s in steps], device=DEVICE)
+        upto = compare.tokens_before_near_tie(margin, rms, tol)
+        tokens, prefill_s, decode_s, ticks, counts, routes = serve_engine_run(
+            cfg, params, prompts, case["max_len"], case["max_new_tokens"])
+        jax_rows = jax_tokens.t().tolist()
+        same = [t[:n] == j[:n] for t, j, n in zip(tokens, jax_rows, upto)]
+        emit({"phase": "serve_ref", "dtype": dtype, "route": route, "arch": case["arch"],
+              "cut": case["replace"], "prompts": [len(p) for p in prompts],
+              "max_len": case["max_len"], "new_tokens": case["max_new_tokens"],
+              "teacher_forced_max_err_over_rms": err, "tolerance": tol,
+              "tokens_compared": upto, "tokens_equal": same,
+              "tokens_equal_all_steps": [t == j for t, j in zip(tokens, jax_rows)],
+              "prefill_s": prefill_s, "decode_s": decode_s, "ticks": ticks,
+              "kernel_launches": counts, "flash_routes": routes, "numpy_draw_s": draw_s})
+        check(err <= tol, f"serve_ref {dtype}: teacher-forced logits {err} of the row's RMS "
+                          f"off the JAX package's (tolerance {tol})")
+        check(all(same), f"serve_ref {dtype}: ServeEngine's tokens differ from the JAX "
+                         f"package's before a near-tie ({tokens} against {jax_rows})")
+        check(routes == {route: cfg.n_layers} and counts["flash_attention"] == cfg.n_layers,
+              f"serve_ref {dtype}: flash_attention ran as {routes}, not {cfg.n_layers} "
+              f"launches on {route}")
+        launches[route] = routes.get(route, 0)
+        del params, got
+        torch.cuda.empty_cache()
+    return launches
+
+
+def gemm_kernel(name: str) -> bool:
+    """cuBLAS's and CUTLASS's matrix-product kernels, by name."""
+    n = name.lower()
+    return any(k in n for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet"))
+
+
+def profile_serve(run, label: str) -> dict:
+    """``run()`` (which returns its count of calls) under torch.profiler:
+    the wall, the device's busy and idle share, the kernels launched a
+    call, the flash kernel's and the GEMMs' device ms, the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel: dict = {}
+    launched = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+            launched += 1
+    busy = sum(by_kernel.values()) / 1e3
+    check(busy > 0, f"serve profile {label}: the profiler saw no device work")
+    flash = sum(v for k, v in by_kernel.items() if "flash" in k) / 1e3
+    gemm = sum(v for k, v in by_kernel.items() if gemm_kernel(k)) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"what": label, "calls": n, "device_kernels_per_call": launched / n,
+            "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3), "flash_device_ms": flash,
+            "gemm_device_ms": gemm, "other_device_ms": busy - flash - gemm,
+            "top_device_ms": {k: v / 1e3 for k, v in top}}
+
+
+def phase_serve() -> int:
+    """The slice's main path: gemma2-2b as published (26 layers, window
+    4,096, bf16, weights from model.init_params on the card) serving 4
+    prompts of 4,500-5,120 tokens, 32 new tokens each, through ServeEngine:
+    26 launches of the wgmma flash kernel a prefill and none on simt; held
+    against the same weights served with the plain attention (teacher-
+    forced logits, tokens up to the first near-tie); run twice, bit for
+    bit; its walls, peak memory and a profile of one prefill and 8 decode
+    ticks.  Returns the kernel's launches in the main-path run."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.serve import compare, engine
+
+    cfg = registry.get_config("gemma2-2b")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in SERVE_PROMPTS]
+    max_len = max(SERVE_PROMPTS) + SERVE_NEW_TOKENS
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params = model.init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve_engine_run(cfg, params, prompts, max_len, SERVE_NEW_TOKENS)
+            for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    (tokens, prefill_s, decode_s, ticks, counts, routes), again = runs
+    n_attn = cfg.n_layers
+    # the same weights with the plain attention: the reference
+    ref_tokens, ref_logits = compare.serve_steps(params, cfg, prompts, max_len,
+                                                 SERVE_NEW_TOKENS, plain=True)
+    got = [compare.serve_steps(params, cfg, prompts, max_len, SERVE_NEW_TOKENS,
+                               forced=ref_tokens)[1] for _ in range(2)]
+    tol = compare.SERVE_TOL["bfloat16"]
+    err, rms = compare.logit_agreement(got[0], ref_logits, ref_tokens)
+    upto = compare.tokens_before_near_tie(compare.margins(ref_logits), rms, tol)
+    ref_rows = ref_tokens.t().tolist()
+    same = [t[:n] == r[:n] for t, r, n in zip(tokens, ref_rows, upto)]
+    bitwise = torch.equal(got[0], got[1]) and tokens == again[0]
+    del got, ref_logits
+    torch.cuda.empty_cache()
+    new = len(prompts) * ticks  # tokens decoded (the prefill gives each request its first)
+    emit({"phase": "serve", "nvidia_smi": card_name(), "arch": cfg.name,
+          "n_layers": cfg.n_layers,
+          "local_window": cfg.local_window, "dtype": cfg.dtype, "params": n_params,
+          "prompts": list(SERVE_PROMPTS), "padded_to": max(SERVE_PROMPTS), "max_len": max_len,
+          "new_tokens": SERVE_NEW_TOKENS, "init_params_s": init_s,
+          "prefill_s": [prefill_s, again[1]], "decode_s": [decode_s, again[2]],
+          "ticks": ticks, "decode_ms_per_tick": [d / ticks * 1e3 for d in (decode_s, again[2])],
+          "decode_tokens_per_s": [new / d for d in (decode_s, again[2])],
+          "prefill_tokens_per_s": [len(prompts) * max(SERVE_PROMPTS) / p
+                                   for p in (prefill_s, again[1])],
+          "peak_memory_gb": peak / 1e9, "kernel_launches": counts, "flash_routes": routes,
+          "vs_plain_attention_max_err_over_rms": err, "tolerance": tol,
+          "tokens_compared": upto, "tokens_equal": same,
+          "tokens_equal_all_steps": [t == r for t, r in zip(tokens, ref_rows)],
+          "repeat_bitwise_equal": bitwise})
+    check(routes == {"wgmma": n_attn} and counts["flash_attention"] == n_attn,
+          f"serve: flash_attention ran as {routes}, not {n_attn} launches on wgmma")
+    check(err <= tol, f"serve: the kernel path's teacher-forced logits are {err} of the "
+                      f"row's RMS off the plain attention's (tolerance {tol})")
+    check(all(same), f"serve: the kernel path's tokens differ from the plain attention's "
+                     f"before a near-tie")
+    check(bitwise, "serve: two runs of the kernel path differ")
+    # where the time goes: one prefill, then 8 decode ticks
+    eng = engine.ServeEngine(cfg, params, batch_size=len(prompts), max_len=max_len,
+                             device=DEVICE)
+    reqs = [engine.Request(i, p, SERVE_NEW_TOKENS) for i, p in enumerate(prompts)]
+    with torch.inference_mode():
+        pre = profile_serve(lambda: eng.admit(reqs) or 1, "prefill")
+        dec = profile_serve(lambda: sum(1 for _ in range(8) if eng.step() >= 0), "decode")
+    del eng
+    dec["host_ms_per_tick"] = dec["wall_ms"] / dec["calls"]
+    for row in (pre, dec):
+        emit({"phase": "serve", "profile": row})
+    del params
+    torch.cuda.empty_cache()
+    return routes.get("wgmma", 0)
+
+
 def cluster_sweep() -> None:
     """Each cluster kernel (tiered, flat, linkload) at each of its phase 2
     shapes on clusters of 1 to 16 CTAs through its C entry, held against
@@ -2029,6 +2298,77 @@ def cluster_sweep() -> None:
             torch.cuda.empty_cache()
 
 
+# faults planted in a copy of csrc/flash_attention_sm90.cu by
+# --planted-faults: (pattern, replacement), each matching once
+PLANTED = {
+    "softcap_dropped": (r"const bool capped = softcap > 0\.0f;", "const bool capped = false;"),
+    "window_dropped": (r"\n(\s*)window, softcap, sm_scale\);", r"\n\g<1>0, softcap, sm_scale);"),
+}
+PLANTED_ROWS = ("gemma2-2b-serve", "gemma2-2b-serve-global")
+
+
+def planted_checks() -> None:
+    """In a copy with a planted fault: phase 2's bf16 serving rows, phase
+    12 and phase 13, each printed with whether it failed."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa, ops
+
+    for case in flash_cases():
+        if case.name in PLANTED_ROWS:
+            err = row_rel_err(ops.flash_attention(*case.args, **case.kw),
+                              fa.flash_attention_torch(*case.args, **case.kw))
+            limit = FLASH_ROW_REL[case.info["dtype"]]
+            emit({"planted_check": f"phase 2 {case.name}", "row_rel_err": err,
+                  "limit": limit, "failed": err > limit})
+    torch.cuda.empty_cache()
+    for name, phase in (("phase 12", phase_serve_ref), ("phase 13", phase_serve)):
+        try:
+            phase()
+            emit({"planted_check": name, "failed": False})
+        except SmokeFailure as e:
+            emit({"planted_check": name, "failed": True, "failure": str(e)})
+        torch.cuda.empty_cache()
+
+
+def planted_faults(dest: pathlib.Path) -> bool:
+    """Each fault of PLANTED in its own copy of the checkout under
+    ``dest``, checked by planted_checks in a process of its own; True
+    where every fault failed at least one check."""
+    import re
+    import shutil
+
+    dest = dest.resolve()
+    check(ROOT not in (dest, *dest.parents), f"--planted-faults: {dest} lies in the checkout")
+    kernel = pathlib.Path("src/repro_torch/csrc/flash_attention_sm90.cu")
+    caught_all = True
+    for fault, (pattern, replacement) in PLANTED.items():
+        copy = dest / fault
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
+            ".git", "_build", "_local", "chiprun_out", "__pycache__"))
+        src, n = re.subn(pattern, replacement, (copy / kernel).read_text())
+        check(n == 1, f"--planted-faults: {fault} matched {n} times")
+        (copy / kernel).write_text(src)
+        out = subprocess.run([sys.executable, "chip_smoke.py", "--planted-child"], cwd=copy,
+                             capture_output=True, text=True)
+        rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+        for r in rows:  # the checks, and what phases 12 and 13 read against their limits
+            if "planted_check" in r:
+                emit({"planted": fault, **r})
+            elif r.get("phase") in ("serve_ref", "serve") and "tolerance" in r:
+                emit({"planted": fault, "phase": r["phase"], "dtype": r["dtype"],
+                      "err_over_rms": r.get("teacher_forced_max_err_over_rms",
+                                            r.get("vs_plain_attention_max_err_over_rms")),
+                      "tolerance": r["tolerance"]})
+        failed = [r["planted_check"] for r in rows if r.get("failed")]
+        emit({"planted": fault, "rc": out.returncode, "caught_by": failed})
+        caught_all &= out.returncode == 0 and bool(failed)
+        if out.returncode:
+            print(out.stderr[-2000:], file=sys.stderr)
+    return caught_all
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -2040,6 +2380,16 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:] == ["--planted-child"]:
+        planted_checks()
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--planted-faults":
+        try:
+            phase_device()
+            return 0 if planted_faults(pathlib.Path(sys.argv[2])) else 1
+        except SmokeFailure as e:
+            print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
+            return 1
     if sys.argv[1:] == ["--cluster-sweep"]:
         try:
             phase_device()
@@ -2062,6 +2412,8 @@ def main() -> int:
         flowcell_launches = phase_flowcell(fig12_finish)
         record_launches = phase_record()
         cosim_launches = phase_cosim()
+        serve_ref_launches = phase_serve_ref()
+        serve_launches = phase_serve()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2081,11 +2433,17 @@ def main() -> int:
                         + fault_launches + flowcell_launches + record_launches
                         + cosim_launches)
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
+        elif name == "flash_attention":  # the serving path: phases 12 and 13
+            route = row["route"]
+            by_path.update({row["path"]: row["path_launches"],
+                            "serve_ref": serve_ref_launches.get(route, 0),
+                            "serve": serve_launches if route == "wgmma" else 0})
+            launches = by_path["serve_ref"] + by_path["serve"]
+            extra = {"flash_route": route}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]
             launches = row["path_launches"]
-            extra = ({"flash_route": row["route"]} if name == "flash_attention"
-                     else {"clusters": row["path_tally"]})
+            extra = {"clusters": row["path_tally"]}
         err = row["max_abs_err"]
         kernels.append({
             "name": row["jax_name"], "route": "cuda",

@@ -24,13 +24,15 @@
 // cluster_size(n, hops, L): 16 at n = 21,504, hops = 4, L = 448).  CTA r
 // takes rows [r n / C, (r + 1) n / C) and scatters each of their hops into
 // its own shared-memory partial link load with shared atomics (a bounds
-// check drops ids outside [0, L)).  After a cluster barrier CTA r sums the
-// C partials, in rank order, through distributed shared memory for the
-// links l = r (mod C), and writes their load, queue and mark.  A second
-// cluster barrier keeps every CTA, and so its partial, alive until all
-// have read it.  Float atomics within a CTA make the summation order vary
-// from run to run.  A cluster that does not schedule is a launch error:
-// nothing falls back to fewer CTAs.
+// check drops ids outside [0, L)).  The partials are fixed-point integers
+// (cascade_common.cuh's fixed_t, 1/64 bps a unit), as in the cascades, so
+// that the sum does not depend on the order of the atomics: two launches
+// on the same inputs give bitwise-equal outputs.  After a cluster barrier
+// CTA r sums the C partials through distributed shared memory for the
+// links l = r (mod C), converts each sum to float once, and writes their
+// load, queue and mark.  A second cluster barrier keeps every CTA, and so
+// its partial, alive until all have read it.  A cluster that does not
+// schedule is a launch error: nothing falls back to fewer CTAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +55,7 @@ __global__ void __launch_bounds__(kThreads) linkload_kernel(
     float* __restrict__ new_queue,     // [L]
     float* __restrict__ mark,          // [L]
     int n, int hops, int L, int C, float kmin, float kmax, float pmax, float dt) {
-  extern __shared__ float partial[];  // [L] this CTA's share of the link load
+  extern __shared__ cascade::fixed_t partial[];  // [L] this CTA's share of the link load
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   int lo, hi;  // this CTA's rows
@@ -62,12 +64,13 @@ __global__ void __launch_bounds__(kThreads) linkload_kernel(
   __syncthreads();
   for (int k = lo * hops + threadIdx.x; k < hi * hops; k += blockDim.x) {
     int id = lid[k];
-    if (id >= 0 && id < L) atomicAdd(&partial[id], rates[k / hops]);
+    if (id >= 0 && id < L) atomicAdd(&partial[id], cascade::to_fixed(rates[k / hops]));
   }
   cluster.sync();  // every partial complete
   for (int l = rank + C * threadIdx.x; l < L; l += C * blockDim.x) {
-    float a = 0.0f;
-    for (int r = 0; r < C; ++r) a += cluster.map_shared_rank(partial, r)[l];
+    cascade::fixed_t sum = 0ull;
+    for (int r = 0; r < C; ++r) sum += cluster.map_shared_rank(partial, r)[l];
+    float a = __ll2float_rn((long long)sum) * cascade::kBpsPerUnit;
     float q = fminf(fmaxf(queue[l] + (a - cap[l]) * dt / 8.0f, 0.0f), kQmax);
     load_out[l] = a;
     new_queue[l] = q;
@@ -76,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) linkload_kernel(
   cluster.sync();  // every partial read before any CTA retires
 }
 
-size_t smem_bytes(int L) { return (size_t)L * sizeof(float); }
+size_t smem_bytes(int L) { return (size_t)L * sizeof(cascade::fixed_t); }
 
 }  // namespace
 

@@ -20,7 +20,7 @@ from repro_torch.kernels import build
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 MAX_CLUSTER = 16  # a non-portable cluster size, which the H100 admits (PERF.md)
 
-# The cascade kernels sum link loads in int64 fixed point (csrc/
+# The link-load kernels sum link loads in int64 fixed point (csrc/
 # cascade_common.cuh): FIXED_UNITS_PER_BPS units a bit/s, so that a sum
 # does not depend on the order of its additions.  A sub-flow's rate is at
 # most RATE_BOUND_BPS (DCQCN clamps rates to the line rate, and no link of
@@ -31,6 +31,8 @@ RATE_BOUND_BPS = 400e9
 # Per link slot in the cascades' shared memory: the int64 partial load,
 # the float scale and the float running arrival.
 CASCADE_SMEM_PER_LINK = 8 + 4 + 4
+# Per link slot in linkload's shared memory: the int64 partial load.
+LINKLOAD_SMEM_PER_LINK = 8
 
 
 def cluster_size(rows: int, per_row: int, n_links: int) -> int:

@@ -20,10 +20,9 @@ scales by exactly 1.
   capacity, queue_mask  f32[L + 1]
   -> arrival, new_queue, p_mark  f32[B, L + 1],  thr  f32[B, n]
 
-The flat cascade sums link loads in int64 fixed point, as the tiered one
+Both kernels sum link loads in int64 fixed point, as the tiered cascade
 does (``cascade_common.FIXED_UNITS_PER_BPS``), so a launch repeats bit for
-bit.  ``linkload`` still adds float atomics, whose order varies from run
-to run (no engine calls it).
+bit.  Their plain versions keep the float ``index_add_``.
 
 ``linkload`` keeps the JAX entry point's unbatched layout, with no
 sentinel slot: ids outside [0, L) are dropped.
@@ -39,8 +38,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.cascade_common import (
-    CASCADE_SMEM_PER_LINK, check_cluster, check_fixed_point, check_smem, cluster_size,
-    device_index, gather, red_mark, scale, segment_sum,
+    CASCADE_SMEM_PER_LINK, LINKLOAD_SMEM_PER_LINK, check_cluster, check_fixed_point,
+    check_smem, cluster_size, device_index, gather, red_mark, scale, segment_sum,
 )
 
 QMAX_BYTES = 8e6  # linkload's fixed queue cap (the JAX kernel's)
@@ -152,7 +151,9 @@ def linkload(lid, rates, queue, capacity, *, kmin: float, kmax: float, pmax: flo
             ("queue", queue, torch.float32, (L,)),
             ("capacity", capacity, torch.float32, (L,))):
         build.check(name, t, dtype, shape, dev)
-    check_smem("linkload", 4, L)
+    check_smem("linkload", LINKLOAD_SMEM_PER_LINK, L)
+    # a link's load is at most the sum over every (row, hop) of the row's rate
+    check_fixed_point("linkload", n * hops)
     C = cluster_size(n, hops, L)
     check_cluster("linkload", device_index(dev), C, L)
     load = torch.empty((L,), dtype=torch.float32, device=dev)

@@ -43,7 +43,15 @@ def linkload(link_ids, rates, queue, capacity, *, n_links: int, kmin: float = 40
              kmax: float = 1600e3, pmax: float = 0.2, dt: float = 10e-6, device=None):
     """(load, new_queue, mark) f32[n_links] of link_ids i32[n, hops] (-1 and
     ids >= n_links dropped), rates f32[n], queue f32[n_links] and capacity
-    f32[>= n_links]."""
+    f32[>= n_links].
+
+    On the card the link loads are summed in int64 fixed point
+    (``cascade_common.FIXED_UNITS_PER_BPS``), so that every run gives the
+    same bits.  That holds rates within ``cascade_common.RATE_BOUND_BPS``
+    (400 Gb/s; DCQCN clamps the engine's to the line rate) and refuses
+    ``n * hops`` above 360,287: a rate past the bound can wrap a link's
+    sum, and nothing checks it, since that would read the rates back to
+    the host."""
     lid, rates, queue, capacity = _placed(
         (link_ids, rates, queue, capacity),
         (torch.int32, torch.float32, torch.float32, torch.float32), device)

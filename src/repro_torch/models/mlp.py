@@ -1,0 +1,34 @@
+"""Dense MLP channel mixers: gated (SiLU/GELU) and squared-ReLU variants."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import common
+
+
+class MLPParams(common.ParamModule):
+    """ln [D]; wi [D, F] (up / sole projection); wg [D, F] (gate; [D, 0]
+    when ungated); wo [F, D]."""
+
+    FIELDS = ("ln", "wi", "wg", "wo")
+    NORMS = ("ln",)
+
+
+def shapes(cfg, d_ff: int | None = None) -> dict:
+    """field -> (shape, fan_in); fan_in None for a norm."""
+    D = cfg.d_model
+    F = cfg.d_ff if d_ff is None else d_ff
+    gated = cfg.mlp_kind.startswith("gated")
+    return {"ln": ((D,), None), "wi": ((D, F), D), "wg": ((D, F if gated else 0), D),
+            "wo": ((F, D), F)}
+
+
+def apply(p: MLPParams, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = common.rms_norm(x, p.ln)
+    act = common.act_fn(cfg.mlp_kind)
+    up = h @ p.wi
+    if p.wg.shape[-1]:
+        up = act(h @ p.wg) * up
+    else:
+        up = act(up)
+    return x + up @ p.wo

@@ -1,0 +1,180 @@
+"""Public model API: init / loss / prefill / decode, mirroring
+``repro.models.model`` for the ported families (dense, vlm, audio).
+
+Params are a ``Params`` module (``nn.Module``) whose attributes carry the
+JAX package's keys; the config is static.  The per-arch structure lives in
+``transformer.block_program``.  The matrices are held in the compute dtype
+``cfg.dtype`` (the JAX package keeps float32 masters and casts at each
+use, which gives the same values) and the norm scales in float32.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common, transformer
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class Params(nn.Module):
+    """embed [V, D], final_norm [D]; prelude, trailing: ModuleLists over
+    units; main (and encoder): ModuleLists over superblocks of ModuleLists
+    over units; enc_norm [D] with an encoder; lm_head [D, V] without tied
+    embeddings."""
+
+    def __init__(self, cfg: ModelConfig, embed, final_norm, prelude, main, trailing,
+                 encoder=None, enc_norm=None, lm_head=None):
+        super().__init__()
+
+        def frozen(t, dtype):
+            return nn.Parameter(t.to(dtype), requires_grad=False)
+
+        dt = _dtype(cfg)
+        self.embed = frozen(embed, dt)
+        self.final_norm = frozen(final_norm, torch.float32)
+        self.prelude, self.main, self.trailing = prelude, main, trailing
+        self.encoder = encoder
+        self.enc_norm = None if enc_norm is None else frozen(enc_norm, torch.float32)
+        self.lm_head = None if lm_head is None else frozen(lm_head, dt)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Params:
+    """Random params drawn on ``device`` (``None`` means ``"cuda"``) from a
+    ``torch.Generator`` seeded with ``seed``: norm scales zero, matrices
+    ``common.dense_init``, as ``repro.models.model.init_params`` (another
+    random stream, so not its values; ``weights`` carries those across)."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = _dtype(cfg)
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+
+    def zeros():
+        return torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev)
+
+    def units(us):
+        return nn.ModuleList(transformer.unit_init(cfg, u, g, dt) for u in us)
+
+    kw = {}
+    if cfg.is_encoder_decoder:
+        eu, en = transformer.encoder_program(cfg)
+        kw["encoder"] = transformer.init_stack(cfg, eu, en, g, dt)
+        kw["enc_norm"] = zeros()
+    if not cfg.tie_embeddings:
+        kw["lm_head"] = common.dense_init((cfg.d_model, cfg.vocab), g, cfg.d_model, dt)
+    return Params(cfg, common.dense_init((cfg.vocab, cfg.d_model), g, cfg.d_model, dt),
+                  zeros(), units(prelude), transformer.init_stack(cfg, sb, n_super, g, dt),
+                  units(trailing), **kw)
+
+
+# ------------------------------------------------------------------ inputs
+def embed_tokens(params: Params, cfg, tokens):
+    dt = _dtype(cfg)
+    x = params.embed[tokens.long()].to(dt)
+    # the scale rounded to the compute dtype first, as the JAX package does
+    return x * torch.tensor(cfg.d_model**0.5, dtype=dt, device=x.device)
+
+
+def _encoder_forward(params: Params, cfg, frames, ctx):
+    """Whisper-style encoder over stub frame embeddings [B, F, D]."""
+    eu, en = transformer.encoder_program(cfg)
+    x = frames.to(_dtype(cfg))
+    x, _ = transformer.apply_stack(params.encoder, x, cfg, eu, en, "train", ctx=ctx)
+    return common.rms_norm(x, params.enc_norm)
+
+
+def _decoder_input(params: Params, cfg, batch):
+    """Token embeddings, with modality stubs spliced in, plus ctx."""
+    x = embed_tokens(params, cfg, batch["tokens"])
+    ctx = {}
+    if cfg.n_vision_tokens:  # VLM stub: patch embeddings replace the prefix
+        vis = batch["vision_embeds"].to(x.dtype)
+        nv = cfg.n_vision_tokens
+        x = torch.cat([vis[:, :nv], x[:, nv:]], dim=1)
+    if cfg.is_encoder_decoder:
+        ctx["enc_out"] = _encoder_forward(params, cfg, batch["frames"], ctx)
+    return x, ctx
+
+
+def _run_decoder(params: Params, cfg, x, mode, cache=None, ctx=None):
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+    c_pre = cache["prelude"] if cache is not None else None
+    c_main = cache["main"] if cache is not None else None
+    c_trail = cache["trailing"] if cache is not None else None
+    x, nc_pre = transformer.apply_units(params.prelude, x, cfg, prelude, mode, c_pre, ctx)
+    x, nc_main = transformer.apply_stack(params.main, x, cfg, sb, n_super, mode, c_main, ctx)
+    x, nc_trail = transformer.apply_units(params.trailing, x, cfg, trailing, mode, c_trail,
+                                          ctx)
+    return x, {"prelude": nc_pre, "main": nc_main, "trailing": nc_trail}
+
+
+def logits_fn(params: Params, cfg, x):
+    head = params.embed.t() if cfg.tie_embeddings else params.lm_head
+    return common.softcap(x @ head.to(x.dtype), cfg.logit_softcap)
+
+
+# ------------------------------------------------------------------ train
+def forward_train(params: Params, cfg, batch):
+    """(logits [B, S, V], aux): aux is 0, the ported units carry no
+    auxiliary loss.  Forward only: the port has no backward yet."""
+    x, ctx = _decoder_input(params, cfg, batch)
+    x, _ = _run_decoder(params, cfg, x, "train", ctx=ctx)
+    x = common.rms_norm(x, params.final_norm)
+    return logits_fn(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Params, cfg, batch):
+    logits, aux = forward_train(params, cfg, batch)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).to(torch.float32)
+    lab = torch.clamp(labels, min=0)
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    ntok = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / ntok + aux
+    return loss, {"nll": nll.sum() / ntok, "aux": aux, "ntok": ntok}
+
+
+# ------------------------------------------------------------------ serve
+def init_cache(params: Params, cfg, batch_size: int, max_len: int):
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+    dt, dev = _dtype(cfg), params.device
+    return {
+        "prelude": tuple(transformer.unit_cache_init(cfg, u, batch_size, max_len, dt, dev)
+                         for u in prelude),
+        "main": transformer.stack_cache_init(cfg, sb, n_super, batch_size, max_len, dt, dev),
+        "trailing": tuple(transformer.unit_cache_init(cfg, u, batch_size, max_len, dt, dev)
+                          for u in trailing),
+    }
+
+
+def prefill(params: Params, cfg, batch, max_len: int, *, plain_attention: bool = False):
+    """Process the prompt; returns (last-position logits [B, V], cache).
+    ``plain_attention`` runs the decoder's self-attention through the plain
+    version of the attention kernel on the card (a reference to hold the
+    kernel against)."""
+    x, ctx = _decoder_input(params, cfg, batch)
+    ctx["plain_attention"] = plain_attention
+    cache = init_cache(params, cfg, x.shape[0], max_len)
+    x, cache = _run_decoder(params, cfg, x, "prefill", cache=cache, ctx=ctx)
+    x = common.rms_norm(x[:, -1:], params.final_norm)
+    return logits_fn(params, cfg, x)[:, 0], cache
+
+
+def decode_step(params: Params, cfg, tokens, cache):
+    """One decode step.  tokens: [B, 1] -> (logits [B, V], new cache); the
+    attention caches are written in place."""
+    x = embed_tokens(params, cfg, tokens)
+    x, cache = _run_decoder(params, cfg, x, "decode", cache=cache, ctx={})
+    x = common.rms_norm(x, params.final_norm)
+    return logits_fn(params, cfg, x)[:, 0], cache

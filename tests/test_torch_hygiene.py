@@ -34,7 +34,8 @@ def test_no_jax_or_repro_import(path):
 def test_importing_the_sweep_leaves_jax_out():
     code = ("import sys; import repro_torch.netsim.sweep, repro_torch.netsim.carry, "
             "repro_torch.netsim.engine, repro_torch.kernels.ops, repro_torch.obs, "
-            "repro_torch.dist; "
+            "repro_torch.dist, repro_torch.configs.registry, repro_torch.models.model, "
+            "repro_torch.models.weights, repro_torch.serve.engine, repro_torch.serve.compare; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -79,6 +80,18 @@ def test_entry_points_default_to_cuda():
         cosim.run_cosim(topo, cosim.ring_hosts(topo, 4), 1e6, epochs=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         cosim.run_cosim_grid([dict(topo=topo, hosts=[0, 4], size_bytes=1e6, epochs=1)])
+    from repro_torch.configs import registry
+    from repro_torch.models import model, weights
+    from repro_torch.serve import engine as serve
+
+    mcfg = registry.get_config("gemma2-2b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(mcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        weights.from_jax_params(weights.numpy_params(mcfg, 0), mcfg)
+    params = model.init_params(mcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.ServeEngine(mcfg, params, batch_size=2, max_len=16)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -510,6 +510,14 @@ def test_cascade_kernels_repeat_bit_for_bit(cuda, B, W, N, hf, L):
     flat = [ll.linkload_cascade(lid.contiguous(), rates.reshape(B, -1).contiguous(), queue,
                                 cap, qmask, **KW) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*flat))
+    # linkload on the first simulation's routes, as many rows as its
+    # fixed-point bound takes (its sums in fixed point too)
+    rows = min(W * N, 2**16)
+    one = [ops.linkload(lid[0, :rows].contiguous(), rates[0].reshape(-1)[:rows].contiguous(),
+                        queue[0, :L].contiguous(), cap[:L].contiguous(), n_links=L,
+                        **{k: KW[k] for k in ("kmin", "kmax", "pmax", "dt")})
+           for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*one))
 
 
 @pytest.mark.gpu
@@ -525,6 +533,12 @@ def test_fixed_point_overflow_check_raises_past_its_bound(cuda):
     with pytest.raises(ValueError, match="overflow"):
         ll.linkload_cascade(lid, args[3].reshape(1, -1), args[4], args[5], args[6], **KW)
     assert (ct.cascade_tiered.launches, ll.linkload_cascade.launches) == before
+    before = ll.linkload.launches
+    with pytest.raises(ValueError, match="overflow"):
+        ll.linkload(torch.zeros((100000, 4), dtype=torch.int32, device=cuda),
+                    torch.ones(100000, device=cuda), torch.zeros(64, device=cuda),
+                    torch.ones(64, device=cuda), kmin=400e3, kmax=1600e3, pmax=0.2, dt=1e-5)
+    assert ll.linkload.launches == before
     marked = torch.ones(1000, device=cuda)
     cell = torch.zeros(1000, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="overflow"):
@@ -572,3 +586,49 @@ def test_cosim_on_the_card_matches_the_cpu(cuda):
         assert abs(g.fct_p99_s - c.fct_p99_s) <= 10e-6 + 1e-9
         np.testing.assert_array_equal(g.fct, a.fct)
     assert card.convergence_epoch(1) == cpu.convergence_epoch(1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,route", [("float32", "simt"), ("bfloat16", "wgmma")])
+def test_reduced_gemma2_served_on_the_card(cuda, dtype, route):
+    """gemma2-2b's program (local/global alternation, window, both
+    softcaps) at hd 64, 4 layers, ragged prompts past the window (the local
+    caches take the ring roll): ServeEngine on the card runs every
+    attention layer's prefill through the kernel of ``route``; with the
+    plain attention on the same weights the teacher-forced logits agree
+    within SERVE_TOL of the row's RMS and the greedy tokens are equal up to
+    the first near-tie (repro_torch.serve.compare); a second run repeats bit
+    for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.serve import compare, engine
+
+    cfg = registry.get_config("gemma2-2b", reduced=True).replace(
+        n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, vocab=1000,
+        local_window=32, dtype=dtype)
+    params = model.init_params(cfg, seed=3, device=cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (70, 90, 81)]
+    max_len, steps = 110, 12
+    runs = []
+    for _ in range(2):
+        before = dict(fa.flash_attention.route_launches)
+        eng = engine.ServeEngine(cfg, params, batch_size=3, max_len=max_len, device=cuda)
+        eng.admit([engine.Request(i, p, steps) for i, p in enumerate(prompts)])
+        runs.append([r.out_tokens for r in eng.run()])
+        assert _route_delta(before) == {route: cfg.n_layers}
+    assert runs[0] == runs[1]
+    before = dict(fa.flash_attention.route_launches)
+    ref_tokens, ref_logits = compare.serve_steps(params, cfg, prompts, max_len, steps,
+                                                 plain=True)
+    assert _route_delta(before) == {}
+    _, got = compare.serve_steps(params, cfg, prompts, max_len, steps, forced=ref_tokens)
+    _, again = compare.serve_steps(params, cfg, prompts, max_len, steps, forced=ref_tokens)
+    assert torch.equal(got, again)
+    tol = compare.SERVE_TOL[dtype]
+    err, rms = compare.logit_agreement(got, ref_logits, ref_tokens, top=None)
+    assert err <= tol
+    upto = compare.tokens_before_near_tie(compare.margins(ref_logits), rms, tol)
+    for i, (toks, n) in enumerate(zip(runs[0], upto)):
+        assert toks[:n] == ref_tokens[:n, i].tolist()
+
