@@ -127,11 +127,44 @@ Phases, each printed as JSON lines:
               launches a prefill and none on simt, held against the same
               weights served with the plain attention, run twice (bit for
               bit); prefill and decode walls, tokens/s, peak memory, and
-              one prefill and 8 decode ticks under torch.profiler.
+              one prefill and 8 decode ticks under torch.profiler;
+ 14. serve_families_ref
+              phase 12's case for the moe, hybrid and ssm families at full
+              width, cut in depth: deepseek-moe-16b and
+              granite-moe-3b-a800m (2 layers), recurrentgemma-9b (one
+              R, R, A superblock, window 256) and xlstm-1.3b (one 7:1
+              superblock), prompts of 384 and 600 (xlstm 512) tokens,
+              float32 and bfloat16, against the JAX package's runs
+              (src/repro_torch/models/families_reference.json) by phase
+              12's rules, a bfloat16 run against the JAX package's
+              float32 run fed its tokens (the JAX package's own bfloat16
+              runs lie up to 0.20 of the RMS from it); xlstm-1.3b's
+              whole bfloat16 runs are noise (the JAX package's lies 1.8
+              of the RMS from its float32 run) and are printed, not held:
+              its first mLSTM and its sLSTM are held instead, fed one
+              input on both sides, within compare.UNIT_TOL of the JAX
+              package's float32 unit (in float32 and bfloat16); the MoE
+              prefill's dropped replicas per layer equal to the JAX
+              package's in float32 (and more than 0), and its tokens
+              routed otherwise counted beside the JAX near-ties;
+ 15. serve_families
+              the slice's main path: deepseek-moe-16b (28 wgmma flash
+              launches a prefill), recurrentgemma-9b (12) and xlstm-1.3b
+              (none) as published, bfloat16, 4 prompts each, 32 new
+              tokens, one after another through ServeEngine, each as
+              phase 13 runs gemma2-2b (for deepseek the plain reference
+              is run again, fed the same tokens and routed to the kernel
+              run's experts, and held at SERVE_TOL: a bf16 near-tie sends
+              a token to other experts on one side only), with the MoE
+              replicas dropped and the tokens routed otherwise than with
+              the plain attention in each prefill layer, and the
+              profile's device ms inside the model's ranges (MoE
+              dispatch, experts and combine, the recurrent scans).
 
-Then a "kernels" line and, last, {"ok": true, "device": {...}}.  Any
-failure exits non-zero before that line; so does a machine without CUDA
-or a directory without the repository.
+Each phase's wall is printed after it.  Then a "kernels" line and, last,
+{"ok": true, "device": {...}}.  Any failure exits non-zero before that
+line; so does a machine without CUDA or a directory without the
+repository.
 
 With --cluster-sweep it runs only the measurement behind
 kernels/cascade_common.py::cluster_size instead: the three cluster
@@ -532,7 +565,7 @@ def linkload_cases():
     return cases
 
 
-# full widths of two of the repo's configurations (src/repro/configs/), the
+# full widths of the repo's configurations (src/repro/configs/), the
 # factor q is scaled by (see flash_cases) and the route that must serve each;
 # the serving phases' shapes: phase 13's prefill (gemma2-2b, 4 prompts
 # padded to 5,120) for a local layer and for a global one (softcap, no
@@ -550,6 +583,16 @@ FLASH_CASES = [
     ("float32", 1, 2048, 16, 4, 128, "float32", dict(causal=True), 1.0, "simt"),
     ("gemma2-2b-serve-ref", 2, 600, 8, 4, 256, "float32",
      dict(causal=True, window=256, softcap=50.0), 3.0, "simt"),
+    # phase 15's prefills: deepseek-moe-16b's (MHA, a group of 1) and
+    # recurrentgemma-9b's local layers (MQA, a group of 16, window 2,048);
+    # phase 14's bfloat16 granite-moe-3b-a800m (hd 64 at B > 1, a group
+    # of 3)
+    ("deepseek-moe-16b-serve", 4, 4096, 16, 16, 128, "bfloat16", dict(causal=True), 10.0,
+     "wgmma"),
+    ("recurrentgemma-9b-serve", 4, 3072, 16, 1, 256, "bfloat16",
+     dict(causal=True, window=2048), 10.0, "wgmma"),
+    ("granite-moe-3b-a800m-ref", 2, 600, 24, 8, 64, "bfloat16", dict(causal=True), 10.0,
+     "wgmma"),
 ]
 FLASH_MAIN = ("gemma2-2b-serve", "gemma2-2b-serve-ref")
 FLASH_LIBRARY = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
@@ -2043,6 +2086,14 @@ def phase_cosim() -> int:
 SERVE_PROMPTS = (4500, 4700, 4900, 5120)
 SERVE_NEW_TOKENS = 32
 SERVE_SEED = 13
+# phase 15: the moe, hybrid and ssm families as published, 4 prompts each:
+# deepseek's over 3,584-4,096 tokens, recurrentgemma's all past its
+# 2,048-token window, xlstm's over 768-1,024 (a multiple of the mLSTM's
+# 256-token chunk once padded)
+FAMILIES_SERVE = (("deepseek-moe-16b", (3584, 3755, 3925, 4096)),
+                  ("recurrentgemma-9b", (2560, 2731, 2901, 3072)),
+                  ("xlstm-1.3b", (768, 853, 939, 1024)))
+FAMILIES_REFERENCE = SRC / "repro_torch" / "models" / "families_reference.json"
 
 
 def serve_engine_run(cfg, params, prompts, max_len: int, new_tokens: int):
@@ -2074,81 +2125,226 @@ def serve_engine_run(cfg, params, prompts, max_len: int, new_tokens: int):
     return [r.out_tokens for r in reqs], t1 - t0, t2 - t1, ticks, counts, routes
 
 
+def attention_layers(cfg) -> int:
+    """The self-attention layers of a prefill: one flash launch each."""
+    from repro_torch.models import transformer
+
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+    return (sum(u.kind == "attn" for u in prelude + trailing)
+            + n_super * sum(u.kind == "attn" for u in sb))
+
+
+def flash_routes_of(cfg) -> dict:
+    """The flash launches by route that one prefill of ``cfg`` must make."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    n = attention_layers(cfg)
+    return {fa.flash_route(getattr(torch, cfg.dtype), cfg.hd): n} if n else {}
+
+
+def against_reference(phase: str, cfg, params, case: dict, prompts, steps: list,
+                      float32_run: dict | None = None, whole: bool = True):
+    """``params`` (``case``'s numpy draw) served on the card against
+    the JAX package's run ``steps`` of the same case: decode teacher-forced
+    on its tokens, the logits at its top ids and greedy token within
+    SERVE_TOL of the row's RMS (given ``float32_run``, the JAX package's
+    float32 run fed a bfloat16 run's tokens, against that instead);
+    ServeEngine's own tokens equal to its up to each request's first
+    near-tie; one prefill's flash launches by route.  Without ``whole``
+    the logits and tokens are printed and not held.  Returns the row to
+    print, the teacher-forced prefill's moe dispatches, and (ok, what) for
+    each check."""
+    import torch
+
+    from repro_torch.serve import compare
+
+    jax_tokens = torch.as_tensor([s["token"] for s in steps], device=DEVICE)
+    top_ids = torch.as_tensor([s["top_ids"] for s in steps], device=DEVICE)
+    rms = torch.as_tensor([s["norm"] for s in steps], device=DEVICE) / cfg.vocab ** 0.5
+    routes = []
+    _, got = compare.serve_steps(params, cfg, prompts, case["max_len"], len(steps),
+                                 forced=jax_tokens, routes=routes)
+    got = torch.gather(got, -1, torch.cat([top_ids, jax_tokens[..., None]], -1))
+
+    def err_against(ref: dict) -> float:
+        want = torch.cat([torch.as_tensor(ref["top_values"], device=DEVICE),
+                          torch.as_tensor(ref["chosen_logit"], device=DEVICE)[..., None]], -1)
+        return float(((got - want).abs() / rms[..., None]).max())
+
+    err = err_against({"top_values": [s["top_values"] for s in steps],
+                       "chosen_logit": [s["chosen_logit"] for s in steps]})
+    tol = compare.SERVE_TOL[cfg.dtype]
+    held, extra = err, {}
+    if float32_run is not None:
+        held = err_against(float32_run)
+        extra = {"vs_jax_float32_max_err_over_rms": held,
+                 "jax_bfloat16_vs_float32_max_err_over_rms":
+                     float32_run["bfloat16_max_err_over_rms"]}
+    margin = torch.as_tensor([s["margin"] for s in steps], device=DEVICE)
+    upto = compare.tokens_before_near_tie(margin, rms, tol)
+    tokens, prefill_s, decode_s, ticks, counts, routes_run = serve_engine_run(
+        cfg, params, prompts, case["max_len"], case["max_new_tokens"])
+    jax_rows = jax_tokens.t().tolist()
+    same = [t[:n] == j[:n] for t, j, n in zip(tokens, jax_rows, upto)]
+    row = {"phase": phase, "dtype": cfg.dtype, "arch": case["arch"],
+           "cut": case["replace"], "prompts": [len(p) for p in prompts],
+           "max_len": case["max_len"], "new_tokens": case["max_new_tokens"],
+           "teacher_forced_max_err_over_rms": err, **extra, "tolerance": tol,
+           "end_to_end_held": whole, "tokens_compared": upto, "tokens_equal": same,
+           "tokens_equal_all_steps": [t == j for t, j in zip(tokens, jax_rows)],
+           "prefill_s": prefill_s, "decode_s": decode_s, "ticks": ticks,
+           "kernel_launches": counts, "flash_routes": routes_run}
+    checks = [(routes_run == flash_routes_of(cfg)
+               and counts["flash_attention"] == sum(routes_run.values()),
+               f"{phase} {case['arch']} {cfg.dtype}: flash_attention ran as {routes_run}, not "
+               f"{flash_routes_of(cfg)}")]
+    if whole:
+        checks += [(held <= tol, f"{phase} {case['arch']} {cfg.dtype}: teacher-forced logits "
+                                 f"{held} of the row's RMS off the JAX package's "
+                                 f"{'float32 ' if float32_run else ''}run (tolerance {tol})"),
+                   (all(same), f"{phase} {case['arch']} {cfg.dtype}: ServeEngine's tokens "
+                               f"differ from the JAX package's before a near-tie ({tokens} "
+                               f"against {jax_rows})")]
+    return row, routes[0], checks
+
+
+def unit_checks(phase: str, entry: dict, tree: dict, cfg) -> tuple[list, list]:
+    """The units of ``entry["units"]`` (families_reference.json) on the card
+    in ``cfg.dtype``, fed the JAX package's input (compare.unit_inputs),
+    against its float32 outputs at the sampled rows and columns within
+    compare.UNIT_TOL; (rows to print, (ok, what) for each)."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serve import compare
+
+    u, ref = entry["case"]["units"], entry["units"]
+    _, sb, _, _ = transformer.block_program(cfg)
+    x, xd = compare.unit_inputs(u["input_seed"], u["batch"], u["seq"], u["decode_steps"],
+                                cfg.d_model)
+    rows = torch.as_tensor(ref["rows"], device=DEVICE)
+    cols = torch.as_tensor(ref["cols"], device=DEVICE)
+    lim = compare.UNIT_TOL[cfg.dtype]
+    out, checks = [], []
+    for rec in ref["layers"]:
+        unit = sb[rec["layer"]]
+        p = transformer.unit_params(cfg, unit, {k: v[0] for k, v in
+                                                tree["main"][rec["layer"]].items()},
+                                    getattr(torch, cfg.dtype), device=DEVICE)
+        got = compare.unit_outputs(unit.kind, p, cfg, x, xd)[rows][:, cols].cpu().numpy()
+        errs = compare.unit_errors(got, rec["float32"], rec["rms"])
+        out.append({"unit": unit.kind, "layer": rec["layer"], **errs, "limit": lim,
+                    "jax_bfloat16": rec["jax_bfloat16"],
+                    "planted_fault_on_the_cpu": rec["planted_cpu"][cfg.dtype]})
+        checks.append((errs["max"] <= lim["max"] and errs["mean"] <= lim["mean"],
+                       f"{phase} {entry['case']['arch']} {cfg.dtype}: the {unit.kind} unit "
+                       f"(layer {rec['layer']}) is {errs} of a row's RMS off the JAX "
+                       f"package's float32 unit (limit {lim})"))
+        del p
+    return out, checks
+
+
 def phase_serve_ref() -> dict:
     """gemma2-2b at full width, cut to 4 layers and a 256-token window,
     served in float32 (route simt) and bfloat16 (route wgmma), each held
     against the JAX package's serving of the same case
-    (src/repro_torch/models/serve_reference.json): decode teacher-forced on
-    the JAX tokens, logits at the JAX top-8 ids and greedy token within
-    SERVE_TOL of the row's RMS; ServeEngine's own tokens equal the JAX ones
-    up to each request's first near-tie.  Returns each route's launches in
-    its ServeEngine run."""
+    (src/repro_torch/models/serve_reference.json) by ``against_reference``.
+    Returns each route's launches in its ServeEngine run."""
+    ref = json.loads((SRC / "repro_torch" / "models" / "serve_reference.json").read_text())
+    return serve_reference_cases("serve_ref", [ref])
+
+
+def serve_reference_cases(phase: str, entries: list) -> dict:
+    """Each reference entry (case, prompts, the JAX runs by dtype, for
+    MoE its prefill routing, for bfloat16 its float32 run, for xlstm its
+    units) served in float32 and bfloat16 from one numpy draw; returns the
+    flash launches by route."""
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.models import weights
-    from repro_torch.serve import compare
 
-    ref = json.loads((SRC / "repro_torch" / "models" / "serve_reference.json").read_text())
-    case = ref["case"]
-    prompts = [np.asarray(p, np.int32) for p in ref["prompts"]]
-    base = registry.get_config(case["arch"]).replace(**case["replace"])
-    t0 = time.time()
-    tree = weights.numpy_params(base, case["weights_seed"])
-    draw_s = time.time() - t0
-    launches = {}
-    for dtype, route in (("float32", "simt"), ("bfloat16", "wgmma")):
-        cfg = base.replace(dtype=dtype)
-        params = weights.from_jax_params(tree, cfg, device=DEVICE)
-        steps = ref["runs"][dtype]
-        jax_tokens = torch.as_tensor([s["token"] for s in steps], device=DEVICE)
-        top = torch.as_tensor([s["top_values"] for s in steps], device=DEVICE)
-        top_ids = torch.as_tensor([s["top_ids"] for s in steps], device=DEVICE)
-        rms = torch.as_tensor([s["norm"] for s in steps], device=DEVICE) / cfg.vocab ** 0.5
-        _, got = compare.serve_steps(params, cfg, prompts, case["max_len"], len(steps),
-                                     forced=jax_tokens)
-        ids = torch.cat([top_ids, jax_tokens[..., None]], -1)
-        want = torch.cat([top, torch.as_tensor([s["chosen_logit"] for s in steps],
-                                               device=DEVICE)[..., None]], -1)
-        err = float(((torch.gather(got, -1, ids) - want).abs() / rms[..., None]).max())
-        tol = compare.SERVE_TOL[dtype]
-        margin = torch.as_tensor([s["margin"] for s in steps], device=DEVICE)
-        upto = compare.tokens_before_near_tie(margin, rms, tol)
-        tokens, prefill_s, decode_s, ticks, counts, routes = serve_engine_run(
-            cfg, params, prompts, case["max_len"], case["max_new_tokens"])
-        jax_rows = jax_tokens.t().tolist()
-        same = [t[:n] == j[:n] for t, j, n in zip(tokens, jax_rows, upto)]
-        emit({"phase": "serve_ref", "dtype": dtype, "route": route, "arch": case["arch"],
-              "cut": case["replace"], "prompts": [len(p) for p in prompts],
-              "max_len": case["max_len"], "new_tokens": case["max_new_tokens"],
-              "teacher_forced_max_err_over_rms": err, "tolerance": tol,
-              "tokens_compared": upto, "tokens_equal": same,
-              "tokens_equal_all_steps": [t == j for t, j in zip(tokens, jax_rows)],
-              "prefill_s": prefill_s, "decode_s": decode_s, "ticks": ticks,
-              "kernel_launches": counts, "flash_routes": routes, "numpy_draw_s": draw_s})
-        check(err <= tol, f"serve_ref {dtype}: teacher-forced logits {err} of the row's RMS "
-                          f"off the JAX package's (tolerance {tol})")
-        check(all(same), f"serve_ref {dtype}: ServeEngine's tokens differ from the JAX "
-                         f"package's before a near-tie ({tokens} against {jax_rows})")
-        check(routes == {route: cfg.n_layers} and counts["flash_attention"] == cfg.n_layers,
-              f"serve_ref {dtype}: flash_attention ran as {routes}, not {cfg.n_layers} "
-              f"launches on {route}")
-        launches[route] = routes.get(route, 0)
-        del params, got
-        torch.cuda.empty_cache()
+    launches = {"simt": 0, "wgmma": 0}
+    for entry in entries:
+        case = entry["case"]
+        prompts = [np.asarray(p, np.int32) for p in entry["prompts"]]
+        base = registry.get_config(case["arch"]).replace(**case["replace"])
+        t0 = time.time()
+        tree = weights.numpy_params(base, case["weights_seed"])
+        draw_s = time.time() - t0
+        for dtype in ("float32", "bfloat16"):
+            cfg = base.replace(dtype=dtype)
+            params = weights.from_jax_params(tree, cfg, device=DEVICE)
+            units = dtype == "bfloat16" and "units" in entry
+            row, routes, checks = against_reference(
+                phase, cfg, params, case, prompts, entry["runs"][dtype],
+                entry.get("float32_run") if dtype == "bfloat16" else None, whole=not units)
+            row["numpy_draw_s"] = draw_s
+            if "moe" in entry:  # the prefill's routing against the JAX package's
+                layers = []
+                for ref, r in zip(entry["moe"][dtype], routes):
+                    got = r.gate_idx.sort(-1).values.cpu().numpy()
+                    moved = set(np.nonzero((got != np.sort(ref["experts"], -1)).any(-1))[0])
+                    layers.append({"dropped": int(r.dropped), "jax_dropped": ref["dropped"],
+                                   "routed_otherwise": len(moved),
+                                   "jax_near_ties": len(ref["near_ties"]),
+                                   "routed_otherwise_off_near_ties":
+                                       len(moved - set(ref["near_ties"]))})
+                row["moe_layers"] = layers
+                if dtype == "float32":
+                    checks.append((all(L["dropped"] == L["jax_dropped"] > 0 for L in layers)
+                                   and not any(L["routed_otherwise_off_near_ties"]
+                                               for L in layers),
+                                   f"{phase} {case['arch']} float32: the MoE routing is not "
+                                   f"the JAX package's: {layers}"))
+            del routes, params
+            torch.cuda.empty_cache()
+            if "units" in entry:
+                row["units"], more = unit_checks(phase, entry, tree, cfg)
+                checks += more
+            emit(row)
+            for ok, what in checks:
+                check(ok, what)
+            for route, n in row["flash_routes"].items():
+                launches[route] += n
+        del tree
     return launches
 
 
+def phase_serve_families_ref() -> dict:
+    """deepseek-moe-16b, granite-moe-3b-a800m, recurrentgemma-9b and
+    xlstm-1.3b at full width, cut in depth (families_reference.json's
+    cases), each in float32 and bfloat16 against the JAX package's run by
+    ``against_reference`` (a bfloat16 run against its float32 run; for
+    xlstm-1.3b in bfloat16 its units by ``unit_checks`` instead), the MoE
+    cases' prefill routing too: in float32 the same replicas dropped in
+    every layer (and some), and no token routed otherwise but at a JAX
+    near-tie.  Returns the flash launches by route."""
+    return serve_reference_cases("serve_families_ref",
+                                 json.loads(FAMILIES_REFERENCE.read_text())["cases"])
 def gemm_kernel(name: str) -> bool:
     """cuBLAS's and CUTLASS's matrix-product kernels, by name."""
     n = name.lower()
     return any(k in n for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet"))
 
 
+# the model code's profiler ranges (repro_torch.models.common.span)
+SPANS = ("moe.dispatch", "moe.experts", "moe.combine", "recurrent.mlstm", "recurrent.slstm",
+         "recurrent.rglru")
+
+
 def profile_serve(run, label: str) -> dict:
     """``run()`` (which returns its count of calls) under torch.profiler:
     the wall, the device's busy and idle share, the kernels launched a
-    call, the flash kernel's and the GEMMs' device ms, the top kernels."""
+    call, the flash kernel's and the GEMMs' device ms, the device ms of
+    the kernels launched inside each of the model's SPANS (by the host
+    time of their launch), the top kernels.  It reads the profiler's raw
+    events: building its event tree takes minutes at xlstm's 133k
+    kernels a prefill."""
+    import bisect
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2160,42 +2356,71 @@ def profile_serve(run, label: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel: dict = {}
-    launched = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
-            launched += 1
+    launch_at: dict = {}  # correlation id -> host start of the launch
+    ranges: dict = {name: [] for name in SPANS}
+    kernels = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                us = e.duration_ns() / 1e3
+                by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + us
+                kernels.append((e.linked_correlation_id(), us))
+        else:
+            launch_at[e.correlation_id()] = e.start_ns()
+            if e.name() in ranges:
+                ranges[e.name()].append((e.start_ns(), e.end_ns()))
+    unmatched = sum(1 for corr, _ in kernels if corr not in launch_at)
+    spans = {}
+    for name, intervals in ranges.items():
+        if not intervals:
+            continue
+        intervals.sort()
+        starts = [a for a, _ in intervals]
+        total = 0.0
+        for corr, us in kernels:
+            t = launch_at.get(corr)
+            i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= intervals[i][1]:
+                total += us
+        spans[name] = total / 1e3
     busy = sum(by_kernel.values()) / 1e3
     check(busy > 0, f"serve profile {label}: the profiler saw no device work")
+    check(sum(spans.values()) <= busy * (1 + 1e-6),
+          f"serve profile {label}: the ranges hold more device time than the run")
     flash = sum(v for k, v in by_kernel.items() if "flash" in k) / 1e3
     gemm = sum(v for k, v in by_kernel.items() if gemm_kernel(k)) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    return {"what": label, "calls": n, "device_kernels_per_call": launched / n,
+    return {"what": label, "calls": n, "device_kernels_per_call": len(kernels) / n,
             "wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / (wall * 1e3), "flash_device_ms": flash,
             "gemm_device_ms": gemm, "other_device_ms": busy - flash - gemm,
+            "span_device_ms": spans, "kernels_without_launch_record": unmatched,
             "top_device_ms": {k: v / 1e3 for k, v in top}}
 
 
-def phase_serve() -> int:
-    """The slice's main path: gemma2-2b as published (26 layers, window
-    4,096, bf16, weights from model.init_params on the card) serving 4
-    prompts of 4,500-5,120 tokens, 32 new tokens each, through ServeEngine:
-    26 launches of the wgmma flash kernel a prefill and none on simt; held
-    against the same weights served with the plain attention (teacher-
-    forced logits, tokens up to the first near-tie); run twice, bit for
-    bit; its walls, peak memory and a profile of one prefill and 8 decode
-    ticks.  Returns the kernel's launches in the main-path run."""
+def serve_published(phase: str, arch: str, lens, seed: int) -> dict:
+    """``arch`` as published (bf16, weights from model.init_params on the
+    card) serving prompts of ``lens`` tokens, SERVE_NEW_TOKENS new tokens
+    each, through ServeEngine: one flash launch on wgmma per
+    self-attention layer a prefill and none on simt; held against the
+    same weights served with the plain attention (teacher-forced logits,
+    tokens up to the first near-tie; for MoE the plain path fed the same
+    tokens again, routed to the kernel run's experts, is the logits'
+    reference); run twice, bit for bit; its walls,
+    peak memory, for MoE the replicas dropped and the tokens routed
+    otherwise than with the plain attention, in each layer of the
+    prefill; and a profile of one prefill and 8 decode ticks.  Returns
+    the flash launches by route in the first run."""
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.models import model
     from repro_torch.serve import compare, engine
 
-    cfg = registry.get_config("gemma2-2b")
-    rng = np.random.default_rng(SERVE_SEED)
-    prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in SERVE_PROMPTS]
-    max_len = max(SERVE_PROMPTS) + SERVE_NEW_TOKENS
+    cfg = registry.get_config(arch)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in lens]
+    max_len = max(lens) + SERVE_NEW_TOKENS
     torch.cuda.synchronize()
     t0 = time.time()
     params = model.init_params(cfg, seed=0, device=DEVICE)
@@ -2203,61 +2428,120 @@ def phase_serve() -> int:
     init_s = time.time() - t0
     n_params = sum(p.numel() for p in params.parameters())
     torch.cuda.reset_peak_memory_stats()
+    walls = {"init_params": init_s}
+    t0 = time.time()
     runs = [serve_engine_run(cfg, params, prompts, max_len, SERVE_NEW_TOKENS)
             for _ in range(2)]
     peak = torch.cuda.max_memory_allocated()
     (tokens, prefill_s, decode_s, ticks, counts, routes), again = runs
-    n_attn = cfg.n_layers
+    walls["engine_runs"] = time.time() - t0
+    t0 = time.time()
     # the same weights with the plain attention: the reference
+    moe_family = cfg.family == "moe"
+    plain_routes, kernel_routes = ([], []) if moe_family else (None, None)
     ref_tokens, ref_logits = compare.serve_steps(params, cfg, prompts, max_len,
-                                                 SERVE_NEW_TOKENS, plain=True)
+                                                 SERVE_NEW_TOKENS, plain=True,
+                                                 routes=plain_routes)
     got = [compare.serve_steps(params, cfg, prompts, max_len, SERVE_NEW_TOKENS,
-                               forced=ref_tokens)[1] for _ in range(2)]
+                               forced=ref_tokens, routes=kernel_routes if i == 0 else None)[1]
+           for i in range(2)]
     tol = compare.SERVE_TOL["bfloat16"]
-    err, rms = compare.logit_agreement(got[0], ref_logits, ref_tokens)
+    errs, rms = compare.logit_errors(got[0], ref_logits, ref_tokens)
     upto = compare.tokens_before_near_tie(compare.margins(ref_logits), rms, tol)
+    moe = {}
+    if moe_family:
+        # a bf16 near-tie sends a token to other experts on one side only
+        # (and a full expert then drops or keeps another): the reference
+        # is the plain path again, fed the same tokens, each token sent to
+        # the kernel run's experts
+        moe = {"vs_plain_attention_own_routing_max_err_over_rms": float(errs.max()),
+               "moe_dropped_by_layer": [int(r.dropped) for r in kernel_routes[0]],
+               "moe_dropped_by_layer_plain": [int(r.dropped) for r in plain_routes[0]],
+               "moe_tokens_routed_otherwise_than_plain_by_layer": [
+                   int((a.gate_idx.sort(-1).values != b.gate_idx.sort(-1).values)
+                       .any(-1).sum()) for a, b in zip(kernel_routes[0], plain_routes[0])],
+               "moe_tokens_routed_otherwise_than_plain_in_decode": sum(
+                   int((a.gate_idx.sort(-1).values != b.gate_idx.sort(-1).values)
+                       .any(-1).sum()) for ka, pa in zip(kernel_routes[1:], plain_routes[1:])
+                   for a, b in zip(ka, pa)),
+               "moe_replicas_per_layer": int(kernel_routes[0][0].slot.numel())}
+        del plain_routes
+        ref_logits = compare.serve_steps(params, cfg, prompts, max_len, SERVE_NEW_TOKENS,
+                                         forced=ref_tokens, plain=True,
+                                         route_as=kernel_routes)[1]
+        del kernel_routes
+        errs, _ = compare.logit_errors(got[0], ref_logits, ref_tokens)
     ref_rows = ref_tokens.t().tolist()
     same = [t[:n] == r[:n] for t, r, n in zip(tokens, ref_rows, upto)]
     bitwise = torch.equal(got[0], got[1]) and tokens == again[0]
-    del got, ref_logits
+    del got
     torch.cuda.empty_cache()
+    err = float(errs.max())
+    walls["plain_and_forced_runs"] = time.time() - t0
+    del ref_logits
     new = len(prompts) * ticks  # tokens decoded (the prefill gives each request its first)
-    emit({"phase": "serve", "nvidia_smi": card_name(), "arch": cfg.name,
+    want = flash_routes_of(cfg)
+    emit({"phase": phase, "nvidia_smi": card_name(), "arch": cfg.name, "family": cfg.family,
           "n_layers": cfg.n_layers,
           "local_window": cfg.local_window, "dtype": cfg.dtype, "params": n_params,
-          "prompts": list(SERVE_PROMPTS), "padded_to": max(SERVE_PROMPTS), "max_len": max_len,
+          "prompts": list(lens), "padded_to": max(lens), "max_len": max_len,
           "new_tokens": SERVE_NEW_TOKENS, "init_params_s": init_s,
           "prefill_s": [prefill_s, again[1]], "decode_s": [decode_s, again[2]],
           "ticks": ticks, "decode_ms_per_tick": [d / ticks * 1e3 for d in (decode_s, again[2])],
           "decode_tokens_per_s": [new / d for d in (decode_s, again[2])],
-          "prefill_tokens_per_s": [len(prompts) * max(SERVE_PROMPTS) / p
-                                   for p in (prefill_s, again[1])],
+          "prefill_tokens_per_s": [len(prompts) * max(lens) / p for p in (prefill_s, again[1])],
           "peak_memory_gb": peak / 1e9, "kernel_launches": counts, "flash_routes": routes,
           "vs_plain_attention_max_err_over_rms": err, "tolerance": tol,
+          "plain_reference": "routed to the kernel run's experts" if moe else "its own",
           "tokens_compared": upto, "tokens_equal": same,
           "tokens_equal_all_steps": [t == r for t, r in zip(tokens, ref_rows)],
-          "repeat_bitwise_equal": bitwise})
-    check(routes == {"wgmma": n_attn} and counts["flash_attention"] == n_attn,
-          f"serve: flash_attention ran as {routes}, not {n_attn} launches on wgmma")
-    check(err <= tol, f"serve: the kernel path's teacher-forced logits are {err} of the "
-                      f"row's RMS off the plain attention's (tolerance {tol})")
-    check(all(same), f"serve: the kernel path's tokens differ from the plain attention's "
-                     f"before a near-tie")
-    check(bitwise, "serve: two runs of the kernel path differ")
+          "repeat_bitwise_equal": bitwise, **moe})
+    check(routes == want and counts["flash_attention"] == sum(want.values()),
+          f"{phase} {arch}: flash_attention ran as {routes}, not {want}")
+    check(err <= tol, f"{phase} {arch}: the kernel path's teacher-forced logits are {err} "
+                      f"of the row's RMS off the plain attention's (tolerance {tol})")
+    check(all(same), f"{phase} {arch}: the kernel path's tokens differ from the plain "
+                     f"attention's before a near-tie")
+    check(bitwise, f"{phase} {arch}: two runs of the kernel path differ")
     # where the time goes: one prefill, then 8 decode ticks
     eng = engine.ServeEngine(cfg, params, batch_size=len(prompts), max_len=max_len,
                              device=DEVICE)
     reqs = [engine.Request(i, p, SERVE_NEW_TOKENS) for i, p in enumerate(prompts)]
+    t0 = time.time()
     with torch.inference_mode():
         pre = profile_serve(lambda: eng.admit(reqs) or 1, "prefill")
         dec = profile_serve(lambda: sum(1 for _ in range(8) if eng.step() >= 0), "decode")
     del eng
     dec["host_ms_per_tick"] = dec["wall_ms"] / dec["calls"]
+    walls["profiles"] = time.time() - t0
     for row in (pre, dec):
-        emit({"phase": "serve", "profile": row})
+        emit({"phase": phase, "arch": arch, "profile": row})
+    emit({"phase": phase, "arch": arch, "walls_s": walls})
     del params
     torch.cuda.empty_cache()
-    return routes.get("wgmma", 0)
+    return routes
+
+
+def phase_serve() -> int:
+    """The serving main path of gemma2-2b (serve_published): as published
+    (26 layers, window 4,096), 4 prompts of 4,500-5,120 tokens; 26 wgmma
+    flash launches a prefill.  Returns them."""
+    return serve_published("serve", "gemma2-2b", SERVE_PROMPTS, SERVE_SEED).get("wgmma", 0)
+
+
+def phase_serve_families() -> int:
+    """The slice's main path (serve_published) for the moe, hybrid and ssm
+    families: deepseek-moe-16b (28 wgmma flash launches a prefill),
+    recurrentgemma-9b (12) and xlstm-1.3b (none), each as published, one
+    after another, each freed before the next loads.  Returns the wgmma
+    launches of their main-path runs."""
+    import gc
+
+    launches = 0
+    for arch, lens in FAMILIES_SERVE:
+        launches += serve_published("serve_families", arch, lens, SERVE_SEED).get("wgmma", 0)
+        gc.collect()
+    return launches
 
 
 def cluster_sweep() -> None:
@@ -2369,6 +2653,14 @@ def planted_faults(dest: pathlib.Path) -> bool:
     return caught_all
 
 
+def timed(name: str, phase, *args):
+    """``phase(*args)``, its wall printed after it."""
+    t0 = time.time()
+    out = phase(*args)
+    emit({"phase_wall": name, "s": time.time() - t0})
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -2399,21 +2691,23 @@ def main() -> int:
             return 1
         return 0
     try:
-        phase_device()
-        rows = phase_kernel()
-        stats, sweep_counts, walls, fig12 = phase_sweep()
+        timed("device", phase_device)
+        rows = timed("kernel", phase_kernel)
+        stats, sweep_counts, walls, fig12 = timed("sweep", phase_sweep)
         repeat_launches = phase_repeat(fig12)
         fig12_finish = fig12[0]
         phase_agree(stats)
-        dense_counts = phase_dense(stats, walls)
-        phase_profile()
-        adaptive_launches = phase_adaptive()
-        fault_launches = phase_faults()
-        flowcell_launches = phase_flowcell(fig12_finish)
-        record_launches = phase_record()
-        cosim_launches = phase_cosim()
-        serve_ref_launches = phase_serve_ref()
-        serve_launches = phase_serve()
+        dense_counts = timed("dense", phase_dense, stats, walls)
+        timed("profile", phase_profile)
+        adaptive_launches = timed("adaptive", phase_adaptive)
+        fault_launches = timed("faults", phase_faults)
+        flowcell_launches = timed("flowcell", phase_flowcell, fig12_finish)
+        record_launches = timed("record", phase_record)
+        cosim_launches = timed("cosim", phase_cosim)
+        serve_ref_launches = timed("serve_ref", phase_serve_ref)
+        serve_launches = timed("serve", phase_serve)
+        families_ref_launches = timed("serve_families_ref", phase_serve_families_ref)
+        families_launches = timed("serve_families", phase_serve_families)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2433,12 +2727,15 @@ def main() -> int:
                         + fault_launches + flowcell_launches + record_launches
                         + cosim_launches)
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
-        elif name == "flash_attention":  # the serving path: phases 12 and 13
+        elif name == "flash_attention":  # the serving path: phases 12-15
             route = row["route"]
             by_path.update({row["path"]: row["path_launches"],
                             "serve_ref": serve_ref_launches.get(route, 0),
-                            "serve": serve_launches if route == "wgmma" else 0})
-            launches = by_path["serve_ref"] + by_path["serve"]
+                            "serve": serve_launches if route == "wgmma" else 0,
+                            "serve_families_ref": families_ref_launches.get(route, 0),
+                            "serve_families": families_launches if route == "wgmma" else 0})
+            launches = sum(by_path[k] for k in ("serve_ref", "serve", "serve_families_ref",
+                                                "serve_families"))
             extra = {"flash_route": route}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]

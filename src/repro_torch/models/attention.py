@@ -30,7 +30,6 @@ class AttnParams(common.ParamModule):
     k_norm [hd] (qwen3's qk-norm; unused elsewhere)."""
 
     FIELDS = ("ln", "wq", "wk", "wv", "wo", "q_norm", "k_norm")
-    NORMS = ("ln", "q_norm", "k_norm")
 
 
 class KVCache(NamedTuple):
@@ -40,11 +39,12 @@ class KVCache(NamedTuple):
 
 
 def shapes(cfg) -> dict:
-    """field -> (shape, fan_in); fan_in None for a norm."""
+    """field -> ``common.Field``."""
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {"ln": ((D,), None), "wq": ((D, H, hd), D), "wk": ((D, K, hd), D),
-            "wv": ((D, K, hd), D), "wo": ((H, hd, D), H * hd), "q_norm": ((hd,), None),
-            "k_norm": ((hd,), None)}
+    dense = common.dense
+    return {"ln": common.norm((D,)), "wq": dense((D, H, hd), D), "wk": dense((D, K, hd), D),
+            "wv": dense((D, K, hd), D), "wo": dense((H, hd, D), H * hd),
+            "q_norm": common.norm((hd,)), "k_norm": common.norm((hd,))}
 
 
 def _proj(x, w):

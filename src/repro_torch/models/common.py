@@ -1,11 +1,22 @@
 """Shared model substrate: norms, RoPE, activations, init helpers."""
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while the profiler records
+    (a profile reads the device time of the work inside it), else
+    nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -68,22 +79,60 @@ def dense_init(shape, generator: torch.Generator, in_axis_size: int | None = Non
     return t.to(dtype)
 
 
+class Field(NamedTuple):
+    """How one parameter of a unit is made and held: its shape; its init,
+    "dense" (``dense_init`` over ``fan_in``), "zeros", "ones" or "lam" (the
+    RG-LRU's logit(linspace(0.9, 0.999, R)), ``recurrent.py:281`` of the
+    JAX package); and ``f32``, whether it is held in float32 (the JAX
+    package reads it in float32) or in the compute dtype."""
+
+    shape: tuple
+    init: str = "dense"
+    fan_in: int = 0
+    f32: bool = False
+
+
+def dense(shape, fan_in: int, f32: bool = False) -> Field:
+    return Field(tuple(shape), "dense", fan_in, f32)
+
+
+def norm(shape) -> Field:
+    """A norm scale: zeros, float32 (applied as ``1 + scale``)."""
+    return Field(tuple(shape), "zeros", f32=True)
+
+
+def init_field(f: Field, generator: torch.Generator, dtype) -> torch.Tensor:
+    """A parameter as the JAX package initializes it (from another random
+    stream), on the generator's device, in its held dtype."""
+    dev = generator.device
+    if f.init == "dense":
+        return dense_init(f.shape, generator, f.fan_in, torch.float32 if f.f32 else dtype)
+    if f.init == "zeros":
+        return torch.zeros(f.shape, dtype=torch.float32, device=dev)
+    if f.init == "ones":
+        return torch.ones(f.shape, dtype=torch.float32, device=dev)
+    if f.init == "lam":
+        a = torch.linspace(0.9, 0.999, f.shape[-1], dtype=torch.float32, device=dev)
+        return torch.log(a / (1 - a)).expand(f.shape).clone()
+    raise ValueError(f.init)
+
+
 class ParamModule(nn.Module):
     """A unit's tensors under the JAX package's field names, as frozen
-    parameters.  ``FIELDS`` names them in the JAX NamedTuple's order and
-    ``NORMS`` those that stay float32 (norm scales, which the JAX package
-    casts to float32 where it reads them); the rest are cast once, at
+    parameters.  ``FIELDS`` names them in the JAX NamedTuple's order;
+    ``fields`` (the unit's ``Field`` table) says which stay float32 (those
+    the JAX package reads in float32: norm scales, the router, the
+    recurrences' gates and Lambda); the rest are cast once, at
     construction, to the compute dtype, as the JAX package casts them at
     each use."""
 
     FIELDS: tuple[str, ...] = ()
-    NORMS: tuple[str, ...] = ()
 
-    def __init__(self, dtype=None, device=None, **tensors):
+    def __init__(self, fields: dict, dtype=None, device=None, **tensors):
         super().__init__()
-        if set(tensors) != set(self.FIELDS):
+        if set(tensors) != set(self.FIELDS) or set(fields) != set(self.FIELDS):
             raise ValueError(f"{type(self).__name__} takes {self.FIELDS}, got {sorted(tensors)}")
         for name in self.FIELDS:
             t = torch.as_tensor(tensors[name])
-            t = t.to(device=device, dtype=torch.float32 if name in self.NORMS else dtype)
+            t = t.to(device=device, dtype=torch.float32 if fields[name].f32 else dtype)
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))

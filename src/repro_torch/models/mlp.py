@@ -11,16 +11,15 @@ class MLPParams(common.ParamModule):
     when ungated); wo [F, D]."""
 
     FIELDS = ("ln", "wi", "wg", "wo")
-    NORMS = ("ln",)
 
 
 def shapes(cfg, d_ff: int | None = None) -> dict:
-    """field -> (shape, fan_in); fan_in None for a norm."""
+    """field -> ``common.Field``."""
     D = cfg.d_model
     F = cfg.d_ff if d_ff is None else d_ff
     gated = cfg.mlp_kind.startswith("gated")
-    return {"ln": ((D,), None), "wi": ((D, F), D), "wg": ((D, F if gated else 0), D),
-            "wo": ((F, D), F)}
+    return {"ln": common.norm((D,)), "wi": common.dense((D, F), D),
+            "wg": common.dense((D, F if gated else 0), D), "wo": common.dense((F, D), F)}
 
 
 def apply(p: MLPParams, x: torch.Tensor, cfg) -> torch.Tensor:

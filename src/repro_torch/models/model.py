@@ -1,5 +1,5 @@
 """Public model API: init / loss / prefill / decode, mirroring
-``repro.models.model`` for the ported families (dense, vlm, audio).
+``repro.models.model`` for every architecture of the repository.
 
 Params are a ``Params`` module (``nn.Module``) whose attributes carry the
 JAX package's keys; the config is static.  The per-arch structure lives in
@@ -49,9 +49,10 @@ class Params(nn.Module):
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Params:
     """Random params drawn on ``device`` (``None`` means ``"cuda"``) from a
-    ``torch.Generator`` seeded with ``seed``: norm scales zero, matrices
-    ``common.dense_init``, as ``repro.models.model.init_params`` (another
-    random stream, so not its values; ``weights`` carries those across)."""
+    ``torch.Generator`` seeded with ``seed``, each field by its init kind
+    (``common.init_field``: matrices ``common.dense_init``, norm scales
+    zero), as ``repro.models.model.init_params`` (another random stream,
+    so not its values; ``weights`` carries those across)."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = _dtype(cfg)
@@ -87,7 +88,7 @@ def _encoder_forward(params: Params, cfg, frames, ctx):
     """Whisper-style encoder over stub frame embeddings [B, F, D]."""
     eu, en = transformer.encoder_program(cfg)
     x = frames.to(_dtype(cfg))
-    x, _ = transformer.apply_stack(params.encoder, x, cfg, eu, en, "train", ctx=ctx)
+    x, _, _ = transformer.apply_stack(params.encoder, x, cfg, eu, en, "train", ctx=ctx)
     return common.rms_norm(x, params.enc_norm)
 
 
@@ -109,11 +110,13 @@ def _run_decoder(params: Params, cfg, x, mode, cache=None, ctx=None):
     c_pre = cache["prelude"] if cache is not None else None
     c_main = cache["main"] if cache is not None else None
     c_trail = cache["trailing"] if cache is not None else None
-    x, nc_pre = transformer.apply_units(params.prelude, x, cfg, prelude, mode, c_pre, ctx)
-    x, nc_main = transformer.apply_stack(params.main, x, cfg, sb, n_super, mode, c_main, ctx)
-    x, nc_trail = transformer.apply_units(params.trailing, x, cfg, trailing, mode, c_trail,
-                                          ctx)
-    return x, {"prelude": nc_pre, "main": nc_main, "trailing": nc_trail}
+    x, nc_pre, a0 = transformer.apply_units(params.prelude, x, cfg, prelude, mode, c_pre,
+                                            ctx)
+    x, nc_main, a1 = transformer.apply_stack(params.main, x, cfg, sb, n_super, mode, c_main,
+                                             ctx)
+    x, nc_trail, a2 = transformer.apply_units(params.trailing, x, cfg, trailing, mode,
+                                              c_trail, ctx)
+    return x, {"prelude": nc_pre, "main": nc_main, "trailing": nc_trail}, a0 + a1 + a2
 
 
 def logits_fn(params: Params, cfg, x):
@@ -121,14 +124,30 @@ def logits_fn(params: Params, cfg, x):
     return common.softcap(x @ head.to(x.dtype), cfg.logit_softcap)
 
 
+def _routing_ctx(ctx: dict, routes, experts) -> dict:
+    """The moe units' side channel of ``transformer.unit_apply``: each
+    appends its dispatch (``moe.Routing``) to the list ``routes`` and, given
+    ``experts`` (a list, one [T, k] tensor a moe unit, as another pass's
+    ``routes``' ``gate_idx``), sends its tokens to those experts in layer
+    order instead of its own top-k.  For the checks only."""
+    if routes is not None:
+        ctx["moe_routes"] = routes
+    if experts is not None:
+        ctx["moe_experts"] = iter(experts)
+    return ctx
+
+
 # ------------------------------------------------------------------ train
-def forward_train(params: Params, cfg, batch):
-    """(logits [B, S, V], aux): aux is 0, the ported units carry no
-    auxiliary loss.  Forward only: the port has no backward yet."""
+def forward_train(params: Params, cfg, batch, *, routes=None, experts=None):
+    """(logits [B, S, V], aux): aux is the sum of the moe units'
+    load-balance and z-losses (0 without them).  Forward only: the port
+    has no backward yet.  ``routes``, ``experts``: ``_routing_ctx``."""
     x, ctx = _decoder_input(params, cfg, batch)
-    x, _ = _run_decoder(params, cfg, x, "train", ctx=ctx)
+    _routing_ctx(ctx, routes, experts)
+    x, _, aux = _run_decoder(params, cfg, x, "train", ctx=ctx)
     x = common.rms_norm(x, params.final_norm)
-    return logits_fn(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits_fn(params, cfg, x), torch.as_tensor(aux, dtype=torch.float32,
+                                                      device=x.device)
 
 
 def loss_fn(params: Params, cfg, batch):
@@ -158,23 +177,27 @@ def init_cache(params: Params, cfg, batch_size: int, max_len: int):
     }
 
 
-def prefill(params: Params, cfg, batch, max_len: int, *, plain_attention: bool = False):
+def prefill(params: Params, cfg, batch, max_len: int, *, plain_attention: bool = False,
+            routes=None, experts=None):
     """Process the prompt; returns (last-position logits [B, V], cache).
     ``plain_attention`` runs the decoder's self-attention through the plain
     version of the attention kernel on the card (a reference to hold the
-    kernel against)."""
+    kernel against); ``routes``, ``experts``: ``_routing_ctx``."""
     x, ctx = _decoder_input(params, cfg, batch)
     ctx["plain_attention"] = plain_attention
+    _routing_ctx(ctx, routes, experts)
     cache = init_cache(params, cfg, x.shape[0], max_len)
-    x, cache = _run_decoder(params, cfg, x, "prefill", cache=cache, ctx=ctx)
+    x, cache, _ = _run_decoder(params, cfg, x, "prefill", cache=cache, ctx=ctx)
     x = common.rms_norm(x[:, -1:], params.final_norm)
     return logits_fn(params, cfg, x)[:, 0], cache
 
 
-def decode_step(params: Params, cfg, tokens, cache):
+def decode_step(params: Params, cfg, tokens, cache, *, routes=None, experts=None):
     """One decode step.  tokens: [B, 1] -> (logits [B, V], new cache); the
-    attention caches are written in place."""
+    attention caches are written in place.  ``routes``, ``experts``:
+    ``_routing_ctx``."""
     x = embed_tokens(params, cfg, tokens)
-    x, cache = _run_decoder(params, cfg, x, "decode", cache=cache, ctx={})
+    x, cache, _ = _run_decoder(params, cfg, x, "decode", cache=cache,
+                               ctx=_routing_ctx({}, routes, experts))
     x = common.rms_norm(x, params.final_norm)
     return logits_fn(params, cfg, x)[:, 0], cache

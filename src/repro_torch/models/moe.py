@@ -1,0 +1,165 @@
+"""Fine-grained Mixture-of-Experts channel mixer (DeepSeekMoE / Granite-MoE),
+mirroring ``repro.models.moe``.
+
+Top-k routing with shared (always-on) experts.  Dispatch is the JAX
+package's sort-based fixed-shape algorithm: token replicas are bucketed
+per expert up to a capacity C, the earliest tokens first (a stable sort by
+expert), the rest dropped; the expert FFNs run as batched products over
+[E, C, D].  The router runs in float32.
+
+The combine differs in its means, not its sums: the JAX package
+scatter-adds the weighted expert outputs into the tokens' rows, which on
+the card would be float atomics in no fixed order.  Here each token
+gathers its kept slots (at most top_k) and adds them in ascending slot
+order, which is expert order, in the compute dtype: the order of the JAX
+package's scatter on the CPU, and the same bits from run to run.
+
+Aux losses (Switch load balance and router z-loss) are returned as the
+JAX package returns them, for ``forward_train``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common
+
+
+class MoEParams(common.ParamModule):
+    """ln [D]; router [D, E] (float32); we_i, we_g [E, D, Fe]; we_o [E, Fe,
+    D]; ws_i, ws_g [D, Fs], ws_o [Fs, D]: the shared experts (Fs =
+    n_shared * d_expert, 0 without)."""
+
+    FIELDS = ("ln", "router", "we_i", "we_g", "we_o", "ws_i", "ws_g", "ws_o")
+
+
+def shapes(cfg) -> dict:
+    """field -> ``common.Field``."""
+    D, m = cfg.d_model, cfg.moe
+    E, Fe = m.n_experts, m.d_expert
+    Fs = m.n_shared * m.d_expert
+    dense = common.dense
+    return {"ln": common.norm((D,)), "router": dense((D, E), D, f32=True),
+            "we_i": dense((E, D, Fe), D), "we_g": dense((E, D, Fe), D),
+            "we_o": dense((E, Fe, D), Fe), "ws_i": dense((D, Fs), D),
+            "ws_g": dense((D, Fs), D), "ws_o": dense((Fs, D), Fs)}
+
+
+def _capacity(T: int, E: int, k: int, cf: float) -> int:
+    c = int(T * k * cf / E) + 1
+    return max(8, min(c, T))
+
+
+class Routing(NamedTuple):
+    """The dispatch of T tokens: router logits and probabilities [T, E]
+    (float32), each token's experts by falling probability and their
+    renormalized weights [T, k], and each replica's slot [T, k] (expert *
+    C + its place among the expert's replicas; ``E * C`` where it overflowed
+    the capacity C and was dropped)."""
+
+    logits: torch.Tensor
+    probs: torch.Tensor
+    gate_idx: torch.Tensor
+    gate_vals: torch.Tensor
+    slot: torch.Tensor
+    capacity: int
+
+    @property
+    def sentinel(self) -> int:
+        return self.probs.shape[-1] * self.capacity
+
+    @property
+    def dropped(self) -> torch.Tensor:
+        """The count of dropped replicas (a tensor, so no host read)."""
+        return (self.slot == self.sentinel).sum()
+
+
+def _route(p: MoEParams, flat: torch.Tensor, cfg, experts=None) -> Routing:
+    """``moe.py:59-80`` of the JAX package on the normed tokens [T, D];
+    with ``experts`` [T, k], those experts instead of the top-k."""
+    m = cfg.moe
+    T = flat.shape[0]
+    E, k = m.n_experts, m.top_k
+    C = _capacity(T, E, k, m.capacity_factor)
+    logits = flat.to(torch.float32) @ p.router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    if experts is None:
+        gate_vals, gate_idx = torch.topk(probs, k, dim=-1, sorted=True)
+    else:
+        gate_idx = experts.to(device=flat.device, dtype=torch.long)
+        gate_vals = probs.gather(-1, gate_idx)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    # group the replicas by expert, the earliest token first (a stable sort)
+    e_flat = gate_idx.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    grp_start = torch.searchsorted(e_sorted, torch.arange(E, device=flat.device), right=False)
+    pos = torch.arange(T * k, device=flat.device) - grp_start[e_sorted]
+    slot_sorted = torch.where(pos < C, e_sorted * C + pos, E * C)
+    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)  # replica order
+    return Routing(logits, probs, gate_idx, gate_vals, slot.view(T, k), C)
+
+
+def routing(p: MoEParams, x: torch.Tensor, cfg) -> Routing:
+    """The dispatch that ``apply`` makes of x [B, S, D] (for the checks:
+    the experts each token went to and the replicas dropped)."""
+    return _route(p, common.rms_norm(x, p.ln).reshape(-1, x.shape[-1]), cfg)
+
+
+def apply(p: MoEParams, x: torch.Tensor, cfg, with_aux: bool = True, routes=None,
+          experts=None):
+    """(x + the mixer's output, aux losses): ``{"lb_loss", "z_loss"}`` as
+    the JAX package's where ``with_aux``, else an empty dict (serving
+    reads none).  For the checks: ``routes``, a list, receives the
+    dispatch (``Routing``); ``experts`` [T, k] sends each token to those
+    experts instead of its top-k (a reference run routed as another)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    dt = x.dtype
+    flat = common.rms_norm(x, p.ln).reshape(-1, D)
+    T = flat.shape[0]
+    with common.span("moe.dispatch"):
+        r = _route(p, flat, cfg, experts)
+        if routes is not None:
+            routes.append(r)
+        C, EC = r.capacity, r.sentinel
+        # the token and weight of each slot; a dropped replica writes the
+        # sentinel slot EC, which nothing reads
+        slot = r.slot.reshape(-1)
+        tok = torch.arange(T, device=x.device).repeat_interleave(k)
+        tok_of_slot = torch.full((EC + 1,), T, dtype=torch.long, device=x.device)
+        tok_of_slot.scatter_(0, slot, tok)
+        w_of_slot = torch.zeros(EC + 1, dtype=torch.float32, device=x.device)
+        w_of_slot.scatter_(0, slot, r.gate_vals.reshape(-1))
+        flat_pad = torch.cat([flat, flat.new_zeros((1, D))])  # sentinel token T
+        xe = flat_pad[tok_of_slot[:EC]].view(E, C, D)
+
+    with common.span("moe.experts"):
+        up = torch.bmm(xe, p.we_i)
+        gate = F.silu(torch.bmm(xe, p.we_g))
+        ye = torch.bmm(gate * up, p.we_o).view(EC, D) * w_of_slot[:EC, None].to(dt)
+
+    with common.span("moe.combine"):  # each token's kept slots in ascending (expert) order
+        ye = torch.cat([ye, ye.new_zeros((1, D))])  # the sentinel slot: zeros
+        by_expert = torch.argsort(r.gate_idx, dim=-1)
+        parts = ye[r.slot.gather(-1, by_expert)]  # [T, k, D]
+        out = parts[:, 0]
+        for j in range(1, k):
+            out = out + parts[:, j]
+
+    # ---- shared experts (dense)
+    if p.ws_i.shape[-1]:
+        su = flat @ p.ws_i
+        sg = F.silu(flat @ p.ws_g)
+        out = out + (sg * su) @ p.ws_o
+
+    aux = {}
+    if with_aux:  # Switch load balance: E * sum_e (frac_tokens_e * mean_prob_e)
+        frac = F.one_hot(r.gate_idx[:, 0], E).to(torch.float32).mean(0)
+        mean_prob = r.probs.mean(0)
+        aux = {"lb_loss": m.aux_loss * E * torch.sum(frac * mean_prob),
+               "z_loss": m.router_z_loss * torch.mean(torch.logsumexp(r.logits, -1) ** 2)}
+    return x + out.view(B, S, D), aux

@@ -1,0 +1,326 @@
+"""Recurrent sequence mixers, mirroring ``repro.models.recurrent``: mLSTM
+and sLSTM (xLSTM) and RG-LRU (Griffin / RecurrentGemma).
+
+  mLSTM  a matrix-memory cell with exponential gating, run chunkwise
+         parallel over 256-token chunks (products against a decay matrix
+         inside a chunk, the state (C, n) carried across chunks).  A
+         sequence must be shorter than a chunk or a whole number of them.
+         The JAX package's scale quirk is kept: inside a chunk hd ** -0.5
+         scales the intra-chunk scores only, not the carried-state term
+         q . C0 nor the denominator |q . n_t|; decode scales q in both.
+  sLSTM  a scalar cell whose hidden state feeds back through the gates:
+         not associative, so a loop over time (``lax.scan`` in the JAX
+         package).
+  RG-LRU a diagonal linear recurrence with input-dependent gates, run as
+         a log-depth Hillis-Steele scan over (a, b) pairs, where the JAX
+         package runs ``lax.associative_scan``: ceil(log2(S + 1))
+         elementwise passes in float32, the sums in another order.
+
+Decode updates O(1)-size states.  Caches are NamedTuples with the JAX
+package's field names and layouts.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common
+
+MLSTM_CHUNK = 256
+_RGLRU_C = 8.0
+
+
+def _ones(shape) -> common.Field:
+    return common.Field(tuple(shape), "ones", f32=True)
+
+
+def _proj(x, w):
+    """x [B, S, P] @ w [P, H, hd] -> [B, S, H, hd]."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+# ----------------------------------------------------------------- conv1d
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, prev: torch.Tensor | None = None):
+    """Depthwise causal conv.  x: [B, S, C], w: [W, C]; ``prev`` [B, W-1, C]
+    carries the last inputs in (decode).  Returns (y, new prev); the taps
+    are added in order, as the JAX package's ``sum``."""
+    W, S = w.shape[0], x.shape[1]
+    if prev is None:
+        prev = x.new_zeros((x.shape[0], W - 1, x.shape[-1]))
+    xp = torch.cat([prev, x], dim=1)  # [B, S+W-1, C]
+    y = xp[:, :S] * w[0]
+    for i in range(1, W):
+        y = y + xp[:, i:i + S] * w[i]
+    return y, xp[:, -(W - 1):].clone()
+
+
+# ------------------------------------------------------------------ mLSTM
+class MLSTMParams(common.ParamModule):
+    """ln [D]; w_up, w_gate [D, P]; conv_w [W, P]; wq, wk, wv [P, H, hd];
+    w_if [P, 2H] (input and forget gates); gn [H, hd] (group norm,
+    float32); w_down [P, D]."""
+
+    FIELDS = ("ln", "w_up", "w_gate", "conv_w", "wq", "wk", "wv", "w_if", "gn", "w_down")
+
+
+class MLSTMCache(NamedTuple):
+    C: torch.Tensor  # [B, H, hd, hd] f32
+    n: torch.Tensor  # [B, H, hd] f32
+    conv: torch.Tensor  # [B, W-1, P]
+
+
+def _mlstm_dims(cfg):
+    P = int(cfg.mlstm_proj_factor * cfg.d_model)
+    return P, cfg.n_heads, P // cfg.n_heads
+
+
+def mlstm_shapes(cfg) -> dict:
+    D, W = cfg.d_model, cfg.conv1d_width
+    P, H, hd = _mlstm_dims(cfg)
+    dense = common.dense
+    return {"ln": common.norm((D,)), "w_up": dense((D, P), D), "w_gate": dense((D, P), D),
+            "conv_w": dense((W, P), W), "wq": dense((P, H, hd), P),
+            "wk": dense((P, H, hd), P), "wv": dense((P, H, hd), P),
+            "w_if": dense((P, 2 * H), P), "gn": _ones((H, hd)), "w_down": dense((P, D), P)}
+
+
+def mlstm_cache_init(cfg, batch: int, dtype, device=None) -> MLSTMCache:
+    P, H, hd = _mlstm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return MLSTMCache(C=torch.zeros((batch, H, hd, hd), **f32),
+                      n=torch.zeros((batch, H, hd), **f32),
+                      conv=torch.zeros((batch, cfg.conv1d_width - 1, P), dtype=dtype,
+                                       device=device))
+
+
+def _mlstm_gates(uc, p: MLSTMParams):
+    """i (clamped exp) and log-f (log-sigmoid) gates [B, S, H], float32."""
+    g = (uc @ p.w_if).to(torch.float32)
+    H = g.shape[-1] // 2
+    return torch.exp(torch.clamp(g[..., :H], max=8.0)), F.logsigmoid(g[..., H:])
+
+
+def _mlstm_chunk(C0, n0, q, k, v, i, logf, scale: float):
+    """One chunk: (C1, n1, h).  C0 [B, H, k, v], n0 [B, H, k]; q, k, v
+    [B, L, H, hd] and i, logf [B, L, H], float32."""
+    b = torch.cumsum(logf, dim=1)  # [B, L, H] cumulative log-decay
+    bL = b[:, -1]  # [B, H]
+    L = q.shape[1]
+    # decay matrix D[t, s] = exp(b_t - b_s) * i_s for s <= t
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()[None, :, :, None]
+    dmat = b[:, :, None, :] - b[:, None, :, :]  # [B, t, s, H]
+    dmat = torch.where(tri, torch.exp(dmat) * i[:, None, :, :], 0.0)
+    scores = torch.einsum("bthd,bshd->btsh", q, k) * scale * dmat
+    intra = torch.einsum("btsh,bshd->bthd", scores, v)
+    eb = torch.exp(b)[..., None]
+    inter = eb * torch.einsum("bthd,bhdk->bthk", q, C0)
+    n_t = eb * n0[:, None] + torch.einsum("btsh,bshd->bthd", dmat, k)
+    denom = torch.clamp(torch.abs(torch.einsum("bthd,bthd->bth", q, n_t)), min=1.0)
+    h = (intra + inter) / denom[..., None]  # [B, L, H, hd]
+    # the state at the end of the chunk
+    kdec = torch.exp(bL[:, None] - b)[..., None] * (i[..., None] * k)  # [B, L, H, hd]
+    C1 = torch.exp(bL)[..., None, None] * C0 + torch.einsum("blhk,blhv->bhkv", kdec, v)
+    n1 = torch.exp(bL)[..., None] * n0 + kdec.sum(1)
+    return C1, n1, h
+
+
+def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
+                decode: bool = False):
+    """Full-sequence (chunkwise) or single-step (decode) mLSTM block;
+    returns (x + out, new cache).  A full sequence of S tokens needs S <
+    256 or S % 256 == 0 (``ValueError`` otherwise)."""
+    B, S, D = x.shape
+    dt = x.dtype
+    h_in = common.rms_norm(x, p.ln)
+    u = h_in @ p.w_up
+    z = h_in @ p.w_gate
+    uc, conv_new = causal_conv1d(u, p.conv_w, cache.conv if cache is not None else None)
+    uc = F.silu(uc)
+    H, hd = p.wq.shape[1], p.wq.shape[2]
+    q = _proj(uc, p.wq).to(torch.float32)
+    k = _proj(uc, p.wk).to(torch.float32)
+    v = _proj(u, p.wv).to(torch.float32)
+    i, logf = _mlstm_gates(uc, p)
+    scale = hd ** -0.5
+    if cache is not None:
+        C0, n0 = cache.C, cache.n
+    else:
+        C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+
+    with common.span("recurrent.mlstm"):
+        if decode:  # S == 1
+            f1 = torch.exp(logf[:, 0])  # [B, H]
+            ik = i[:, 0, :, None] * k[:, 0]  # [B, H, hd]
+            C1 = f1[..., None, None] * C0 + ik[..., :, None] * v[:, 0][..., None, :]
+            n1 = f1[..., None] * n0 + ik
+            qs = q[:, 0] * scale
+            num = torch.einsum("bhd,bhdk->bhk", qs, C1)
+            den = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", qs, n1)), min=1.0)
+            h = (num / den[..., None])[:, None]  # [B, 1, H, hd]
+        else:
+            L = min(MLSTM_CHUNK, S)
+            if S % L:
+                raise ValueError(f"the mLSTM runs {S} tokens in chunks of {MLSTM_CHUNK}: "
+                                 "a sequence must be shorter than a chunk or a multiple of it")
+            C1, n1, hs = C0, n0, []
+            for c in range(0, S, L):
+                C1, n1, hc = _mlstm_chunk(C1, n1, *(t[:, c:c + L] for t in (q, k, v, i, logf)),
+                                          scale)
+                hs.append(hc)
+            h = torch.cat(hs, dim=1)
+    h = common.rms_norm(h.to(dt), p.gn - 1.0)  # per-head group norm
+    out = h.reshape(B, S, -1) * F.silu(z)
+    return x + out @ p.w_down, MLSTMCache(C=C1, n=n1, conv=conv_new)
+
+
+# ------------------------------------------------------------------ sLSTM
+class SLSTMParams(common.ParamModule):
+    """ln [D]; w [D, H, 4, hd] (i, f, z, o projections); r [H, hd, 4, hd]
+    (recurrent, per head) and b [H, 4, hd], float32; gn [H, hd]; w_up1,
+    w_up2 [D, F], w_down [F, D] (the gated FFN after the cell)."""
+
+    FIELDS = ("ln", "w", "r", "b", "gn", "w_up1", "w_up2", "w_down")
+
+
+class SLSTMCache(NamedTuple):
+    c: torch.Tensor  # [B, H, hd] f32
+    n: torch.Tensor  # [B, H, hd] f32
+    h: torch.Tensor  # [B, H, hd] f32
+    m: torch.Tensor  # [B, H, hd] f32 stabilizer
+
+
+def slstm_shapes(cfg) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    hd = D // H
+    Ff = int(cfg.slstm_proj_factor * D)
+    dense = common.dense
+    return {"ln": common.norm((D,)), "w": dense((D, H, 4, hd), D),
+            "r": dense((H, hd, 4, hd), D // H, f32=True),
+            "b": common.Field((H, 4, hd), "zeros", f32=True), "gn": _ones((H, hd)),
+            "w_up1": dense((D, Ff), D), "w_up2": dense((D, Ff), D), "w_down": dense((Ff, D), Ff)}
+
+
+def slstm_cache_init(cfg, batch: int, dtype=None, device=None) -> SLSTMCache:
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+
+    def z():
+        return torch.zeros((batch, H, hd), dtype=torch.float32, device=device)
+    return SLSTMCache(c=z(), n=z(), h=z(), m=z() - 10.0)
+
+
+def _slstm_cell(state: SLSTMCache, gx, r) -> SLSTMCache:
+    """gx [B, H, 4, hd]: the input's pre-activations; r [H, hd, 4 * hd]."""
+    c, n, h, m = state
+    B, H, _, hd = gx.shape
+    g = gx + torch.bmm(h.transpose(0, 1), r).transpose(0, 1).view(B, H, 4, hd)
+    it, ft, zt, ot = g.unbind(2)
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + m, it)
+    i_s = torch.exp(it - m_new)
+    f_s = torch.exp(logf + m - m_new)
+    c_new = f_s * c + i_s * torch.tanh(zt)
+    n_new = f_s * n + i_s
+    h_new = torch.sigmoid(ot) * c_new / torch.clamp(n_new, min=1.0)
+    return SLSTMCache(c=c_new, n=n_new, h=h_new, m=m_new)
+
+
+def slstm_apply(p: SLSTMParams, x, cfg, cache: SLSTMCache | None = None,
+                decode: bool = False):
+    B, S, D = x.shape
+    dt = x.dtype
+    h_in = common.rms_norm(x, p.ln)
+    gx = (h_in @ p.w.reshape(D, -1)).to(torch.float32).view(B, S, *p.w.shape[1:]) + p.b
+    H, hd = p.r.shape[0], p.r.shape[1]
+    r = p.r.reshape(H, hd, 4 * hd)
+    state = cache if cache is not None else slstm_cache_init(cfg, B, device=x.device)
+    hs = []
+    with common.span("recurrent.slstm"):
+        for t in range(S):  # decode: S == 1
+            state = _slstm_cell(state, gx[:, t], r)
+            hs.append(state.h)
+        hs = torch.stack(hs, dim=1)  # [B, S, H, hd]
+    hs = common.rms_norm(hs.to(dt), p.gn - 1.0).reshape(B, S, D)
+    up = F.silu(hs @ p.w_up1) * (hs @ p.w_up2)
+    return x + up @ p.w_down, state
+
+
+# ------------------------------------------------------------------ RG-LRU
+class RGLRUParams(common.ParamModule):
+    """ln [D]; w_in, w_gate [D, R]; conv_w [W, R]; w_rg, w_ig [R, R]
+    (recurrence and input gates); lam [R] (Lambda, float32); w_out [R, D]."""
+
+    FIELDS = ("ln", "w_in", "w_gate", "conv_w", "w_rg", "w_ig", "lam", "w_out")
+
+
+class RGLRUCache(NamedTuple):
+    h: torch.Tensor  # [B, R] f32
+    conv: torch.Tensor  # [B, W-1, R]
+
+
+def rglru_shapes(cfg) -> dict:
+    D, W = cfg.d_model, cfg.conv1d_width
+    R = cfg.rglru_width or D
+    dense = common.dense
+    return {"ln": common.norm((D,)), "w_in": dense((D, R), D), "w_gate": dense((D, R), D),
+            "conv_w": dense((W, R), W), "w_rg": dense((R, R), R), "w_ig": dense((R, R), R),
+            "lam": common.Field((R,), "lam", f32=True), "w_out": dense((R, D), R)}
+
+
+def rglru_cache_init(cfg, batch: int, dtype, device=None) -> RGLRUCache:
+    R = cfg.rglru_width or cfg.d_model
+    return RGLRUCache(h=torch.zeros((batch, R), dtype=torch.float32, device=device),
+                      conv=torch.zeros((batch, cfg.conv1d_width - 1, R), dtype=dtype,
+                                       device=device))
+
+
+def _rglru_coeffs(xc, p: RGLRUParams):
+    """a_t, b_t of h_t = a_t h + b_t [B, S, R], float32."""
+    rg = torch.sigmoid((xc @ p.w_rg).to(torch.float32))
+    ig = torch.sigmoid((xc @ p.w_ig).to(torch.float32))
+    log_a = -_RGLRU_C * rg * F.softplus(p.lam)  # <= 0
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * ig \
+        * xc.to(torch.float32)
+    return a, b
+
+
+def linear_scan(a, b, h0):
+    """h_t = a_t h_{t-1} + b_t over axis 1, from h0 [B, R]: the carry as a
+    pseudo-step (a = 1, b = h0) ahead of the sequence, then Hillis-Steele
+    over the pairs, ceil(log2(S + 1)) passes of (a_l, b_l) . (a_r, b_r) =
+    (a_l a_r, a_r b_l + b_r), each one fused multiply-add into the other
+    of two buffers.  Returns h [B, S, R]."""
+    A = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
+    Bv = torch.cat([h0[:, None], b], dim=1)
+    A2, B2 = torch.empty_like(A), torch.empty_like(Bv)
+    n, d = A.shape[1], 1
+    while d < n:
+        B2[:, :d] = Bv[:, :d]
+        torch.addcmul(Bv[:, d:], A[:, d:], Bv[:, :-d], out=B2[:, d:])
+        Bv, B2 = B2, Bv
+        if 2 * d < n:
+            A2[:, :d] = A[:, :d]
+            torch.mul(A[:, :-d], A[:, d:], out=A2[:, d:])
+            A, A2 = A2, A
+        d *= 2
+    return Bv[:, 1:]
+
+
+def rglru_apply(p: RGLRUParams, x, cfg, cache: RGLRUCache | None = None,
+                decode: bool = False):
+    B, S, D = x.shape
+    dt = x.dtype
+    hx = common.rms_norm(x, p.ln)
+    gate = F.gelu(hx @ p.w_gate, approximate="tanh")
+    xin = hx @ p.w_in
+    xc, conv_new = causal_conv1d(xin, p.conv_w, cache.conv if cache is not None else None)
+    a, b = _rglru_coeffs(xc, p)
+    h0 = cache.h if cache is not None else a.new_zeros((B, a.shape[-1]))
+    with common.span("recurrent.rglru"):
+        hs = (a[:, 0] * h0 + b[:, 0])[:, None] if decode else linear_scan(a, b, h0)
+    out = hs.to(dt) * gate
+    return x + out @ p.w_out, RGLRUCache(h=hs[:, -1].clone(), conv=conv_new)

@@ -9,9 +9,8 @@ unit params per superblock and loops; caches are a list over superblocks
 of a tuple over units, so gemma2's local/global alternation and its
 caches map one to one onto the JAX package's.
 
-Ported units: attn, cross, mlp.  The moe and recurrent units raise
-``NotImplementedError`` (ROADMAP.md, queue 1); ``remat`` is for training
-and is left out.
+Every unit is ported; ``remat`` is for training and is left out (the
+port runs forward only).
 """
 from __future__ import annotations
 
@@ -21,9 +20,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from repro_torch.models import attention, common, mlp
-
-NOT_PORTED = ("moe", "mlstm", "slstm", "rglru")
+from repro_torch.models import attention, common, mlp, moe, recurrent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,41 +74,42 @@ def encoder_program(cfg):
     return (Unit("attn", causal=False), Unit("mlp")), cfg.n_encoder_layers
 
 
-def _not_ported(kind: str):
-    raise NotImplementedError(
-        f"the {kind!r} unit is not ported to PyTorch yet (ROADMAP.md, queue 1: the moe, "
-        "ssm and hybrid families follow the dense, vlm and audio ones)")
-
-
 # --------------------------------------------------------------- dispatch
+# kind -> (params class, field table)
+_UNITS = {
+    "attn": (attention.AttnParams, attention.shapes),
+    "cross": (attention.AttnParams, attention.shapes),
+    "mlp": (mlp.MLPParams, mlp.shapes),
+    "moe": (moe.MoEParams, moe.shapes),
+    "mlstm": (recurrent.MLSTMParams, recurrent.mlstm_shapes),
+    "slstm": (recurrent.SLSTMParams, recurrent.slstm_shapes),
+    "rglru": (recurrent.RGLRUParams, recurrent.rglru_shapes),
+}
+
+
+def _unit(kind: str):
+    if kind not in _UNITS:
+        raise ValueError(kind)
+    return _UNITS[kind]
+
+
 def unit_shapes(cfg, u: Unit) -> dict:
-    """field -> (shape, fan_in) of a unit's params; fan_in None for a norm."""
-    if u.kind in ("attn", "cross"):
-        return attention.shapes(cfg)
-    if u.kind == "mlp":
-        return mlp.shapes(cfg)
-    if u.kind in NOT_PORTED:
-        _not_ported(u.kind)
-    raise ValueError(u.kind)
+    """field -> ``common.Field`` (shape, init kind, fan-in, float32 or the
+    compute dtype): the one table that ``unit_init``, ``unit_params`` and
+    ``weights`` read."""
+    return _unit(u.kind)[1](cfg)
 
 
 def unit_params(cfg, u: Unit, tensors: dict, dtype, device=None) -> common.ParamModule:
     """A unit's params module from its tensors by field name."""
-    unit_shapes(cfg, u)  # raises for a unit that is not ported
-    cls = attention.AttnParams if u.kind in ("attn", "cross") else mlp.MLPParams
-    return cls(dtype=dtype, device=device, **tensors)
+    return _unit(u.kind)[0](unit_shapes(cfg, u), dtype=dtype, device=device, **tensors)
 
 
 def unit_init(cfg, u: Unit, generator: torch.Generator, dtype) -> common.ParamModule:
-    """Norm scales zero, matrices ``common.dense_init``, as the JAX package
-    initializes them (from another random stream)."""
-    tensors = {}
-    for name, (shape, fan_in) in unit_shapes(cfg, u).items():
-        if fan_in is None:
-            tensors[name] = torch.zeros(shape, dtype=torch.float32, device=generator.device)
-        else:
-            tensors[name] = common.dense_init(shape, generator, fan_in, dtype)
-    return unit_params(cfg, u, tensors, dtype)
+    """Each field by its init kind (``common.init_field``), as the JAX
+    package initializes it (from another random stream)."""
+    return unit_params(cfg, u, {name: common.init_field(f, generator, dtype)
+                                for name, f in unit_shapes(cfg, u).items()}, dtype)
 
 
 def unit_cache_init(cfg, u: Unit, batch, max_len, dtype, device=None):
@@ -123,33 +121,53 @@ def unit_cache_init(cfg, u: Unit, batch, max_len, dtype, device=None):
         S = cfg.encoder_frames
         return (torch.zeros((batch, K, S, hd), dtype=dtype, device=device),
                 torch.zeros((batch, K, S, hd), dtype=dtype, device=device))
-    if u.kind in NOT_PORTED:
-        _not_ported(u.kind)
-    return ()  # mlp: stateless
+    if u.kind == "mlstm":
+        return recurrent.mlstm_cache_init(cfg, batch, dtype, device)
+    if u.kind == "slstm":
+        return recurrent.slstm_cache_init(cfg, batch, dtype, device)
+    if u.kind == "rglru":
+        return recurrent.rglru_cache_init(cfg, batch, dtype, device)
+    return ()  # mlp/moe: stateless
+
+
+_RECURRENT = {"mlstm": recurrent.mlstm_apply, "slstm": recurrent.slstm_apply,
+              "rglru": recurrent.rglru_apply}
 
 
 def unit_apply(u: Unit, p, x, cfg, mode: str, cache, ctx: dict[str, Any]):
-    """Returns (x, new_cache).  In prefill, ``ctx["plain_attention"]`` asks
-    for the plain attention of ``attention.apply_prefill``."""
+    """Returns (x, new_cache, aux): aux is the moe unit's load-balance plus
+    z-loss in "train" mode, else 0.0.  In prefill, ``ctx["plain_attention"]``
+    asks for the plain attention of ``attention.apply_prefill``.  For the
+    checks, a moe unit appends its ``moe.Routing`` to ``ctx["moe_routes"]``
+    and takes its experts from the iterator ``ctx["moe_experts"]`` where
+    the caller puts them there."""
     if u.kind == "attn":
         if mode == "train":
             x = attention.apply_full(p, x, cfg, window=u.window, is_causal=u.causal)
-            return x, ()
+            return x, (), 0.0
         if mode == "prefill":
-            return attention.apply_prefill(p, x, cfg, cache, window=u.window,
-                                           plain=ctx.get("plain_attention", False))
-        return attention.apply_decode(p, x, cfg, cache, window=u.window)
+            x, cache = attention.apply_prefill(p, x, cfg, cache, window=u.window,
+                                               plain=ctx.get("plain_attention", False))
+            return x, cache, 0.0
+        x, cache = attention.apply_decode(p, x, cfg, cache, window=u.window)
+        return x, cache, 0.0
     if u.kind == "cross":
         if mode in ("train", "prefill"):
             kv = attention.encode_kv(p, ctx["enc_out"], cfg)
             x = attention.apply_full(p, x, cfg, is_causal=False, kv_override=kv)
-            return x, (kv if mode == "prefill" else ())
+            return x, (kv if mode == "prefill" else ()), 0.0
         x = attention.apply_full(p, x, cfg, is_causal=False, kv_override=cache)
-        return x, cache
+        return x, cache, 0.0
     if u.kind == "mlp":
-        return mlp.apply(p, x, cfg), ()
-    if u.kind in NOT_PORTED:
-        _not_ported(u.kind)
+        return mlp.apply(p, x, cfg), (), 0.0
+    if u.kind == "moe":
+        experts = ctx.get("moe_experts")
+        x, a = moe.apply(p, x, cfg, with_aux=mode == "train", routes=ctx.get("moe_routes"),
+                         experts=None if experts is None else next(experts))
+        return x, (), (a["lb_loss"] + a["z_loss"] if a else 0.0)
+    if u.kind in _RECURRENT:
+        x, cache = _RECURRENT[u.kind](p, x, cfg, cache, decode=mode == "decode")
+        return x, (() if mode == "train" else cache), 0.0
     raise ValueError(u.kind)
 
 
@@ -167,21 +185,24 @@ def stack_cache_init(cfg, units, n, batch, max_len, dtype, device=None) -> list:
 
 def apply_units(params, x, cfg, units, mode, cache=None, ctx=None):
     """One pass over ``units`` (a superblock, the prelude or the trailing
-    block) with their params and caches; returns (x, new caches)."""
+    block) with their params and caches; returns (x, new caches, the sum
+    of the units' aux)."""
     ctx = ctx or {}
-    new_caches = []
+    new_caches, aux = [], 0.0
     for j, u in enumerate(units):
         c = cache[j] if cache is not None else None
-        x, nc = unit_apply(u, params[j], x, cfg, mode, c, ctx)
+        x, nc, a = unit_apply(u, params[j], x, cfg, mode, c, ctx)
         new_caches.append(nc)
-    return x, tuple(new_caches)
+        aux = aux + a
+    return x, tuple(new_caches), aux
 
 
 def apply_stack(params, x, cfg, units, n, mode: str, cache=None, ctx=None):
-    """The superblock n times, in order.  Returns (x, new caches)."""
-    new_cache = []
+    """The superblock n times, in order.  Returns (x, new caches, aux)."""
+    new_cache, aux = [], 0.0
     for i in range(n):
-        x, nc = apply_units(params[i], x, cfg, units, mode,
-                            cache[i] if cache is not None else None, ctx)
+        x, nc, a = apply_units(params[i], x, cfg, units, mode,
+                               cache[i] if cache is not None else None, ctx)
         new_cache.append(nc)
-    return x, new_cache
+        aux = aux + a
+    return x, new_cache, aux

@@ -20,21 +20,41 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.models import model, transformer
+from repro_torch.models import common, model, transformer
 
 NORM_STD = 0.1  # norm scales are drawn too, so that a wrong `1 + scale` shows
 
 
-def _draw(rng, shape, fan_in) -> np.ndarray:
-    """float32: fan_in None -> NORM_STD * N(0, 1); else N(0, 1) clipped at
-    +-2 and scaled by fan_in ** -0.5 (``common.dense_init``'s law but for
-    the clip, which keeps the draw one pass)."""
+def _draw(rng, shape, f: common.Field) -> np.ndarray:
+    """A float32 draw of ``shape`` (the field's, behind any leading stack
+    axes) by the field's init kind:
+
+    - "dense": N(0, 1) clipped at +-2 and scaled by fan_in ** -0.5
+      (``common.dense_init``'s law but for the clip, which keeps the draw
+      one pass);
+    - "zeros" (norm scales, the sLSTM bias): NORM_STD * N(0, 1);
+    - "ones" (the group norms' gn): 1 + NORM_STD * N(0, 1), so that
+      ``gn - 1`` is a small scale as the JAX init's ones make it;
+    - "lam" (the RG-LRU's Lambda): -logit(linspace(0.9, 0.999, R)) plus
+      NORM_STD * N(0, 1).  The JAX package decays by a = exp(-8 rg
+      softplus(lam)) (softplus of +lam, ``recurrent.py:298``): at its own
+      init, logit(linspace), a is 1e-4 to 1e-12 at rg = 1/2 and a test
+      would never see the carried state; the negated logit gives a of
+      0.66 to 0.996 there, the range the JAX init's comment aims for.
+    """
     x = rng.standard_normal(shape, dtype=np.float32)
-    if fan_in is None:
-        x *= NORM_STD
-    else:
+    if f.init == "dense":
         np.clip(x, -2.0, 2.0, out=x)
-        x *= np.float32((1.0 / max(fan_in, 1)) ** 0.5)
+        x *= np.float32((1.0 / max(f.fan_in, 1)) ** 0.5)
+        return x
+    x *= NORM_STD
+    if f.init == "ones":
+        x += np.float32(1.0)
+    elif f.init == "lam":
+        a = np.linspace(0.9, 0.999, shape[-1], dtype=np.float32)
+        x -= np.log(a / (1 - a))
+    elif f.init != "zeros":
+        raise ValueError(f.init)
     return x
 
 
@@ -44,23 +64,25 @@ def numpy_params(cfg, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     prelude, sb, n_super, trailing = transformer.block_program(cfg)
     D = cfg.d_model
+    norm = common.norm((D,))
 
     def unit(u, lead=()):
-        return {name: _draw(rng, lead + shape, fan_in)
-                for name, (shape, fan_in) in transformer.unit_shapes(cfg, u).items()}
+        return {name: _draw(rng, lead + f.shape, f)
+                for name, f in transformer.unit_shapes(cfg, u).items()}
 
     def stack(units, n):
         return tuple(unit(u, (n,)) for u in units) if n else tuple(() for _ in units)
 
-    tree = {"embed": _draw(rng, (cfg.vocab, D), D), "final_norm": _draw(rng, (D,), None),
+    tree = {"embed": _draw(rng, (cfg.vocab, D), common.dense((cfg.vocab, D), D)),
+            "final_norm": _draw(rng, (D,), norm),
             "prelude": tuple(unit(u) for u in prelude), "main": stack(sb, n_super),
             "trailing": tuple(unit(u) for u in trailing)}
     if cfg.is_encoder_decoder:
         eu, en = transformer.encoder_program(cfg)
         tree["encoder"] = stack(eu, en)
-        tree["enc_norm"] = _draw(rng, (D,), None)
+        tree["enc_norm"] = _draw(rng, (D,), norm)
     if not cfg.tie_embeddings:
-        tree["lm_head"] = _draw(rng, (D, cfg.vocab), D)
+        tree["lm_head"] = _draw(rng, (D, cfg.vocab), common.dense((D, cfg.vocab), D))
     return tree
 
 
@@ -76,7 +98,8 @@ def _fields(unit) -> dict:
 def from_jax_params(tree, cfg, device=None) -> model.Params:
     """The port's params from a tree in the JAX package's layout (numpy
     arrays, or anything ``np.asarray`` takes), on ``device`` (``None``
-    means ``"cuda"``); matrices cast to ``cfg.dtype``, norms float32."""
+    means ``"cuda"``); each field in its held dtype (``common.Field.f32``:
+    float32, or ``cfg.dtype``)."""
     dev = resolve_device(device)
     dt = model._dtype(cfg)
     prelude, sb, n_super, trailing = transformer.block_program(cfg)

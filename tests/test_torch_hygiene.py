@@ -35,7 +35,8 @@ def test_importing_the_sweep_leaves_jax_out():
     code = ("import sys; import repro_torch.netsim.sweep, repro_torch.netsim.carry, "
             "repro_torch.netsim.engine, repro_torch.kernels.ops, repro_torch.obs, "
             "repro_torch.dist, repro_torch.configs.registry, repro_torch.models.model, "
-            "repro_torch.models.weights, repro_torch.serve.engine, repro_torch.serve.compare; "
+            "repro_torch.models.weights, repro_torch.models.moe, repro_torch.models.recurrent, "
+            "repro_torch.serve.engine, repro_torch.serve.compare; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -85,8 +86,9 @@ def test_entry_points_default_to_cuda():
     from repro_torch.serve import engine as serve
 
     mcfg = registry.get_config("gemma2-2b", reduced=True)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        model.init_params(mcfg)
+    for arch in ("gemma2-2b", "deepseek-moe-16b", "recurrentgemma-9b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init_params(registry.get_config(arch, reduced=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         weights.from_jax_params(weights.numpy_params(mcfg, 0), mcfg)
     params = model.init_params(mcfg, device="cpu")

@@ -7,6 +7,8 @@ without JAX:
 
 Elsewhere they skip.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -632,3 +634,70 @@ def test_reduced_gemma2_served_on_the_card(cuda, dtype, route):
     for i, (toks, n) in enumerate(zip(runs[0], upto)):
         assert toks[:n] == ref_tokens[:n, i].tolist()
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "recurrentgemma-9b"])
+def test_reduced_families_served_on_the_card(cuda, arch):
+    """A REDUCED moe and hybrid config (float32, weights from numpy_params)
+    served on the card against the CPU: ServeEngine runs every
+    self-attention layer's prefill through the kernel, the card's
+    teacher-forced logits lie within SERVE_TOL of the CPU's row RMS and its
+    greedy tokens equal the CPU's up to the first near-tie; a second run
+    repeats bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer, weights
+    from repro_torch.serve import compare, engine
+
+    cfg = registry.get_config(arch, reduced=True).replace(dtype="float32")
+    tree = weights.numpy_params(cfg, 5)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (30, 45, 37)]
+    max_len, steps = 60, 10
+    ref_tokens, ref_logits = compare.serve_steps(
+        weights.from_jax_params(tree, cfg, device="cpu"), cfg, prompts, max_len, steps)
+    params = weights.from_jax_params(tree, cfg, device=cuda)
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+    n_attn = (n_super * sum(u.kind == "attn" for u in sb)
+              + sum(u.kind == "attn" for u in prelude + trailing))
+    runs = []
+    for _ in range(2):
+        before = dict(fa.flash_attention.route_launches)
+        eng = engine.ServeEngine(cfg, params, batch_size=3, max_len=max_len, device=cuda)
+        eng.admit([engine.Request(i, p, steps) for i, p in enumerate(prompts)])
+        runs.append([r.out_tokens for r in eng.run()])
+        assert _route_delta(before) == {"simt": n_attn}
+    assert runs[0] == runs[1]
+    _, got = compare.serve_steps(params, cfg, prompts, max_len, steps, forced=ref_tokens)
+    tol = compare.SERVE_TOL["float32"]
+    err, rms = compare.logit_agreement(got.cpu(), ref_logits, ref_tokens, top=None)
+    assert err <= tol
+    upto = compare.tokens_before_near_tie(compare.margins(ref_logits), rms, tol)
+    for i, (toks, n) in enumerate(zip(runs[0], upto)):
+        assert toks[:n] == ref_tokens[:n, i].tolist()
+
+
+@pytest.mark.gpu
+def test_moe_apply_repeats_bit_for_bit_on_the_card(cuda):
+    """moe.apply on the card, twice on the same inputs, bit-identical (the
+    combine gathers each token's slots and adds them in expert order; no
+    atomics), with replicas dropped; and its routing the CPU's."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe, transformer, weights
+
+    cfg = registry.get_config("deepseek-moe-16b", reduced=True).replace(
+        d_model=256, dtype="bfloat16")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))  # drops
+    fields = {k: v[0] for k, v in weights.numpy_params(cfg, 7)["main"][1].items()}
+    u = transformer.Unit("moe")
+    p_cpu = transformer.unit_params(cfg, u, fields, torch.bfloat16)
+    p = transformer.unit_params(cfg, u, fields, torch.bfloat16, cuda)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((4, 512, 256),
+                                                                 dtype=np.float32))
+    x = x.to(torch.bfloat16)
+    first, _ = moe.apply(p, x.to(cuda), cfg)
+    second, _ = moe.apply(p, x.to(cuda), cfg)
+    assert torch.equal(first, second)
+    r, r_cpu = moe.routing(p, x.to(cuda), cfg), moe.routing(p_cpu, x, cfg)
+    assert int(r.dropped) > 0
+    assert torch.equal(r.gate_idx.cpu(), r_cpu.gate_idx) and torch.equal(r.slot.cpu(), r_cpu.slot)

@@ -1,0 +1,210 @@
+"""The port's recurrent units against the JAX package's, on the CPU:
+``causal_conv1d`` with its carry, the mLSTM (chunkwise prefill over two
+chunks, from a carried state, then decode), the sLSTM and the RG-LRU
+(from a carried h), each in float32 and bfloat16, weights drawn by
+``repro_torch.models.weights.numpy_params`` for both packages.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import registry as jreg  # noqa: E402
+from repro.models import recurrent as jrec  # noqa: E402
+from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.models import recurrent as trec, transformer as tt, weights  # noqa: E402
+
+# tests/test_torch_models.py's tolerances (see there)
+TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2**-6, atol=2**-4)}
+DTYPES = tuple(TOL)
+JAX_PARAMS = {"mlstm": jrec.MLSTMParams, "slstm": jrec.SLSTMParams, "rglru": jrec.RGLRUParams}
+
+
+def f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def close(got, want, dtype, what=""):
+    np.testing.assert_allclose(f32(got), f32(want), err_msg=what, **TOL[dtype])
+
+
+def held(got, want, dtype, what, ref32=None):
+    """``close``; or, given the JAX package's float32 run ``ref32``, the
+    bfloat16 spread rule of tests/test_torch_models.py (BF16_SPREAD): the
+    port's largest and mean |error| against it no more than 1.5 times the
+    JAX package's own bfloat16 run's."""
+    if ref32 is None:
+        return close(got, want, dtype, what)
+    mine, theirs = (np.abs(f32(a) - f32(ref32)) for a in (got, want))
+    for stat in (np.max, np.mean):
+        assert stat(mine) <= 1.5 * stat(theirs), (what, stat.__name__, stat(mine),
+                                                 stat(theirs))
+
+
+def close_cache(got, want, dtype, what):
+    for name in want._fields:
+        close(getattr(got, name), getattr(want, name), dtype, f"{what} {name}")
+
+
+def unit_pair(arch, kind, dtype, seed=3):
+    """The JAX and the port's configs and params of the first ``kind`` unit
+    of ``arch``'s REDUCED superblock."""
+    jcfg = jreg.get_config(arch, reduced=True).replace(dtype=dtype)
+    tcfg = treg.get_config(arch, reduced=True).replace(dtype=dtype)
+    _, sb, _, _ = tt.block_program(tcfg)
+    j = [u.kind for u in sb].index(kind)
+    fields = {k: v[0] for k, v in weights.numpy_params(tcfg, seed)["main"][j].items()}
+    jp = JAX_PARAMS[kind](**{k: jnp.asarray(v) for k, v in fields.items()})
+    return jcfg, tcfg, jp, tt.unit_params(tcfg, sb[j], fields, getattr(torch, dtype))
+
+
+def pair(a, dtype):
+    """numpy -> (the JAX array, the torch tensor) in ``dtype``."""
+    return jnp.asarray(a, dtype), torch.as_tensor(a).to(getattr(torch, dtype))
+
+
+def carried(rng, cache, dtype, scale=1.0):
+    """A cache of random values in the JAX cache's layout, for both."""
+    jc, tc = {}, {}
+    for name in cache._fields:
+        leaf = getattr(cache, name)
+        a = rng.standard_normal(leaf.shape, dtype=np.float32) * scale
+        jc[name], tc[name] = pair(a, "float32" if leaf.dtype == jnp.float32 else dtype)
+    return type(cache)(**jc), tc
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_causal_conv1d_matches_reference(dtype):
+    rng = np.random.default_rng(0)
+    x, w, prev = (rng.standard_normal(s, dtype=np.float32)
+                  for s in ((2, 10, 16), (4, 16), (2, 3, 16)))
+    for carry in (None, prev):
+        jargs = [pair(a, dtype)[0] for a in (x, w)]
+        targs = [pair(a, dtype)[1] for a in (x, w)]
+        jy, jprev = jrec.causal_conv1d(*jargs, None if carry is None else pair(carry, dtype)[0])
+        ty, tprev = trec.causal_conv1d(*targs, None if carry is None else pair(carry, dtype)[1])
+        close(ty, jy, dtype, "conv")
+        close(tprev, jprev, dtype, "carry out")
+
+
+def mlstm_vs_reference(dtype):
+    """Prefill over two 256-token chunks from a carried (C, n, conv), the
+    new cache, then decode steps (the two apply hd ** -0.5 otherwise, as
+    the JAX package does).  In bfloat16 the prefill's output is held by
+    the spread rule (``held``): at S = 512 two right bfloat16 runs differ
+    past TOL where a head's group norm divides by a small RMS, each run
+    far off the float32 value there.  An AssertionError where a check is
+    broken."""
+    jcfg, tcfg, jp, tp = unit_pair("xlstm-1.3b", "mlstm", dtype)
+    rng = np.random.default_rng(1)
+    jc, tc = carried(rng, jrec.mlstm_cache_init(jcfg, 2, jnp.dtype(dtype)), dtype, 0.5)
+    tc = trec.MLSTMCache(**tc)
+    x = rng.standard_normal((2, 2 * trec.MLSTM_CHUNK, tcfg.d_model), dtype=np.float32)
+    prefill = jax.jit(lambda p, x, c, cfg: jrec.mlstm_apply(p, x, cfg, c), static_argnums=3)
+    jy, jc32 = prefill(jp, pair(x, dtype)[0], jc, jcfg)
+    ref32 = None
+    if dtype == "bfloat16":
+        jp32 = type(jp)(*(a.astype(jnp.float32) for a in jp))
+        c32 = type(jc)(*(a.astype(jnp.float32) for a in jc))
+        ref32, _ = prefill(jp32, jnp.asarray(x), c32, jcfg.replace(dtype="float32"))
+    jc = jc32
+    ty, tc = trec.mlstm_apply(tp, pair(x, dtype)[1], tcfg, tc)
+    held(ty, jy, dtype, "prefill", ref32)
+    close_cache(tc, jc, dtype, "prefill cache")
+    step = jax.jit(lambda p, x, c: jrec.mlstm_apply(p, x, jcfg, c, decode=True))
+    for s in range(3):
+        xt = rng.standard_normal((2, 1, tcfg.d_model), dtype=np.float32)
+        jy, jc = step(jp, pair(xt, dtype)[0], jc)
+        ty, tc = trec.mlstm_apply(tp, pair(xt, dtype)[1], tcfg, tc, decode=True)
+        close(ty, jy, dtype, f"decode step {s}")
+    close_cache(tc, jc, dtype, "decode cache")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mlstm_matches_reference(dtype):
+    """``mlstm_vs_reference`` holds."""
+    mlstm_vs_reference(dtype)
+
+
+def test_mlstm_spread_rule_fails_a_planted_fault(monkeypatch):
+    """The bfloat16 spread rule fails a wrong mLSTM: the carried state C0
+    scaled by hd ** -0.5 inside a chunk (as decode scales q)."""
+    chunk = trec._mlstm_chunk
+    monkeypatch.setattr(trec, "_mlstm_chunk", lambda C0, n0, q, k, v, i, logf, scale: chunk(
+        C0 * scale, n0, q, k, v, i, logf, scale))
+    with pytest.raises(AssertionError, match="prefill"):
+        mlstm_vs_reference("bfloat16")
+
+
+def test_mlstm_length_rule():
+    """A sequence longer than a chunk must be a whole number of them, where
+    the JAX package asserts."""
+    _, tcfg, _, tp = unit_pair("xlstm-1.3b", "mlstm", "float32")
+    with pytest.raises(ValueError, match="chunks of 256"):
+        trec.mlstm_apply(tp, torch.zeros((1, 300, tcfg.d_model)), tcfg)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_slstm_matches_reference(dtype):
+    """The loop over time from the initial state (the stabilizer at -10),
+    then decode steps; the cache after each."""
+    jcfg, tcfg, jp, tp = unit_pair("xlstm-1.3b", "slstm", dtype)
+    assert tp.r.dtype == tp.b.dtype == torch.float32
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 24, tcfg.d_model), dtype=np.float32)
+    jy, jc = jax.jit(lambda p, x: jrec.slstm_apply(p, x, jcfg))(jp, pair(x, dtype)[0])
+    ty, tc = trec.slstm_apply(tp, pair(x, dtype)[1], tcfg)
+    close(ty, jy, dtype, "prefill")
+    close_cache(tc, jc, dtype, "prefill cache")
+    step = jax.jit(lambda p, x, c: jrec.slstm_apply(p, x, jcfg, c, decode=True))
+    for s in range(3):
+        xt = rng.standard_normal((2, 1, tcfg.d_model), dtype=np.float32)
+        jy, jc = step(jp, pair(xt, dtype)[0], jc)
+        ty, tc = trec.slstm_apply(tp, pair(xt, dtype)[1], tcfg, tc, decode=True)
+        close(ty, jy, dtype, f"decode step {s}")
+    close_cache(tc, jc, dtype, "decode cache")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_matches_reference(dtype):
+    """The scan from a carried h and conv (the carry as the pseudo-step),
+    with Lambda drawn so that a state lasts tens of steps, then decode."""
+    jcfg, tcfg, jp, tp = unit_pair("recurrentgemma-9b", "rglru", dtype)
+    assert tp.lam.dtype == torch.float32
+    rng = np.random.default_rng(3)
+    jc, tc = carried(rng, jrec.rglru_cache_init(jcfg, 2, jnp.dtype(dtype)), dtype)
+    tc = trec.RGLRUCache(**tc)
+    x = rng.standard_normal((2, 40, tcfg.d_model), dtype=np.float32)
+    jy, jc2 = jax.jit(lambda p, x, c: jrec.rglru_apply(p, x, jcfg, c))(jp, pair(x, dtype)[0], jc)
+    ty, tc2 = trec.rglru_apply(tp, pair(x, dtype)[1], tcfg, tc)
+    close(ty, jy, dtype, "prefill")
+    close_cache(tc2, jc2, dtype, "prefill cache")
+    # the carried h reaches the last step: zeroing it moves the output there
+    _, j0 = jrec.rglru_apply(jp, pair(x, dtype)[0], jcfg, jc._replace(h=jnp.zeros_like(jc.h)))
+    assert float(jnp.abs(j0.h - jc2.h).max()) > 1e-3
+    step = jax.jit(lambda p, x, c: jrec.rglru_apply(p, x, jcfg, c, decode=True))
+    for s in range(3):
+        xt = rng.standard_normal((2, 1, tcfg.d_model), dtype=np.float32)
+        jy, jc2 = step(jp, pair(xt, dtype)[0], jc2)
+        ty, tc2 = trec.rglru_apply(tp, pair(xt, dtype)[1], tcfg, tc2, decode=True)
+        close(ty, jy, dtype, f"decode step {s}")
+    close_cache(tc2, jc2, dtype, "decode cache")
+
+
+@pytest.mark.parametrize("S", [1, 2, 7, 64])
+def test_linear_scan_is_the_loop(S):
+    """The log-depth scan against the step-by-step recurrence, in float64."""
+    rng = np.random.default_rng(S)
+    a = torch.as_tensor(rng.uniform(0.5, 1.0, (2, S, 8)))
+    b = torch.as_tensor(rng.standard_normal((2, S, 8)))
+    h0 = torch.as_tensor(rng.standard_normal((2, 8)))
+    h, want = h0, []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        want.append(h)
+    np.testing.assert_allclose(trec.linear_scan(a, b, h0).numpy(),
+                               torch.stack(want, 1).numpy(), rtol=1e-12, atol=1e-12)
