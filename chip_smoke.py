@@ -65,7 +65,11 @@ Phases, each printed as JSON lines:
               sweep, and 32 steps of the dense engine on the alistorage
               0.8 trace, under torch.profiler: host ms per step (and per
               phase, compact), the device's busy and idle share, the
-              kernels with the most device time;
+              kernels with the most device time; then
+              repro_torch.netsim.profile.profile_phases on the compact
+              batch: admit, cascade, dcqcn, finish, the whole step and the
+              quiescence check, each timed alone (us, the card
+              synchronized around each call), printed, not gated;
   7. adaptive fixed and adaptive dt (SimConfig(adaptive=True)), back to
               back per scheme, on three cases: bench_adaptive_dt's
               collective on leaf_spine(4, 4, 4) and on sim_2tier, and the
@@ -84,15 +88,20 @@ Phases, each printed as JSON lines:
               package's; a zero-loss vector against no loss operand, and
               the static capacity against the schedule;
   9. flowcell bench_flowcell's grid (a ring of 8 on leaf_spine(4, 4, 4) at
-              25G with 100G hosts, and its hetero twin with one 100G spine):
+              25G with 100G hosts, and its hetero twin with one 100G spine;
+              FLOWCELL_GRID: 8 MB, 150 us gaps, 5 ms, half the bench's):
               SeqBalance, ECMP, flowlet_timeout and ECMP over a 4-flowcell
               trace with the reordering cost free or at budgets 0, 4, 16;
               the censored p99/p50/completion of each against the JAX
               package's (src/repro_torch/netsim/flowcell_reference.json),
               and its two acceptance facts; flowcells=1 and reorder=0.0 on
-              unsprayed traffic bit-identical to the classic run (also on
-              phase 3's SeqBalance alistorage batch); the ring at 8 MB on
-              sim_2tier with adaptive dt, ff_steps beside the JAX package's;
+              unsprayed traffic bit-identical to the classic run (the
+              grid's SeqBalance arm; also on phase 3's SeqBalance
+              alistorage batch); the ring at 8 MB on sim_2tier with
+              adaptive dt, ff_steps beside the JAX package's; the grid's
+              arms with a window of every flow, and its symmetric ECMP arm
+              again at the planner's window, which spills: sweep's spill
+              retry gives the full window's finishes;
  10. record   the flight recorder (RecordSpec(ring_chunks=64)) on
               bench_obs's collective, fixed and adaptive, and on phase 3's
               SeqBalance alistorage batch: finish times without and with
@@ -106,10 +115,11 @@ Phases, each printed as JSON lines:
               cases (cosim_cases: the three_tier acceptance row at full
               width, the leaf_spine grid through run_cosim_grid with the
               recorder and a flight log, the mixed chaos campaign with
-              adaptive dt, the degraded telemetry and blackout cells),
-              each held per epoch against the JAX package's run of the
-              same spec (src/repro_torch/netsim/cosim_reference.json), its
-              wall and us per step printed.
+              adaptive dt, the degraded telemetry and blackout cells; the
+              leaf_spine rings at COSIM_RING_BYTES), each held per epoch
+              against the JAX package's run of the same spec
+              (src/repro_torch/netsim/cosim_reference.json), its wall and
+              us per step printed.
  12. serve_ref gemma2-2b at full width cut to 4 layers and a 256-token
               window (weights from repro_torch.models.weights.numpy_params),
               two prompts of 384 and 600 tokens, 32 new tokens, served in
@@ -160,11 +170,35 @@ Phases, each printed as JSON lines:
               the plain attention in each prefill layer, and the
               profile's device ms inside the model's ranges (MoE
               dispatch, experts and combine, the recurrent scans).
+ 16. testbed  Table I (core.gbn.table1_inflation on the card: 5.77x and
+              2.83x), then the paper's testbed results at the paper's scale
+              (benchmarks/paper_benches.py:99-156, copied): Fig. 10 on
+              topology.testbed_symmetric() and Fig. 11 on
+              testbed_asymmetric(), ECMP and SeqBalance, 15 ms of three
+              pairs of 4 QPs starting at 0, 5 and 10 ms, leaf 0's per-path
+              uplink load over steps 1,000-1,500 (total, spread, the fat
+              path and its gain); Table II, SeqBalance with 1, 2 and 3
+              senders for 10 ms in one batch (congestion-packet bandwidth,
+              mean goodput); each reading against the JAX package's
+              (src/repro_torch/netsim/testbed_reference.json) within
+              TESTBED_REL, the paper's facts as the JAX package reads
+              them, and the tiered kernel launched on every step of every
+              run (that each TESTBED_PLANTED fault fails these gates is
+              shown by tests/test_torch_testbed.py).
+
+Phases 1, 2 and 6 run first, alone on the card.  The others run in the
+four processes of WORKERS at once, on the same card (python3
+chip_smoke.py --worker NAME): the simulator's steps are host work on a
+device that idles most of a step (phase 6), so their walls overlap.
+Each process runs its phases in order, prints their lines and, last, a
+{"worker": ...} line with the launch counts of each phase (set to 0
+before the phase, read after it); the script prints each worker's lines
+once all have ended.  Their walls are taken with the others running.
 
 Each phase's wall is printed after it.  Then a "kernels" line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that
-line; so does a machine without CUDA or a directory without the
-repository.
+line, and stops the workers still running; so does a machine without
+CUDA or a directory without the repository.
 
 With --cluster-sweep it runs only the measurement behind
 kernels/cascade_common.py::cluster_size instead: the three cluster
@@ -329,6 +363,13 @@ def card_name() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def load_kernels() -> None:
+    from repro_torch.kernels import build
+
+    for k in build.KERNELS:
+        build.load(k)
+
+
 def phase_device():
     from repro_torch.kernels import build
 
@@ -337,8 +378,7 @@ def phase_device():
     t0 = time.time()
     missing = [k for k in build.KERNELS if not build.library_path(k).exists()]
     build.build_many(build.KERNELS)  # one nvcc per source, all at once
-    for k in build.KERNELS:
-        build.load(k)
+    load_kernels()
     emit({"phase": "device", "nvidia_smi": card, "build_s": time.time() - t0,
           "built": missing})
 
@@ -1136,11 +1176,13 @@ def phase_profile(warm_steps: int = 100, steps: int = 32):
     alistorage batch (B = 2, the sweep's largest kernel shapes), with the
     host time of each phase (record_function ranges in compact.step_fn),
     and the dense engine on the alistorage 0.8 trace (B = 1, a window of
-    every flow), whose step has no admission."""
+    every flow), whose step has no admission; then netsim/profile.py's
+    profile_phases on the compact batch, each phase and the whole step
+    timed alone on one state ``warm_steps`` in."""
     from torch.autograd import DeviceType
 
     from repro_torch.kernels import cascade_tiered as ct
-    from repro_torch.netsim import compact, engine, sweep
+    from repro_torch.netsim import compact, engine, profile, sweep
 
     topo, traces = fig12_traces()
     cfg = engine.SimConfig(scheme="seqbalance", duration_s=10e-3, uplink_sample_every=10)
@@ -1156,6 +1198,13 @@ def phase_profile(warm_steps: int = 100, steps: int = 32):
     emit({"phase": "profile", "engine": "compact", "scheme": cfg.scheme, "B": 2, "W": W,
           "A": A, "C": ct.cluster_size(W, 4, topo.n_links + 1), **row,
           "host_ms_per_step_by_phase": phases})
+    # each phase alone on one warmed state (netsim/profile.py), the card
+    # synchronized around each call: printed, not gated
+    timed_phases = profile.profile_phases(topo, cfg, traces[:2], warm_steps=warm_steps,
+                                          iters=20, device=DEVICE)
+    emit({"phase": "profile", "engine": "compact", "profile_phases_us": {
+        k: v.stats() if isinstance(v, profile.TimeUs) else v
+        for k, v in timed_phases.items()}})
     trace = traces[1]  # alistorage 0.8, the largest
     init, step = engine.build_sim(topo, cfg, trace)
     row, _ = profile_steps(step, init(), warm_steps, steps)
@@ -1374,7 +1423,11 @@ def phase_faults() -> int:
 
 
 # bench_flowcell's fast grid (benchmarks/bench_flowcell.py:75-95): the arms
-# and their (scheme, flowcell trace?, reorder budget)
+# and their (scheme, flowcell trace?, reorder budget); its ring of 16 MB with
+# 300 us between rounds over 10 ms, halved in bytes and in time for the
+# script's time limit (PERF.md §6): the same arms finish, the same stay
+# censored and the two facts read as at full depth
+FLOWCELL_GRID = dict(size=8e6, gap_s=1.5e-4, horizon_s=5e-3)
 FLOWCELL_BUDGETS = (0, 4, 16)
 GRID_ARMS = ("seqbalance", "ecmp", "flowlet_timeout", "flowcell_free") + tuple(
     f"flowcell_b{b}" for b in FLOWCELL_BUDGETS)
@@ -1465,9 +1518,13 @@ def phase_flowcell(fig12_finish) -> int:
     degenerate cases (flowcells=1 and reorder=0.0 on unsprayed traffic,
     then phase 3's SeqBalance alistorage batch with reorder=0.0, against
     ``fig12_finish``), the ring on sim_2tier with adaptive dt, and
-    flowlet_timeout where flowlets break (REDRAW).  Returns the tiered
-    kernel's launches."""
-    from repro_torch.netsim import engine, metrics, topology
+    flowlet_timeout where flowlets break (REDRAW).  The grid's arms run
+    with a window of every flow, the degenerate cases against the grid's
+    SeqBalance arm as their plain run; the grid's symmetric ECMP arm runs
+    once more at the planner's window, which spills, so that sweep's
+    spill retry runs on the card and gives the full window's finishes.
+    Returns the tiered kernel's launches."""
+    from repro_torch.netsim import engine, metrics, sweep, topology
 
     ref = reference("flowcell")["cases"]
     total = 0
@@ -1485,22 +1542,25 @@ def phase_flowcell(fig12_finish) -> int:
     fabrics = {"symmetric": topology.leaf_spine(4, 4, 4, 25e9, host_bw=100e9, device=DEVICE),
                "hetero": topology.hetero_leaf_spine(4, 4, 4, 25e9, 100e9, n_fast_spines=1,
                                                     host_bw=100e9, device=DEVICE)}
-    grid = {}
+    size, gap, horizon = (FLOWCELL_GRID[k] for k in ("size", "gap_s", "horizon_s"))
+    check(ref["flowcell_grid"]["config"] == dict(
+        duration_s=horizon, size=size, round_gap_s=gap, flowcells=4,
+        budgets=list(FLOWCELL_BUDGETS)), "flowcell_grid: the reference is of another grid")
+    grid, runs = {}, {}
     for fabric, topo in fabrics.items():
-        traces = {False: collective_trace(topo, 16e6, 25e9, 3e-4),
-                  True: collective_trace(topo, 16e6, 25e9, 3e-4, flowcells=4)}
+        traces = {False: collective_trace(topo, size, 25e9, gap),
+                  True: collective_trace(topo, size, 25e9, gap, flowcells=4)}
         grid[fabric] = {}
         for name in GRID_ARMS:
             scheme, cells, reorder = arm(name)
             want = ref["flowcell_grid"]["runs"][fabric][name]
             check(want["flows"] == len(traces[cells].sizes), f"flowcell {name}: not the trace")
-            # the flowcell arms run with a window of every flow: the planner's
-            # window spills there (in both packages) and its retry would
-            # step them twice; a spill-free run's finishes do not depend on W
+            # a window of every flow: no spill, so the run is stepped once
             res, wall, loop = run(topo, scheme, traces[cells], reorder,
-                                  len(traces[cells].sizes) if cells else None,
-                                  duration_s=10e-3)
-            got = censored(res, traces[cells], 10e-3)
+                                  len(traces[cells].sizes), duration_s=horizon)
+            check(res.spill_steps == 0, f"flowcell_grid {fabric} {name}: spill")
+            runs[fabric, name] = res
+            got = censored(res, traces[cells], horizon)
             grid[fabric][name] = got
             emit({"phase": "flowcell", "case": "flowcell_grid", "fabric": fabric, "arm": name,
                   **got, "jax": {k: want[k] for k in got}, "wall_s": wall,
@@ -1519,18 +1579,31 @@ def phase_flowcell(fig12_finish) -> int:
         check(close or got == want, f"flowcell: {fact} is {got} on the card, {want} in JAX")
 
     topo = fabrics["symmetric"]
-    classic = collective_trace(topo, 16e6, 25e9, 3e-4)
-    plan1 = collective_trace(topo, 16e6, 25e9, 3e-4, flowcells=1, budget=9.0)
+    classic = collective_trace(topo, size, 25e9, gap)
+    # sweep's spill retry: the planner's window spills on this arm and the
+    # rerun at a larger window gives the finishes of the run with a window
+    # of every flow
+    retries = sweep.obs_stats()["spill_retries"]
+    res, wall, loop = run(topo, "ecmp", classic, None, duration_s=horizon)
+    retried = sweep.obs_stats()["spill_retries"] - retries
+    moved = finish_diff(res.finish, runs["symmetric", "ecmp"].finish)
+    emit({"phase": "flowcell", "case": "flowcell_spill_retry", "fabric": "symmetric",
+          "arm": "ecmp", "spill_retries": retried, "vs_full_window": moved, "wall_s": wall,
+          "loop": loop})
+    check(retried > 0, "flowcell_spill_retry: the planner's window did not spill")
+    check(moved["differ"] == 0, f"flowcell_spill_retry: {moved['differ']} finish times "
+                                "moved from the full window's")
+
+    plan1 = collective_trace(topo, size, 25e9, gap, flowcells=1, budget=9.0)
     same = all(np.array_equal(getattr(classic, f), getattr(plan1, f))
                for f in ("sizes", "arrivals", "src", "dst", "flow_id", "valid", "spray"))
     check(same, "flowcell_degenerate: flowcells=1 did not render the classic trace")
-    fixed = dict(duration_s=10e-3)
-    base = run(topo, "seqbalance", classic, None, **fixed)[0]
-    one = run(topo, "seqbalance", plan1, None, **fixed)[0]
-    zero = run(topo, "seqbalance", classic, 0.0, **fixed)[0]
+    window, base = len(classic.sizes), runs["symmetric", "seqbalance"]
+    one = run(topo, "seqbalance", plan1, None, window, duration_s=horizon)[0]
+    zero = run(topo, "seqbalance", classic, 0.0, window, duration_s=horizon)[0]
     small = {"flowcells_1": finish_diff(one.finish, base.finish),
              "reorder_0": finish_diff(zero.finish, base.finish)}
-    got = censored(base, classic, 10e-3)
+    got = censored(base, classic, horizon)
     want = ref["flowcell_degenerate"]["seqbalance"]
     emit({"phase": "flowcell", "case": "flowcell_degenerate", "fabric": "symmetric",
           "vs_plain": small, "jax_bit_identical": ref["flowcell_degenerate"]["bit_identical"],
@@ -1594,17 +1667,23 @@ def phase_flowcell(fig12_finish) -> int:
 RECORD_OVERHEAD_FLOOR_PCT = 5.0
 RING_REL = {"goodput_mean_bps": 1e-3, "queue_mean_bytes": 1e-3, "util_mean": 1e-3,
             "cnp_pkts": 2e-2, "rate_quantiles": 2e-2}
-# the one cell whose run on the card lies off the JAX package's trajectory
-# (0.35 % on p99, 0.018 % on avg: the stats of the second of the two
-# trajectories it took before; the card's order-free sums round
-# otherwise than the JAX package's float sums; PERF.md §6).  It used to
-# take either trajectory from run to run; since the sums are order-free it
-# takes that one every run.  Only its ring may be held as the other
-# trajectory's: to the JAX package's at phase 4's gates (avg 0.5 % for the
-# means, p99 2 % for the CNPs and each quantile column's chunk-weighted
-# mean), looser than RING_REL, with each row's quantiles held exactly to
-# the rates of its own run (ring_quantiles_vs_states).  Any other cell off
-# the JAX package's trajectory fails.
+# the one cell whose run on the card lies off the JAX package's compact
+# trajectory (0.35 % on p99, 0.018 % on avg).  The witness is the JAX
+# package's own pair: its dense engine (engine.simulate) lies off its
+# compact run by the same avg 1.7859e-4 and p99 3.4545e-3, and the card's
+# finishes are the dense run's, none a step apart (ROADMAP.md §3).  Both
+# part from the compact run at step 117, where flow 15009 of the trace
+# (93,739 bytes, arriving at 1.0687 ms) finishes in the dense run and on
+# the card but keeps 0.1259 bytes of one sub-flow in the compact run, past
+# DONE_EPS_BYTES (0.125): float sums in another order; the congestion
+# table parts at step 168 (leaf 4, path 9) and paths at step 169.  The card
+# takes that trajectory every run (its sums are order-free).  Only its
+# ring may be held as the other trajectory's: to the JAX package's at phase
+# 4's gates (avg 0.5 % for the means, p99 2 % for the CNPs and each quantile
+# column's chunk-weighted mean), looser than RING_REL, with each row's
+# quantiles held exactly to the rates of its own run
+# (ring_quantiles_vs_states).  Any other cell off the JAX package's
+# trajectory fails.
 BISTABLE = ("record_fig12", "fixed", "alistorage_0.5")
 RING_REL_OTHER = {"goodput_mean_bps": 5e-3, "queue_mean_bytes": 5e-3, "util_mean": 5e-3,
                   "cnp_pkts": 2e-2, "rate_quantiles": 2e-2}
@@ -1811,10 +1890,14 @@ def phase_record() -> int:
 # chip_smoke.py phase 11 and its reference: the co-simulation cases of
 # benchmarks/bench_cosim.py, each a list of (label, run_cosim keywords)
 COSIM_KILL = dict(spine=3, epoch=2, recover_epoch=6)
-# the leaf_spine cases run 8 epochs (the blackout cell 10), not
-# bench_cosim's 10 (12): the script's time limit (PERF.md §4); every fault
-# window and every convergence still falls inside them
-COSIM_LS_EPOCHS = 8
+# every case runs 8 epochs (the blackout cell 10), not bench_cosim's 10 (12):
+# the script's time limit (PERF.md §4); every fault window, every
+# quarantine's release and every convergence still falls inside them
+COSIM_EPOCHS = 8
+# the leaf_spine cases' ring carries 4 MB, not bench_cosim's 8 MB: the
+# script's time limit again (an epoch is 191 steps, not 331); every case
+# quarantines, releases and converges at the epochs it did at 8 MB
+COSIM_RING_BYTES = 4e6
 # the per-epoch fields that must equal the JAX package's, case by case
 COSIM_EQUAL = {
     "cosim_three_tier": ("quarantined", "reported_slow", "plan_version", "plan_churn",
@@ -1842,10 +1925,11 @@ def cosim_cases(cosim, faults, topology, obs, topo_kw: dict, flight_dir) -> dict
       cosim_three_tier  bench_cosim.py:96-106, the acceptance row at full
                         width: three_tier() (320 hosts and paths), a ring
                         of 20 at 16 MB, ECMP, aggregation switch 3 killed
-                        at epoch 2 and back at 6, 10 epochs;
+                        at epoch 2 and back at 6;
       cosim_grid        bench_cosim.py:118-139's fast grid on
                         leaf_spine(8, 12, 16, 100e9), ECMP and SeqBalance,
-                        a ring of 8 at 8 MB, spine 3 killed at 2 and back
+                        a ring of 8 at COSIM_RING_BYTES, spine 3 killed at
+                        2 and back
                         at 6; SeqBalance with the recorder
                         (RecordSpec(ring_chunks=64)) and a flight log;
       cosim_campaign    bench_cosim.py:159-185's mixed campaign on the
@@ -1858,12 +1942,11 @@ def cosim_cases(cosim, faults, topology, obs, topo_kw: dict, flight_dir) -> dict
                         delay_epochs=2, seed=7) with staleness_bound=2,
                         and the blackout cell (blackout=(0, 5),
                         blackout_epochs=2, spine back at 8);
-    the leaf_spine cases for COSIM_LS_EPOCHS epochs (the blackout cell two
-    more), the three_tier row for bench_cosim's 10."""
+    every case for COSIM_EPOCHS epochs (the blackout cell two more)."""
     topo3 = topology.three_tier(**topo_kw)
     topo2 = topology.leaf_spine(8, 12, 16, 100e9, **topo_kw)
 
-    def killed(topo, ring, size, scheme, recover_epoch=6, epochs=COSIM_LS_EPOCHS, **kw):
+    def killed(topo, ring, size, scheme, recover_epoch=6, epochs=COSIM_EPOCHS, **kw):
         return dict(topo=topo, hosts=cosim.ring_hosts(topo, ring), size_bytes=size,
                     scheme=scheme, epochs=epochs, phi_steps=2, n_chunks=4, seed=0,
                     faults=(cosim.kill_spine(topo, COSIM_KILL["spine"], epoch=COSIM_KILL["epoch"],
@@ -1881,21 +1964,23 @@ def cosim_cases(cosim, faults, topology, obs, topo_kw: dict, flight_dir) -> dict
         return dict(telemetry=faults.TelemetryChannel(seed=7, **kw), staleness_bound=2)
 
     return {
-        "cosim_three_tier": [("ecmp", killed(topo3, 20, 16e6, "ecmp", epochs=10))],
+        "cosim_three_tier": [("ecmp", killed(topo3, 20, 16e6, "ecmp"))],
         "cosim_grid": [
-            ("ecmp", killed(topo2, 8, 8e6, "ecmp")),
-            ("seqbalance", killed(topo2, 8, 8e6, "seqbalance",
+            ("ecmp", killed(topo2, 8, COSIM_RING_BYTES, "ecmp")),
+            ("seqbalance", killed(topo2, 8, COSIM_RING_BYTES, "seqbalance",
                                   record=obs.RecordSpec(ring_chunks=64),
                                   flight=str(pathlib.Path(flight_dir) / "cosim_grid.jsonl")))],
         "cosim_campaign": [("ecmp", dict(
-            topo=topo2, hosts=cosim.ring_hosts(topo2, 8), size_bytes=8e6, scheme="ecmp",
-            epochs=COSIM_LS_EPOCHS, phi_steps=2, cooldown_steps=2, n_chunks=4, seed=0,
+            topo=topo2, hosts=cosim.ring_hosts(topo2, 8), size_bytes=COSIM_RING_BYTES,
+            scheme="ecmp",
+            epochs=COSIM_EPOCHS, phi_steps=2, cooldown_steps=2, n_chunks=4, seed=0,
             campaign=campaign,
             adaptive=True))],
         "cosim_telemetry": [
-            ("loss30_delay2", killed(topo2, 8, 8e6, "ecmp", **channel(loss=0.3, delay_epochs=2))),
-            ("blackout", killed(topo2, 8, 8e6, "ecmp", recover_epoch=8,
-                                epochs=COSIM_LS_EPOCHS + 2,
+            ("loss30_delay2", killed(topo2, 8, COSIM_RING_BYTES, "ecmp",
+                                     **channel(loss=0.3, delay_epochs=2))),
+            ("blackout", killed(topo2, 8, COSIM_RING_BYTES, "ecmp", recover_epoch=8,
+                                epochs=COSIM_EPOCHS + 2,
                                 blackout_epochs=2,
                                 **channel(loss=0.0, delay_epochs=0, blackout=(0, 5))))],
     }
@@ -2079,6 +2164,201 @@ def phase_cosim() -> int:
             emit(row)
     emit({"phase": "cosim", "kernel_launches": total, "wall_s": time.time() - start})
     check(not failures, "; ".join(failures))
+    return total
+
+
+# phase 16: the paper's testbed results, copied from benchmarks/
+# paper_benches.py:99-156 (the port has no benchmark module yet).  The
+# paper's scale: Fig. 10 and Fig. 11 run 15 ms (1,500 steps of 10 us), the
+# pairs starting at 0, 5 and 10 ms, read over steps 1,000 to the end; Table
+# II runs 10 ms.  TESTBED_REDUCED is the CPU tests' cut: 2 ms, the pairs at
+# 0, 0.5 and 1 ms, read from step 150, Table II 1 ms.
+TESTBED_PAPER = dict(horizon_s=15e-3, starts=(0.0, 5e-3, 10e-3), late=1000,
+                     table2_horizon_s=10e-3)
+TESTBED_REDUCED = dict(horizon_s=2e-3, starts=(0.0, 0.5e-3, 1e-3), late=150,
+                       table2_horizon_s=1e-3)
+TESTBED_PARTS = ("fig10", "fig11", "table2")
+TESTBED_SCHEMES = ("ecmp", "seqbalance")
+TABLE2_SENDERS = (1, 2, 3)
+# the gates on the testbed readings against the JAX package's: each per-path
+# late mean (Fig. 10, Fig. 11) and Table II's mean goodput within 1 % of the
+# JAX package's (of 1 Gb/s where it reads less), Table II's congestion-packet
+# bandwidth within 1 % or 1 Kb/s (the paper's unit); the facts equal.  The
+# port's CPU runs read the JAX package's to 2.4e-7; each TESTBED_PLANTED
+# fault moves a reading of its part by 10 % or more (testbed_reference.json
+# keeps the port's planted readings at the paper's scale).
+TESTBED_REL = 1e-2
+TESTBED_FLOOR_GBPS = 1.0
+TESTBED_CNP_ABS_BPS = 1e3
+# Table II's fact: the congestion packets take under this share of the data
+# rate at each load (the paper's Table II: 0.05 Gb/s at most)
+TABLE2_NEGLIGIBLE = 1e-3
+# planted faults, each a wrong input that the gates of its part must catch:
+# the asymmetric fabric without its 80G links (Fig. 11), SeqBalance's QPs
+# not split into sub-flows (Fig. 10: n_sub=1), the symmetric fabric at 25G
+# (Table II).  A congestion table never marked is no such fault: no queue
+# reaches kmin in these runs, so it changes no reading.
+TESTBED_PLANTED = {"no_80g_links": "fig11", "one_subflow": "fig10", "fabric_25g": "table2"}
+
+
+def pairs_trace(workloads, n_qp: int = 4, size: float = 1e12, starts=(0.0, 5e-3, 10e-3)):
+    """paper_benches.py::_pairs_trace: sender i to host 3 + i, n_qp QPs of
+    size / n_qp bytes each (none finishes), pair i starting at starts[i]."""
+    pairs, st = [], []
+    for i, t0 in enumerate(starts):
+        for _ in range(n_qp):
+            pairs.append((i, 3 + i))
+            st.append(t0)
+    return workloads.permanent_senders_trace(pairs, st, size / n_qp)
+
+
+def dc40(dcqcn_params):
+    """paper_benches.py::_dc40: DCQCN for the 40G testbed."""
+    return dcqcn_params(kmin_bytes=160e3, kmax_bytes=520e3, r_ai=400e6, min_rate=400e6)
+
+
+def late_mean_gbps(outs, late: int) -> np.ndarray:
+    """Leaf 0's uplink offered load, Gb/s per path, averaged over the steps
+    from ``late`` on (paper_benches.py:115)."""
+    up = np.asarray(outs.uplink_load)[:, 0, :]
+    return up[late:].mean(0) / 1e9
+
+
+def testbed_readings(run, engine, topology, workloads, metrics, dcqcn_params, topo_kw: dict,
+                     scale: dict = TESTBED_PAPER, fault: str | None = None,
+                     parts=TESTBED_PARTS) -> dict:
+    """Fig. 10, Fig. 11 and Table II through either package's modules:
+    ``run(what, topo, cfg, traces)`` returns (results, outs) of a
+    ``sweep.run_batch``.  Fig. 10 and Fig. 11: leaf 0's per-path late
+    means, their total and spread (max - min), Fig. 11's fat path (path 2)
+    and ``fat_gain`` (SeqBalance's fat-path load over ECMP's); Table II:
+    SeqBalance at 1, 2 and 3 senders of 4 QPs of 250 MB, its
+    congestion-packet bandwidth and mean goodput; and the paper's fact of
+    each of ``parts`` as the run reads it."""
+    topos = {"symmetric": topology.testbed_symmetric(**topo_kw),
+             "asymmetric": topology.testbed_asymmetric(**topo_kw)}
+    if fault == "no_80g_links":
+        topos["asymmetric"] = topology.leaf_spine(2, 3, 3, 40e9, base_rtt_s=4e-6, **topo_kw)
+    elif fault == "fabric_25g":
+        topos["symmetric"] = topology.leaf_spine(2, 4, 3, 25e9, base_rtt_s=4e-6, **topo_kw)
+    cfg_kw = {"dcqcn": dc40(dcqcn_params)}
+    trace = pairs_trace(workloads, starts=scale["starts"])
+    out, facts = {}, {}
+    for fig, fabric in (("fig10", "symmetric"), ("fig11", "asymmetric")):
+        if fig not in parts:
+            continue
+        out[fig] = {}
+        for scheme in TESTBED_SCHEMES:
+            split = {"n_sub": 1} if fault == "one_subflow" and scheme == "seqbalance" else {}
+            cfg = engine.SimConfig(scheme=scheme, duration_s=scale["horizon_s"], **split,
+                                   **cfg_kw)
+            _, (outs,) = run(f"{fig} {scheme}", topos[fabric], cfg, [trace])
+            late = late_mean_gbps(outs, scale["late"])
+            out[fig][scheme] = {"per_path_gbps": [float(v) for v in late],
+                                "total_gbps": float(late.sum()),
+                                "spread_gbps": float(late.max() - late.min())}
+            if fig == "fig11":
+                out[fig][scheme]["fat_gbps"] = float(late[2])
+    if "fig10" in parts:
+        sym = out["fig10"]
+        facts["fig10_seqbalance_spread_below_ecmp"] = (sym["seqbalance"]["spread_gbps"]
+                                                       < sym["ecmp"]["spread_gbps"])
+    if "fig11" in parts:
+        fat = out["fig11"]
+        fat["fat_gain"] = fat["seqbalance"]["fat_gbps"] / max(fat["ecmp"]["fat_gbps"], 1e-9)
+        facts["fig11_fat_gain_above_1"] = fat["fat_gain"] > 1.0
+    if "table2" in parts:
+        horizon = scale["table2_horizon_s"]
+        traces = [workloads.permanent_senders_trace(
+            [(i, 3 + i) for i in range(n) for _ in range(4)], [0.0] * 4 * n, 2.5e8)
+            for n in TABLE2_SENDERS]
+        cfg = engine.SimConfig(scheme="seqbalance", duration_s=horizon, **cfg_kw)
+        results, outs = run("table2 seqbalance", topos["symmetric"], cfg, traces)
+        out["table2"] = {
+            str(n): {"cong_pkt_bps": metrics.congestion_packet_bandwidth(r, horizon),
+                     "goodput_mean_bps": float(np.asarray(o.goodput_total).mean())}
+            for n, r, o in zip(TABLE2_SENDERS, results, outs)}
+        facts["table2_congestion_negligible"] = {
+            n: t["cong_pkt_bps"] < TABLE2_NEGLIGIBLE * t["goodput_mean_bps"]
+            for n, t in out["table2"].items()}
+    out["facts"] = facts
+    return out
+
+
+def testbed_faults(got: dict, want: dict) -> tuple[dict, list]:
+    """The testbed gates on the parts ``got`` holds: (the largest error of
+    each reading, the readings past their gates)."""
+    errs, faults = {}, []
+    for fig in ("fig10", "fig11"):
+        if fig not in got:
+            continue
+        for scheme in TESTBED_SCHEMES:
+            g = np.asarray(got[fig][scheme]["per_path_gbps"], np.float64)
+            w = np.asarray(want[fig][scheme]["per_path_gbps"], np.float64)
+            e = float((np.abs(g - w) / np.maximum(np.abs(w), TESTBED_FLOOR_GBPS)).max())
+            errs[f"{fig}_{scheme}_per_path"] = e
+            if e > TESTBED_REL:
+                faults.append(f"{fig} {scheme}: a path's late mean is off by {e:.4g} "
+                              f"({g.round(4).tolist()} Gb/s, JAX {w.round(4).tolist()})")
+    for n, w in want["table2"].items() if "table2" in got else ():
+        g = got["table2"][n]
+        e = abs(g["goodput_mean_bps"] / w["goodput_mean_bps"] - 1.0)
+        d = abs(g["cong_pkt_bps"] - w["cong_pkt_bps"])
+        errs[f"table2_{n}_goodput"], errs[f"table2_{n}_cong_pkt_bps_abs"] = e, d
+        if e > TESTBED_REL:
+            faults.append(f"table2 {n} senders: mean goodput off by {e:.4g}")
+        if d > max(TESTBED_CNP_ABS_BPS, TESTBED_REL * w["cong_pkt_bps"]):
+            faults.append(f"table2 {n} senders: congestion packets {g['cong_pkt_bps']} b/s, "
+                          f"JAX {w['cong_pkt_bps']}")
+    wanted = {k: want["facts"][k] for k in got["facts"]}
+    if got["facts"] != wanted:
+        faults.append(f"the paper's facts read {got['facts']}, JAX {wanted}")
+    return errs, faults
+
+
+def phase_testbed() -> int:
+    """The paper's testbed results on the card (Table I's closed form, then
+    Fig. 10, Fig. 11, Table II at the paper's scale, TESTBED_PAPER) through
+    sweep.run_batch, held
+    against the JAX package's (src/repro_torch/netsim/testbed_reference.json)
+    by testbed_faults; the tiered kernel launched once on every step of
+    every run (the flows never finish, so every run steps to its horizon).
+    That each TESTBED_PLANTED fault fails these gates is shown by
+    tests/test_torch_testbed.py.  Returns the tiered kernel's launches."""
+    from repro_torch.core import gbn
+    from repro_torch.netsim import engine, metrics, topology, workloads
+    from repro_torch.netsim.dcqcn import DCQCNParams
+
+    ref = reference("testbed")
+    total, walls = 0, {}
+
+    def run(what, topo, cfg, traces):
+        nonlocal total
+        results, outs, wall, launched, loop = timed_run(topo, cfg, traces)
+        total += check_launches(f"testbed {what}", cfg.scheme, launched, loop)
+        steps = int(round(cfg.duration_s / cfg.dt))
+        check(loop["scanned_steps"] == launched == steps,
+              f"testbed {what}: {launched} launches for {loop['scanned_steps']} steps "
+              f"of {steps}")
+        walls[what] = wall
+        emit({"phase": "testbed", "run": what, "traces": len(traces), "steps": steps,
+              "wall_s": wall, "us_per_step": wall / steps * 1e6, "launches": launched,
+              "W": results[0].window_slots})
+        return results, outs
+
+    table1 = [gbn.table1_inflation(size) for size in (64e3, 1e6)]  # on the card by default
+    check(all(v.device.type == "cuda" for v in table1), "testbed: Table I ran off the card")
+    table1 = [round(float(v), 2) for v in table1]
+    emit({"phase": "testbed", "table1_inflation": {"64KB": table1[0], "1MB": table1[1]}})
+    check(table1 == [5.77, 2.83], f"testbed: Table I reads {table1}, not [5.77, 2.83]")
+    got = testbed_readings(run, engine, topology, workloads, metrics, DCQCNParams,
+                           dict(device=DEVICE))
+    errs, faults = testbed_faults(got, ref["readings"])
+    emit({"phase": "testbed", "readings": got, "jax": ref["readings"], "errors": errs,
+          "gates": {"rel": TESTBED_REL, "floor_gbps": TESTBED_FLOOR_GBPS,
+                    "cnp_abs_bps": TESTBED_CNP_ABS_BPS},
+          "wall_s": sum(walls.values()), "kernel_launches": total})
+    check(not faults, "testbed: " + "; ".join(faults))
     return total
 
 
@@ -2661,6 +2941,89 @@ def timed(name: str, phase, *args):
     return out
 
 
+def worker_fig12() -> dict:
+    stats, sweep_counts, walls, fig12 = timed("sweep", phase_sweep)
+    repeat = phase_repeat(fig12)
+    phase_agree(stats)
+    dense_counts = timed("dense", phase_dense, stats, walls)
+    flowcell = timed("flowcell", phase_flowcell, fig12[0])
+    return {"sweep": sweep_counts, "repeat": repeat, "dense": dense_counts,
+            "flowcell": flowcell}
+
+
+def worker_adaptive() -> dict:
+    return {"adaptive": timed("adaptive", phase_adaptive),
+            "faults": timed("faults", phase_faults)}
+
+
+def worker_record() -> dict:
+    return {"record": timed("record", phase_record), "cosim": timed("cosim", phase_cosim),
+            "testbed": timed("testbed", phase_testbed)}
+
+
+def worker_serve() -> dict:
+    return {"serve_ref": timed("serve_ref", phase_serve_ref),
+            "serve": timed("serve", phase_serve),
+            "serve_families_ref": timed("serve_families_ref", phase_serve_families_ref),
+            "serve_families": timed("serve_families", phase_serve_families)}
+
+
+# the processes that run phases 3-16 but 6 at once, each its phases in
+# order -> their launch counts; the serving phases share one, so that one
+# model at a time holds the card's memory
+WORKERS = {"fig12": worker_fig12, "adaptive": worker_adaptive, "record": worker_record,
+           "serve": worker_serve}
+WORKER_THREADS = 2  # torch's CPU threads in each, so that the four share 8 cores
+DEADLINE_S = 1140.0  # after START: the workers still running are stopped
+
+
+def run_workers() -> dict:
+    """Each of WORKERS in a process of its own, all started together; once
+    all have ended, each one's output printed in turn.  Returns name -> the
+    counts of its {"worker": ...} line.  A worker that fails, or runs past
+    DEADLINE_S, fails the script, and the others are stopped."""
+    import signal
+    import tempfile
+
+    # stopped from outside: leave through the finally below, which stops the workers
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    procs, failed = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for name in WORKERS:
+                out = open(pathlib.Path(tmp) / f"{name}.jsonl", "w+")
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--worker", name],
+                    cwd=ROOT, stdout=out), out)
+            while True:
+                rcs = {n: p.poll() for n, (p, _) in procs.items()}
+                failed = [f"worker {n} exited with {rc}" for n, rc in rcs.items()
+                          if rc not in (None, 0)]
+                if failed or None not in rcs.values():
+                    break
+                if time.time() - START > DEADLINE_S:
+                    failed = [f"workers {[n for n, rc in rcs.items() if rc is None]} "
+                              f"still running after {DEADLINE_S} s"]
+                    break
+                time.sleep(0.5)
+        finally:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        counts = {}
+        for name, (_, out) in procs.items():
+            out.seek(0)
+            for line in out:
+                print(line, end="", flush=True)
+                if line.startswith('{"worker"'):
+                    counts[name] = json.loads(line)["launches"]
+            out.close()
+    check(not failed, "; ".join(failed))
+    check(set(counts) == set(WORKERS), f"workers without a result: {set(WORKERS) - set(counts)}")
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -2682,6 +3045,15 @@ def main() -> int:
         except SmokeFailure as e:
             print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
             return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
+        torch.set_num_threads(WORKER_THREADS)
+        try:
+            load_kernels()
+            emit({"worker": sys.argv[2], "launches": WORKERS[sys.argv[2]]()})
+        except SmokeFailure as e:
+            print(f"chip_smoke.py --worker {sys.argv[2]}: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
     if sys.argv[1:] == ["--cluster-sweep"]:
         try:
             phase_device()
@@ -2693,39 +3065,35 @@ def main() -> int:
     try:
         timed("device", phase_device)
         rows = timed("kernel", phase_kernel)
-        stats, sweep_counts, walls, fig12 = timed("sweep", phase_sweep)
-        repeat_launches = phase_repeat(fig12)
-        fig12_finish = fig12[0]
-        phase_agree(stats)
-        dense_counts = timed("dense", phase_dense, stats, walls)
         timed("profile", phase_profile)
-        adaptive_launches = timed("adaptive", phase_adaptive)
-        fault_launches = timed("faults", phase_faults)
-        flowcell_launches = timed("flowcell", phase_flowcell, fig12_finish)
-        record_launches = timed("record", phase_record)
-        cosim_launches = timed("cosim", phase_cosim)
-        serve_ref_launches = timed("serve_ref", phase_serve_ref)
-        serve_launches = timed("serve", phase_serve)
-        families_ref_launches = timed("serve_families_ref", phase_serve_families_ref)
-        families_launches = timed("serve_families", phase_serve_families)
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        counts = {k: v for c in run_workers().values() for k, v in c.items()}
+        emit({"phase_wall": "workers", "s": time.time() - t0})
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
     emit({"phase": "script", "wall_s": time.time() - START})
     kernels = []
-    (sweep_counts, sweep_by), (dense_counts, dense_by) = sweep_counts, dense_counts
+    (sweep_counts, sweep_by), (dense_counts, dense_by) = counts["sweep"], counts["dense"]
+    repeat_launches, adaptive_launches = counts["repeat"], counts["adaptive"]
+    fault_launches, flowcell_launches = counts["faults"], counts["flowcell"]
+    record_launches, cosim_launches = counts["record"], counts["cosim"]
+    testbed_launches, serve_launches = counts["testbed"], counts["serve"]
+    serve_ref_launches, families_ref_launches = counts["serve_ref"], counts["serve_families_ref"]
+    families_launches = counts["serve_families"]
     for lib, row in rows.items():
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
         if name == "cascade_tiered":
-            # the main path: the fig12 sweep and phases 7-11
+            # the main path: the fig12 sweep, phases 7-11 and the testbed
             by_path.update(repeat=repeat_launches, adaptive=adaptive_launches,
                            faults=fault_launches,
                            flowcell=flowcell_launches, record=record_launches,
-                           cosim=cosim_launches)
+                           cosim=cosim_launches, testbed=testbed_launches)
             launches = (sweep_counts[name] + repeat_launches + adaptive_launches
                         + fault_launches + flowcell_launches + record_launches
-                        + cosim_launches)
+                        + cosim_launches + testbed_launches)
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
         elif name == "flash_attention":  # the serving path: phases 12-15
             route = row["route"]

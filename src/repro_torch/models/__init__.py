@@ -11,8 +11,9 @@
   weights      parameter trees carried across from the JAX package's
                layout, and drawn with numpy for both packages
 
-Ported: the ``attn``, ``cross`` and ``mlp`` units, so the dense, vlm and
-audio families.  The ``moe``, ``mlstm``, ``slstm`` and ``rglru`` units
-(the moe, ssm and hybrid families) raise ``NotImplementedError``: they
-wait in ROADMAP.md's queue 1, as does training (no backward, no remat).
+Ported: every unit (``attn``, ``cross``, ``mlp``, ``moe``, ``mlstm``,
+``slstm`` and ``rglru``, the last four in ``moe`` and ``recurrent``), so
+all ten configurations serve, forward only.  Training waits in
+ROADMAP.md's queue 1: no backward through the kernels, no remat, no
+optimizer or checkpoints.
 """

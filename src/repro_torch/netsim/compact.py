@@ -300,7 +300,9 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
     reordering cost.
 
     Returns (init_state, step_fn, phases): ``step_fn(state) -> (state,
-    StepOutputs)`` advances all B simulations by one ``dt``; ``phases``
+    StepOutputs)`` advances all B simulations by one ``dt`` through the
+    four step closures of ``phases``, ``admit``, ``cascade``, ``dcqcn`` and
+    ``finish`` (``netsim/profile.py`` times each alone); ``phases`` also
     holds the adaptive engine's ``quiesce`` and ``fast_forward``."""
     dev = topo.device
     sizes, arrivals, src, dst, fid, valid, spray = trace_arrays
@@ -498,6 +500,10 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
                     capacity=capv)[..., None]
         return arrival, new_queue, thr, p_sub, p_sub_fabric, rc, active
 
+    def dcqcn_phase(state: CompactState, p_sub, active):
+        """Per-sub-flow DCQCN rate update; returns the new DCQCNState."""
+        return dcqcn_mod.step(state.cc, p_sub, active, cfg.dt, line_rate, dp)[0]
+
     def finish_phase(state: CompactState, t, thr, active, rc, p_sub_fabric):
         """Transfer progress, bitmap CQE, scatter-on-finish, Congestion
         Packet bookkeeping.  Returns (remaining, sub_done, cqe_bitmap,
@@ -541,7 +547,7 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
         with record_function("cascade"):
             arrival, new_queue, thr, p_sub, p_sub_fabric, rc, active = cascade_phase(st)
         with record_function("dcqcn"):
-            cc, _ = dcqcn_mod.step(st.cc, p_sub, active, cfg.dt, line_rate, dp)
+            cc = dcqcn_phase(st, p_sub, active)
         with record_function("finish"):
             (remaining, sub_done, cqe_bitmap, slot_fid, finish, table,
              exp_cong_pkts) = finish_phase(st, t, thr, active, rc, p_sub_fabric)
@@ -638,7 +644,9 @@ def build_compact_sim(topo: Topology, cfg: SimConfig, trace_arrays: tuple, W: in
         goodput = torch.where(active, thr, 0.0).sum((1, 2))
         return new_state, (arrival[:, uplink_ids], goodput, mq_traj)
 
-    return init_state, step_fn, dict(quiesce=quiesce_phase, fast_forward=fast_forward_phase)
+    return init_state, step_fn, dict(
+        admit=admit_phase, cascade=cascade_phase, dcqcn=dcqcn_phase, finish=finish_phase,
+        quiesce=quiesce_phase, fast_forward=fast_forward_phase)
 
 
 class _ArrivalGate:

@@ -1,7 +1,9 @@
 """Datacenter topologies for the fluid simulator (paper §IV), mirroring
 ``repro.netsim.topology`` for ``leaf_spine`` (with per-link capacity
-overrides), ``hetero_leaf_spine``, ``sim_2tier`` and ``three_tier``, and
-the fault layer's link maps ``spine_links`` and ``paths_for_link``.
+overrides), the paper's testbed fabrics ``testbed_symmetric`` and
+``testbed_asymmetric`` (Fig. 8), ``hetero_leaf_spine``, ``sim_2tier`` and
+``three_tier``, and the fault layer's link maps ``spine_links`` and
+``paths_for_link``.
 
 Links live in one flat capacity vector with a sentinel slot last
 (capacity 1e30), onto which absent (-1) hops land.  The link-id builders
@@ -166,6 +168,25 @@ def three_tier(n_tor: int = 20, n_agg: int = 20, n_core: int = 16,
         layout=dict(ta0=ta0, ac0=ac0, ca0=ca0, at0=at0, tx0=tx0, rx0=rx0, A=A, C=C),
         device=device,
     )
+
+
+def testbed_symmetric(device=None) -> Topology:
+    """Paper Fig. 8(a): 2 leaves x 4 spines, 3 hosts a leaf, all 40G."""
+    return leaf_spine(2, 4, 3, 40e9, base_rtt_s=4e-6, device=device)
+
+
+def testbed_asymmetric(device=None) -> Topology:
+    """Paper Fig. 8(b): one spine off and its links moved to a neighbour, so
+    3 paths, the third at 80G (up[l, 2] and down[2, l]) and the rest at 40G.
+    ECMP hashes uniformly over the 3 paths; SeqBalance's congestion
+    feedback steers load to the fat one."""
+    L, S = 2, 3
+    overrides = {}
+    for leaf in range(L):
+        overrides[leaf * S + 2] = 80e9  # up[l, 2]
+        overrides[L * S + 2 * L + leaf] = 80e9  # down[2, l]
+    return leaf_spine(L, S, 3, 40e9, base_rtt_s=4e-6, capacity_overrides=overrides,
+                      device=device)
 
 
 def sim_2tier(device=None) -> Topology:

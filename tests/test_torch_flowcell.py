@@ -409,6 +409,11 @@ def write_flowcell_reference() -> None:
     """Run the JAX package on chip_smoke.py phase 9's cases and record the
     censored p99, p50, completion and ff_steps of each arm, and the finish
     times and ff_steps of the re-draw cases."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    size, gap, horizon = (chip_smoke.FLOWCELL_GRID[k] for k in ("size", "gap_s", "horizon_s"))
+
     def row(res, trace, horizon_s):
         p99, p50, completion = _censored(res, trace, horizon_s)
         return dict(p99_us=p99, p50_us=p50, completion=completion,
@@ -422,24 +427,26 @@ def write_flowcell_reference() -> None:
         print(name, out, flush=True)
         return out, res
 
-    grid_kw = dict(duration_s=10e-3)
+    grid_kw = dict(duration_s=horizon)
     grid = {}
     for fabric in ("symmetric", "hetero"):
         topo = _fabric("jax", fabric)
-        traces = {False: _ring("jax", topo), True: _ring("jax", topo, 4)}
-        grid[fabric] = {a: run(topo, grid_kw, a, traces, 10e-3)[0] for a in GRID_ARMS}
+        traces = {False: _ring("jax", topo, size=size, gap=gap),
+                  True: _ring("jax", topo, 4, size=size, gap=gap)}
+        grid[fabric] = {a: run(topo, grid_kw, a, traces, horizon)[0] for a in GRID_ARMS}
     sym = grid["symmetric"]
     facts = {"free_wins": sym["flowcell_free"]["p99_us"] <= sym["seqbalance"]["p99_us"],
              "gbn_loses": sym["flowcell_b0"]["p99_us"] >= sym["seqbalance"]["p99_us"]}
 
     topo = _fabric("jax", "symmetric")
-    classic, plan1 = _ring("jax", topo), _ring("jax", topo, 1, budget=9.0)
+    classic = _ring("jax", topo, size=size, gap=gap)
+    plan1 = _ring("jax", topo, 1, size=size, budget=9.0, gap=gap)
     cfg = je.SimConfig(scheme="seqbalance", **grid_kw)
     base, _ = _jax_run(topo, cfg, classic)
     one, _ = _jax_run(topo, cfg, plan1)
     zero, _ = _jax_run(topo, cfg, classic, reorder=0.0)
     degenerate = dict(
-        seqbalance=row(base, classic, 10e-3),
+        seqbalance=row(base, classic, horizon),
         bit_identical={"flowcells_1": bool(np.array_equal(np.asarray(one.finish),
                                                           np.asarray(base.finish))),
                        "reorder_0": bool(np.array_equal(np.asarray(zero.finish),
@@ -464,7 +471,7 @@ def write_flowcell_reference() -> None:
         print(name, {k: v for k, v in redraw[name].items() if k != "finish_s"}, flush=True)
 
     cases = {
-        "flowcell_grid": dict(config=dict(grid_kw, size=16e6, round_gap_s=3e-4, flowcells=4,
+        "flowcell_grid": dict(config=dict(grid_kw, size=size, round_gap_s=gap, flowcells=4,
                                           budgets=list(BUDGETS)),
                               runs=grid, facts=facts),
         "flowcell_degenerate": degenerate,

@@ -34,7 +34,8 @@ def test_no_jax_or_repro_import(path):
 def test_importing_the_sweep_leaves_jax_out():
     code = ("import sys; import repro_torch.netsim.sweep, repro_torch.netsim.carry, "
             "repro_torch.netsim.engine, repro_torch.kernels.ops, repro_torch.obs, "
-            "repro_torch.dist, repro_torch.configs.registry, repro_torch.models.model, "
+            "repro_torch.dist, repro_torch.netsim.profile, repro_torch.core.gbn, "
+            "repro_torch.configs.registry, repro_torch.models.model, "
             "repro_torch.models.weights, repro_torch.models.moe, repro_torch.models.recurrent, "
             "repro_torch.serve.engine, repro_torch.serve.compare; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
@@ -63,8 +64,18 @@ def test_entry_points_default_to_cuda():
         sweep.run_jobs([(topo, cfg, [trace])])
     with pytest.raises(RuntimeError, match="CUDA"):
         compact.simulate_compact(topo, cfg, trace)
+    for fabric in (topology.sim_2tier, topology.testbed_symmetric, topology.testbed_asymmetric):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fabric()
+    from repro_torch.core import gbn
+    from repro_torch.netsim import profile
+
     with pytest.raises(RuntimeError, match="CUDA"):
-        topology.sim_2tier()
+        gbn.table1_inflation(64e3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile.profile_phases(topo, cfg, trace, warm_steps=1, iters=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile.quiescence_profile(topo, cfg, trace, iters=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.simulate(topo, cfg, trace)
     q = np.zeros((1, 64, 2, 16), np.float32)
