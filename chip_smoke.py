@@ -185,13 +185,43 @@ Phases, each printed as JSON lines:
               them, and the tiered kernel launched on every step of every
               run (that each TESTBED_PLANTED fault fails these gates is
               shown by tests/test_torch_testbed.py).
+ 17. train_ref TRAIN_CASE: gemma2-2b at full width (d_model 2,304, vocab
+              256,000, 8/4 heads of 256, d_ff 9,216) cut to a local and a
+              global layer, window 128, weights from
+              weights.numpy_params, batches from data.pipeline.batch_at
+              (B 2, S 256), 3 steps of launch.steps.make_train_step
+              (AdamW lr 1e-3, warmup 1, total 8), in float32 and in
+              bfloat16 on float32 masters, against the JAX package's
+              float32 run (src/repro_torch/launch/train_reference.json):
+              loss, nll, grad norm, lr, each leaf's grad norm and 64
+              sampled grad entries per step, each leaf's update after
+              step 3; float32 within TRAIN_TOL, bfloat16 within
+              BF16_SPREAD_FACTOR times the JAX package's own bfloat16
+              spread (bf16_limits); then the restart check (REDUCED
+              gemma2-2b, 6 steps straight against 3, a checkpoint, a
+              restore into a fresh state and 3 more, bit for bit under
+              torch.use_deterministic_algorithms) and the chunked
+              attention against the whole score matrix at S 2,048; no
+              kernel launches (training runs the plain attention);
+ 18. train    the slice's main path: repro_torch.launch.train as its CLI
+              runs (TRAIN_ARGV): gemma2-2b as published (26 layers, window
+              4,096, bfloat16 compute on float32 masters, remat "full"),
+              B 2, S 2,048 (the chunked attention), 10 steps, after 4
+              co-simulation epochs on the card (--cosim-epochs 4, each a
+              sweep.run_one through the tiered kernel): the [cosim] lines
+              (but their build counts) and the final plan's inactive set
+              equal to the JAX driver's, one tiered launch a stepped
+              step, no flash launch, every loss finite; each step's wall,
+              tokens/s, the model FLOPs of a step, peak memory and the
+              loss curve printed.
 
 Phases 1, 2 and 6 run first, alone on the card.  The others run in the
 four processes of WORKERS at once, on the same card (python3
 chip_smoke.py --worker NAME): the simulator's steps are host work on a
 device that idles most of a step (phase 6), so their walls overlap.
-Each process runs its phases in order, prints their lines and, last, a
-{"worker": ...} line with the launch counts of each phase (set to 0
+Phases 12-15 and 17-18 load the card and share one process, one model
+at a time.  Each process runs its phases in order, prints their lines
+and, last, a {"worker": ...} line with the launch counts of each phase (set to 0
 before the phase, read after it); the script prints each worker's lines
 once all have ended.  Their walls are taken with the others running.
 
@@ -2824,6 +2854,416 @@ def phase_serve_families() -> int:
     return launches
 
 
+# ------------------------------------------------------------ training
+TRAIN_REFERENCE = SRC / "repro_torch" / "launch" / "train_reference.json"
+# phase 17's case, which tests/test_torch_train.py --write-train-reference
+# runs through the JAX package: gemma2-2b at full width cut to one local
+# and one global layer, a 128-token window, the weights of
+# weights.numpy_params(cfg, seed) and the batches of pipeline.batch_at
+TRAIN_CASE = {"arch": "gemma2-2b", "replace": {"n_layers": 2, "local_window": 128,
+                                               "q_chunk": 128},
+              "batch": 2, "seq": 256, "seed": 0, "steps": 3,
+              "opt": {"lr": 1e-3, "warmup_steps": 1, "total_steps": 8}, "samples": 64}
+# The float32 run against the JAX package's float32 run: both sum in
+# float32 in another order (the CPU port reads TRAIN_READ_F32 in
+# train_reference.json's "port_cpu"); a wrong term moves a leaf by its size.
+# lr within one ulp.  "grad_entries" are the sampled entries' largest
+# error in units of the leaf's RMS; "update_diff" the sampled estimate of
+# ||dp_port - dp_jax|| / ||dp_jax|| of the update p_3 - p_0.
+TRAIN_TOL = {"loss": 1e-4, "nll": 1e-4, "grad_norm": 1e-4, "lr_ulps": 1,
+             "leaf_grad_norm": 1e-4, "grad_entries": 1e-3, "update_norm": 1e-4,
+             "update_diff": 1e-3}
+# The bfloat16 run against the JAX package's float32 run: each reading
+# within BF16_SPREAD_FACTOR times the JAX package's own bfloat16 run's
+# (recorded beside it), and never tighter than TRAIN_TOL
+BF16_SPREAD_FACTOR = 2.0
+# phase 18: gemma2-2b as published, through the driver as its CLI runs it
+TRAIN_ARGV = ("--arch", "gemma2-2b", "--remat", "full", "--batch", "2", "--seq", "2048",
+              "--steps", "10", "--cosim-epochs", "4", "--log-every", "1")
+# the JAX driver's co-simulation flags of TRAIN_ARGV (its defaults:
+# spine 1 killed, phi 2, 4 chunks)
+TRAIN_COSIM = {"cosim_epochs": 4, "cosim_kill_spine": 1, "cosim_phi": 2, "n_chunks": 4}
+
+
+def train_cfg(case: dict, dtype: str):
+    from repro_torch.configs import registry
+
+    return registry.get_config(case["arch"]).replace(dtype=dtype, **case["replace"])
+
+
+def sample_index(name: str, size: int, n: int) -> np.ndarray:
+    """``n`` fixed flat indices into a leaf of ``size`` entries, drawn from
+    its name."""
+    import zlib
+
+    return np.random.default_rng(zlib.crc32(name.encode())).integers(0, size, n)
+
+
+def leaf_readings(named: dict, n: int) -> dict:
+    """Each leaf's size, norm (summed in float64) and entries at
+    ``sample_index`` (name -> tensor, on any device)."""
+    import torch
+
+    out = {"size": {}, "norm": {}, "samples": {}}
+    for name, t in sorted(named.items()):
+        flat = t.detach().reshape(-1)
+        out["size"][name] = flat.numel()
+        out["norm"][name] = float(torch.linalg.vector_norm(flat, dtype=torch.float64))
+        idx = torch.as_tensor(sample_index(name, max(flat.numel(), 1), n), device=flat.device)
+        out["samples"][name] = flat[idx].double().cpu().tolist() if flat.numel() else []
+    return out
+
+
+def tree_leaf(tree: dict, name: str, i):
+    """The leaf ``name`` (``weights.leaves``' names) of a JAX-layout tree,
+    at superblock ``i`` of a stacked one."""
+    parts = name.split(".")
+    leaf = tree[name] if len(parts) == 1 else tree[parts[0]][int(parts[1])][parts[2]]
+    return leaf if i is None else leaf[i]
+
+
+def train_readings(cfg, case: dict, tree: dict, device, update=None) -> dict:
+    """``case``'s steps of the port's train step
+    (``launch.steps.make_train_step``) from ``tree``'s weights on
+    ``device``, float32 products in full float32: each step's loss, nll,
+    grad norm and lr and its gradients' ``leaf_readings`` (read by a probe
+    around ``optimizer.update``), then the update p_n - p_0 of each leaf.
+    ``update`` stands in for ``optimizer.update`` (a planted fault)."""
+    import torch
+
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import weights
+    from repro_torch.train import optimizer
+
+    params = weights.from_jax_params(tree, cfg, device, trainable=True)
+    state = {"params": params, "opt": optimizer.init(params)}
+    step = steps.make_train_step(cfg, optimizer.AdamWConfig(**case["opt"]))
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, global_batch=case["batch"],
+                               seq_len=case["seq"], seed=case["seed"])
+    orig = optimizer.update
+    real, grads, rows = update or orig, [], []
+
+    def probe(g, st, p, c):
+        grads.append(leaf_readings(weights.stacked(
+            (name, i, torch.zeros_like(t) if t.grad is None else t.grad)
+            for name, i, t in weights.leaves(p)), case["samples"]))
+        return real(g, st, p, c)
+
+    optimizer.update = probe
+    try:
+        with fa.full_fp32_matmul():
+            for i in range(case["steps"]):
+                state, m = step(state, pipeline.batch_at(dcfg, i, device=device))
+                rows.append({**{k: float(v) for k, v in m.items()}, "grad": grads[-1]})
+    finally:
+        optimizer.update = orig
+    delta = weights.stacked(
+        (name, i, t.detach() - torch.from_numpy(np.asarray(tree_leaf(tree, name, i))).to(device))
+        for name, i, t in weights.leaves(params))
+    return {"steps": rows, "update": leaf_readings(delta, case["samples"])}
+
+
+def ulps(got: float, want: float) -> float:
+    want32 = np.float32(want)
+    return float(abs(np.float32(got) - want32) / np.spacing(want32))
+
+
+def train_agreement(got: dict, want: dict) -> dict:
+    """The readings of ``got`` (``train_readings``) against ``want``'s, each
+    the largest over steps and leaves (TRAIN_TOL's keys)."""
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def entries(g, w, name):
+        rms = w["norm"][name] / max(w["size"][name], 1) ** 0.5
+        d = np.asarray(g["samples"][name]) - np.asarray(w["samples"][name])
+        return d, max(rms, 1e-30)
+
+    out = {k: max(rel(g[k], w[k]) for g, w in zip(got["steps"], want["steps"]))
+           for k in ("loss", "nll", "grad_norm")}
+    out["lr_ulps"] = max(ulps(g["lr"], w["lr"]) for g, w in zip(got["steps"], want["steps"]))
+    out["leaf_grad_norm"] = max(rel(g["grad"]["norm"][n], w["grad"]["norm"][n])
+                                for g, w in zip(got["steps"], want["steps"])
+                                for n in w["grad"]["norm"] if w["grad"]["norm"][n])
+    grad_e = [entries(g["grad"], w["grad"], n) for g, w in zip(got["steps"], want["steps"])
+              for n in w["grad"]["norm"] if w["grad"]["norm"][n]]
+    out["grad_entries"] = max(float(np.abs(d).max() / rms) for d, rms in grad_e)
+    gu, wu = got["update"], want["update"]
+    names = [n for n in wu["norm"] if wu["norm"][n]]
+    out["update_norm"] = max(rel(gu["norm"][n], wu["norm"][n]) for n in names)
+    out["update_diff"] = max(float(np.sqrt(np.mean(d ** 2)) / rms)
+                             for d, rms in (entries(gu, wu, n) for n in names))
+    return out
+
+
+def bf16_limits(ref: dict) -> dict:
+    """The bfloat16 run's limits: BF16_SPREAD_FACTOR times the JAX package's
+    own bfloat16 run against its float32 run, at least TRAIN_TOL."""
+    return {k: max(TRAIN_TOL[k], BF16_SPREAD_FACTOR * v) if k != "lr_ulps" else TRAIN_TOL[k]
+            for k, v in ref["jax_bf16_spread"].items()}
+
+
+def strip_builds(lines) -> list:
+    """``[cosim]`` lines without their build counts: the JAX package's
+    count the XLA programs it compiled, the port's the kernel libraries
+    it built (none once phase 1 has)."""
+    import re
+
+    return [re.sub(r" builds \d+$", "", line) for line in lines]
+
+
+def restart_check(device) -> dict:
+    """REDUCED gemma2-2b in float32 (a state of a few MB) under
+    ``torch.use_deterministic_algorithms(True)``: 6 steps straight against
+    3, ``checkpoint.save``, ``restore`` into a fresh state (another seed)
+    and 3 more; the metrics, params and moments must be equal bit for
+    bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.train import checkpoint, optimizer
+
+    cfg = registry.get_config("gemma2-2b", reduced=True).replace(dtype="float32")
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=32, seed=1)
+    step = steps.make_train_step(cfg, optimizer.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                            total_steps=20))
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            state, straight = steps.init_state(cfg, 0, device=device), []
+            for i in range(6):
+                state, m = step(state, pipeline.batch_at(dcfg, i, device=device))
+                straight.append({k: float(v) for k, v in m.items()})
+                if i == 2:
+                    checkpoint.save(tmp, 2, state)
+            again = checkpoint.restore(tmp, 2, steps.init_state(cfg, 1, device=device))
+            resumed = []
+            for i in range(3, 6):
+                again, m = step(again, pipeline.batch_at(dcfg, i, device=device))
+                resumed.append({k: float(v) for k, v in m.items()})
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    a = {lid: checkpoint._host(leaf) for lid, leaf in checkpoint._leaves(state)}
+    b = {lid: checkpoint._host(leaf) for lid, leaf in checkpoint._leaves(again)}
+    differ = sorted(k for k in a if not np.array_equal(a[k], b[k]))
+    return {"metrics_equal": resumed == straight[3:], "leaves": len(a),
+            "leaves_differing": differ, "straight_losses": [r["loss"] for r in straight],
+            "resumed_losses": [r["loss"] for r in resumed]}
+
+
+def chunked_check(device) -> dict:
+    """attention._sdpa_chunked, the training path above Q_CHUNK tokens,
+    against _sdpa over the whole score matrix on the card, at gemma2-2b's
+    heads (8 of 256 on 4 KV heads), S = 2,048 in chunks of 1,024, float32
+    in full float32, with a window and without: values and the gradients
+    of q, k and v, each by the norm of the difference over its own norm."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    cfg = registry.get_config("gemma2-2b")
+    g = torch.Generator(device=device).manual_seed(5)
+    S, out = 2048, {}
+    q0 = torch.randn(1, S, 8, 256, generator=g, device=device)
+    k0 = torch.randn(1, 4, S, 256, generator=g, device=device)
+    v0 = torch.randn(1, 4, S, 256, generator=g, device=device)
+    ct = torch.randn(1, S, 8, 256, generator=g, device=device)
+    with fa.full_fp32_matmul():
+        for window in (0, 1000):
+            res = []
+            for chunked in (True, False):
+                q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+                o = (attention._sdpa_chunked(q, k, v, cfg, window) if chunked else
+                     attention._sdpa(q, k, v, attention.causal_mask(S, window, device), cfg))
+                (o * ct).sum().backward()
+                res.append([o.detach(), q.grad, k.grad, v.grad])
+            out[f"window_{window}"] = {
+                name: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+                for name, a, b in zip(("out", "dq", "dk", "dv"), *res)}
+    return out
+
+
+def phase_train_ref() -> dict:
+    """Phase 17: TRAIN_CASE's steps of the port's train step on the card
+    in float32 and in bfloat16 (float32 masters) against the JAX
+    package's float32 run (train_reference.json): the float32 run within
+    TRAIN_TOL, the bfloat16 run within ``bf16_limits``; the restart check
+    bit for bit (``restart_check``); the chunked attention against the
+    whole score matrix (``chunked_check``).  No kernel launches: the train
+    step runs the plain attention.  Returns the launch counts."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import weights
+
+    ref = json.loads(TRAIN_REFERENCE.read_text())
+    case = ref["case"]
+    check(case == TRAIN_CASE, f"train_reference.json holds another case: {case}")
+    reset_counts()
+    tree = weights.numpy_params(train_cfg(case, "float32"), case["seed"])
+    failures = []
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = train_readings(train_cfg(case, dtype), case, tree, DEVICE)
+        wall = time.time() - t0
+        agree = train_agreement(got, ref["runs"]["float32"])
+        limits = TRAIN_TOL if dtype == "float32" else bf16_limits(ref)
+        failed = sorted(k for k in limits if not agree[k] <= limits[k])
+        emit({"phase": "train_ref", "nvidia_smi": card_name(), "dtype": dtype,
+              "against": "the JAX package's float32 run", "wall_s": wall,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "losses": [r["loss"] for r in got["steps"]],
+              "jax_losses": [r["loss"] for r in ref["runs"]["float32"]["steps"]],
+              "grad_norms": [r["grad_norm"] for r in got["steps"]],
+              "agreement": agree, "limits": limits, "failed": failed,
+              **({"jax_bf16_spread": ref["jax_bf16_spread"]} if dtype == "bfloat16" else {})})
+        failures += [f"{dtype} {k}: {agree[k]} > {limits[k]}" for k in failed]
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    del tree
+    restart = restart_check(DEVICE)
+    chunked = chunked_check(DEVICE)
+    counts = read_counts()
+    emit({"phase": "train_ref", "restart": restart, "chunked_vs_whole": chunked,
+          "kernel_launches": counts})
+    check(not failures, f"train_ref: the port's train step disagrees with the JAX "
+                        f"package's: {failures}")
+    check(restart["metrics_equal"] and not restart["leaves_differing"],
+          f"train_ref: a restarted run differs from the uninterrupted one: {restart}")
+    worst = max(v for w in chunked.values() for v in w.values())
+    check(worst <= 1e-5, f"train_ref: _sdpa_chunked lies {worst} off _sdpa: {chunked}")
+    check(not any(counts.values()), f"train_ref: the train step launched kernels: {counts}")
+    return counts
+
+
+def param_count(cfg) -> int:
+    """Parameters of ``cfg``'s model, from its field tables."""
+    from repro_torch.models import transformer
+
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+
+    def units(us):
+        return sum(int(np.prod(f.shape)) for u in us
+                   for f in transformer.unit_shapes(cfg, u).values())
+
+    n = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2) + cfg.d_model
+    n += n_super * units(sb) + units(prelude + trailing)
+    if cfg.is_encoder_decoder:
+        eu, en = transformer.encoder_program(cfg)
+        n += en * units(eu) + cfg.d_model
+    return n
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of a train step: 6 N tokens, plus attention's two
+    products over the causal (windowed) query-key pairs, forward and
+    backward (12 B H hd pairs a layer); remat's recomputation not
+    counted."""
+    from repro_torch.models import transformer
+
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+    layers = [u for u in prelude + trailing if u.kind == "attn"]
+    layers += [u for u in sb if u.kind == "attn"] * n_super
+    pos = np.arange(seq)
+    attn = sum(12 * batch * cfg.n_heads * cfg.hd
+               * int(np.minimum(pos + 1, u.window or seq).sum()) for u in layers)
+    return 6.0 * param_count(cfg) * batch * seq + attn
+
+
+def phase_train() -> int:
+    """Phase 18, the slice's main path: ``repro_torch.launch.train`` as its
+    CLI runs (TRAIN_ARGV): gemma2-2b as published (26 layers, window
+    4,096, bfloat16 compute on float32 masters, remat "full"), B 2, S
+    2,048 (the chunked attention), 10 steps, after a 4-epoch
+    co-simulation whose epochs run the tiered kernel.  Gates: the
+    ``[cosim]`` lines (but their build counts) and the final plan's
+    inactive set equal to the JAX driver's (train_reference.json), one
+    tiered launch a stepped step, no flash launch, every loss finite.
+    Prints each step's wall, the optimizer's share of it (a probe that
+    synchronizes the card around ``optimizer.update``), tokens/s, the
+    model FLOPs of a step, peak memory and the loss curve.  Returns the
+    tiered kernel's launches."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.netsim import compact
+    from repro_torch.train import optimizer
+
+    ref = json.loads(TRAIN_REFERENCE.read_text())["cosim"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(compact.run_core.counts)
+    orig, update_s = optimizer.update, []
+
+    def timed_update(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = orig(*a)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t)
+        return res
+
+    reset_counts()
+    t0 = time.time()
+    optimizer.update = timed_update
+    try:
+        out = train.main([*TRAIN_ARGV, "--device", DEVICE])
+    finally:
+        optimizer.update = orig
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    loop = {k: compact.run_core.counts[k] - before[k] for k in before}
+    peak = torch.cuda.max_memory_allocated()
+    args = train.parser().parse_args(list(TRAIN_ARGV))
+    cfg = registry.get_config(args.arch, reduced=args.reduced).replace(remat=args.remat)
+    tokens = args.batch * args.seq
+    walls = [r["wall_s"] for r in out["steps"]]
+    steady = statistics.mean(walls[1:])
+    flops = train_flops(cfg, args.batch, args.seq)
+    losses = [r["loss"] for r in out["steps"]]
+    emit({"phase": "train", "nvidia_smi": card_name(), "argv": list(TRAIN_ARGV),
+          "arch": cfg.name, "n_layers": cfg.n_layers, "local_window": cfg.local_window,
+          "dtype": cfg.dtype, "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+          "q_chunk": cfg.q_chunk, "params": param_count(cfg), "batch": args.batch,
+          "seq": args.seq, "wall_s": wall, "step_walls_s": walls,
+          "optimizer_update_s": update_s, "steady_step_s": steady,
+          "tokens_per_s": tokens / steady,
+          "model_flops_per_step": flops, "model_tflop_per_s": flops / steady / 1e12,
+          "of_bf16_peak": flops / steady / BF16_FLOP_PER_S,
+          "peak_memory_gb": peak / 1e9, "losses": losses,
+          "grad_norms": [r["grad_norm"] for r in out["steps"]],
+          "lrs": [r["lr"] for r in out["steps"]], "cosim": out["cosim"],
+          "jax_cosim": ref["lines"], "plan_inactive": list(out["plan"].inactive),
+          "kernel_launches": counts, "cosim_loop": loop})
+    check(strip_builds(out["cosim"]) == strip_builds(ref["lines"]),
+          f"train: the [cosim] lines differ from the JAX driver's: {out['cosim']}")
+    check(list(out["plan"].inactive) == ref["inactive"],
+          f"train: the final plan's inactive set {out['plan'].inactive} is not the JAX "
+          f"driver's {ref['inactive']}")
+    check_launches("train", "ecmp", counts["cascade_tiered"], loop)
+    check(counts["cascade_tiered"] > 0, "train: the co-simulation ran no tiered kernel")
+    check(counts["flash_attention"] == 0,
+          f"train: the train step launched flash_attention {counts['flash_attention']} times")
+    check(len(losses) == args.steps and all(np.isfinite(losses)),
+          f"train: losses {losses}")
+    return counts["cascade_tiered"]
+
+
 def cluster_sweep() -> None:
     """Each cluster kernel (tiered, flat, linkload) at each of its phase 2
     shapes on clusters of 1 to 16 CTAs through its C entry, held against
@@ -2962,15 +3402,23 @@ def worker_record() -> dict:
 
 
 def worker_serve() -> dict:
-    return {"serve_ref": timed("serve_ref", phase_serve_ref),
-            "serve": timed("serve", phase_serve),
-            "serve_families_ref": timed("serve_families_ref", phase_serve_families_ref),
-            "serve_families": timed("serve_families", phase_serve_families)}
+    import gc
+
+    import torch
+
+    out = {"serve_ref": timed("serve_ref", phase_serve_ref),
+           "serve": timed("serve", phase_serve),
+           "serve_families_ref": timed("serve_families_ref", phase_serve_families_ref),
+           "serve_families": timed("serve_families", phase_serve_families)}
+    gc.collect()  # the serving models are gone before training loads the card
+    torch.cuda.empty_cache()
+    return {**out, "train_ref": timed("train_ref", phase_train_ref),
+            "train": timed("train", phase_train)}
 
 
-# the processes that run phases 3-16 but 6 at once, each its phases in
-# order -> their launch counts; the serving phases share one, so that one
-# model at a time holds the card's memory
+# the processes that run phases 3-18 but 6 at once, each its phases in
+# order -> their launch counts; the serving and training phases share one,
+# so that one model at a time holds the card's memory
 WORKERS = {"fig12": worker_fig12, "adaptive": worker_adaptive, "record": worker_record,
            "serve": worker_serve}
 WORKER_THREADS = 2  # torch's CPU threads in each, so that the four share 8 cores
@@ -3047,6 +3495,10 @@ def main() -> int:
             return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--worker":
         torch.set_num_threads(WORKER_THREADS)
+        if sys.argv[2] == "serve":  # cuBLAS repeats bit for bit (phase 17's restart check)
+            import os
+
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         try:
             load_kernels()
             emit({"worker": sys.argv[2], "launches": WORKERS[sys.argv[2]]()})
@@ -3082,26 +3534,30 @@ def main() -> int:
     testbed_launches, serve_launches = counts["testbed"], counts["serve"]
     serve_ref_launches, families_ref_launches = counts["serve_ref"], counts["serve_families_ref"]
     families_launches = counts["serve_families"]
+    train_launches = counts["train"]
     for lib, row in rows.items():
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
         if name == "cascade_tiered":
-            # the main path: the fig12 sweep, phases 7-11 and the testbed
+            # the main path: the fig12 sweep, phases 7-11, the testbed and
+            # the training driver's co-simulation
             by_path.update(repeat=repeat_launches, adaptive=adaptive_launches,
                            faults=fault_launches,
                            flowcell=flowcell_launches, record=record_launches,
-                           cosim=cosim_launches, testbed=testbed_launches)
+                           cosim=cosim_launches, testbed=testbed_launches,
+                           train=train_launches)
             launches = (sweep_counts[name] + repeat_launches + adaptive_launches
                         + fault_launches + flowcell_launches + record_launches
-                        + cosim_launches + testbed_launches)
+                        + cosim_launches + testbed_launches + train_launches)
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
-        elif name == "flash_attention":  # the serving path: phases 12-15
+        elif name == "flash_attention":  # the serving path: phases 12-15, none in training
             route = row["route"]
             by_path.update({row["path"]: row["path_launches"],
                             "serve_ref": serve_ref_launches.get(route, 0),
                             "serve": serve_launches if route == "wgmma" else 0,
                             "serve_families_ref": families_ref_launches.get(route, 0),
-                            "serve_families": families_launches if route == "wgmma" else 0})
+                            "serve_families": families_launches if route == "wgmma" else 0,
+                            "train": 0})
             launches = sum(by_path[k] for k in ("serve_ref", "serve", "serve_families_ref",
                                                 "serve_families"))
             extra = {"flash_route": route}

@@ -93,7 +93,13 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """Flash attention: the CUDA kernel of ``flash_route`` for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors.  It has no backward, so it refuses
+    inputs that autograd records (a launch would return an output with no
+    gradient); training takes the plain attention
+    (``models.attention.apply_full``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward: it refuses inputs that "
+                           "require grad")
     dev = q.device
     kw = dict(causal=causal, window=window, softcap=softcap)
     if dev.type == "cpu":

@@ -14,6 +14,12 @@ hand-written kernel on CUDA tensors, its plain version on CPU tensors.
 too; nothing switches to it by itself.  Decode (one query against the
 ring cache) and cross-attention stay plain einsums, as in the JAX
 package.
+
+Training is the exception: the kernel has no backward (nor has the JAX
+package's), so where autograd records (``apply_full`` in a training
+pass), self-attention is the JAX package's ``_sdpa``, or ``_sdpa_chunked``
+over query chunks above ``Q_CHUNK`` tokens, exactly where the JAX
+package's ``apply_full`` takes them.
 """
 from __future__ import annotations
 
@@ -108,17 +114,57 @@ def full_mask(Sq: int, Skv: int, device=None) -> torch.Tensor:
     return torch.ones((1, Sq, Skv), dtype=torch.bool, device=device)
 
 
+Q_CHUNK = 1024  # q-chunked attention above this sequence length (training)
+
+
+def _sdpa_chunked(q, k, v, cfg, window: int):
+    """Causal attention over query chunks of ``cfg.q_chunk`` tokens, each
+    against every key under its rows' mask, so the [S, S] score tensor
+    never materializes: ``attention.py:100-121`` of the JAX package (its
+    ``lax.scan`` a loop here).  q [B, S, H, hd]; k, v head-major."""
+    B, S, H, hd = q.shape
+    C = min(cfg.q_chunk or Q_CHUNK, S)
+    if S % C:
+        raise ValueError(f"{S} tokens do not split into query chunks of {C}")
+    j = torch.arange(S, device=q.device)
+    outs = []
+    for c0 in range(0, S, C):
+        i = c0 + torch.arange(C, device=q.device)
+        m = j[None, :] <= i[:, None]
+        if window:
+            m &= (i[:, None] - j[None, :]) < window
+        outs.append(_sdpa(q[:, c0:c0 + C], k, v, m[None], cfg))
+    return torch.cat(outs, dim=1)
+
+
+def _records(*tensors) -> bool:
+    """Whether autograd records an operation on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def apply_full(p: AttnParams, x, cfg, *, window: int = 0, is_causal: bool = True,
                kv_override=None):
     """Train/encoder path over the full sequence.  ``kv_override`` supplies
     cross-attention keys/values from an encoder, head-major (``encode_kv``;
-    x only provides queries; no RoPE across modalities)."""
+    x only provides queries; no RoPE across modalities).  Where autograd
+    records, self-attention is the plain ``_sdpa`` (``_sdpa_chunked`` when
+    causal above ``Q_CHUNK`` tokens), as the JAX package's; else the
+    flash kernel."""
     B, S, D = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     h = common.rms_norm(x, p.ln)
     if kv_override is None:
         q, k, v = _qkv(p, h, positions, cfg)
-        out = _self_attention(q, k, v, cfg, window, is_causal)
+        if _records(q, k, v):
+            k, v = k.transpose(1, 2), v.transpose(1, 2)  # head-major
+            if is_causal and S > Q_CHUNK:
+                out = _sdpa_chunked(q, k, v, cfg, window)
+            else:
+                mask = (causal_mask(S, window, x.device) if is_causal
+                        else full_mask(S, S, x.device))
+                out = _sdpa(q, k, v, mask, cfg)
+        else:
+            out = _self_attention(q, k, v, cfg, window, is_causal)
     else:
         q = _proj(h, p.wq)
         if cfg.qk_norm:

@@ -117,22 +117,45 @@ def init_field(f: Field, generator: torch.Generator, dtype) -> torch.Tensor:
     raise ValueError(f.init)
 
 
+def master_dtype(cfg, trainable: bool):
+    """The dtype of trainable masters (``cfg.param_dtype``), or ``None``:
+    frozen weights held in the dtype they are read in."""
+    return getattr(torch, cfg.param_dtype) if trainable else None
+
+
 class ParamModule(nn.Module):
-    """A unit's tensors under the JAX package's field names, as frozen
-    parameters.  ``FIELDS`` names them in the JAX NamedTuple's order;
-    ``fields`` (the unit's ``Field`` table) says which stay float32 (those
-    the JAX package reads in float32: norm scales, the router, the
-    recurrences' gates and Lambda); the rest are cast once, at
-    construction, to the compute dtype, as the JAX package casts them at
-    each use."""
+    """A unit's tensors under the JAX package's field names.  ``FIELDS``
+    names them in the JAX NamedTuple's order; ``fields`` (the unit's
+    ``Field`` table) says which are read in float32 (those the JAX package
+    reads in float32: norm scales, the router, the recurrences' gates and
+    Lambda) and which in the compute dtype ``dtype``.
+
+    Without ``master`` (serving) each is held frozen in the dtype it is read
+    in.  With ``master`` (training: ``cfg.param_dtype``, float32) each is a
+    master in that dtype that takes a gradient, and reading the attribute
+    casts it to the dtype it is read in, as the JAX package casts its
+    float32 masters at each use; autograd brings each use's gradient back
+    to float32 before it accumulates.  The masters themselves are in
+    ``_parameters`` (``weights.leaves``)."""
 
     FIELDS: tuple[str, ...] = ()
 
-    def __init__(self, fields: dict, dtype=None, device=None, **tensors):
+    def __init__(self, fields: dict, dtype=None, device=None, master=None, **tensors):
         super().__init__()
         if set(tensors) != set(self.FIELDS) or set(fields) != set(self.FIELDS):
             raise ValueError(f"{type(self).__name__} takes {self.FIELDS}, got {sorted(tensors)}")
+        self._read_as = {}
         for name in self.FIELDS:
+            read_as = torch.float32 if fields[name].f32 else dtype
             t = torch.as_tensor(tensors[name])
-            t = t.to(device=device, dtype=torch.float32 if fields[name].f32 else dtype)
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            if master is None:
+                t = t.to(device=device, dtype=read_as)
+            else:  # a copy of its own: the optimizer writes it in place
+                t = t.to(device=device, dtype=master, copy=True)
+            self.register_parameter(name, nn.Parameter(t, requires_grad=master is not None))
+            self._read_as[name] = read_as
+
+    def __getattr__(self, name: str):
+        t = super().__getattr__(name)
+        read_as = self.__dict__.get("_read_as", {}).get(name)
+        return t if read_as is None else t.to(read_as)  # a no-op on serving's weights

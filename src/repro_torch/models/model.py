@@ -3,9 +3,12 @@
 
 Params are a ``Params`` module (``nn.Module``) whose attributes carry the
 JAX package's keys; the config is static.  The per-arch structure lives in
-``transformer.block_program``.  The matrices are held in the compute dtype
-``cfg.dtype`` (the JAX package keeps float32 masters and casts at each
-use, which gives the same values) and the norm scales in float32.
+``transformer.block_program``.  For serving the matrices are held frozen
+in the compute dtype ``cfg.dtype`` (the JAX package keeps float32 masters
+and casts at each use, which gives the same values) and the norm scales
+in float32.  For training (``trainable=True``) every tensor is a float32
+master (``cfg.param_dtype``) that takes a gradient, cast at each use as
+the JAX package casts its masters (``common.ParamModule``).
 """
 from __future__ import annotations
 
@@ -28,57 +31,69 @@ class Params(nn.Module):
     embeddings."""
 
     def __init__(self, cfg: ModelConfig, embed, final_norm, prelude, main, trailing,
-                 encoder=None, enc_norm=None, lm_head=None):
+                 encoder=None, enc_norm=None, lm_head=None, master=None):
         super().__init__()
 
-        def frozen(t, dtype):
-            return nn.Parameter(t.to(dtype), requires_grad=False)
+        def param(t, dtype):
+            """Frozen in ``dtype``, or a trainable master in ``master`` (a
+            copy of its own: the optimizer writes it in place)."""
+            if master is None:
+                return nn.Parameter(t.to(dtype), requires_grad=False)
+            return nn.Parameter(t.to(master, copy=True), requires_grad=True)
 
+        self.cfg = cfg
         dt = _dtype(cfg)
-        self.embed = frozen(embed, dt)
-        self.final_norm = frozen(final_norm, torch.float32)
+        self.embed = param(embed, dt)
+        self.final_norm = param(final_norm, torch.float32)
         self.prelude, self.main, self.trailing = prelude, main, trailing
         self.encoder = encoder
-        self.enc_norm = None if enc_norm is None else frozen(enc_norm, torch.float32)
-        self.lm_head = None if lm_head is None else frozen(lm_head, dt)
+        self.enc_norm = None if enc_norm is None else param(enc_norm, torch.float32)
+        self.lm_head = None if lm_head is None else param(lm_head, dt)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                trainable: bool = False) -> Params:
     """Random params drawn on ``device`` (``None`` means ``"cuda"``) from a
     ``torch.Generator`` seeded with ``seed``, each field by its init kind
     (``common.init_field``: matrices ``common.dense_init``, norm scales
     zero), as ``repro.models.model.init_params`` (another random stream,
-    so not its values; ``weights`` carries those across)."""
+    so not its values; ``weights`` carries those across); ``trainable``:
+    float32 masters that take a gradient."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = _dtype(cfg)
+    master = common.master_dtype(cfg, trainable)
     prelude, sb, n_super, trailing = transformer.block_program(cfg)
 
     def zeros():
         return torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev)
 
     def units(us):
-        return nn.ModuleList(transformer.unit_init(cfg, u, g, dt) for u in us)
+        return nn.ModuleList(transformer.unit_init(cfg, u, g, dt, master) for u in us)
+
+    def matrix(shape):
+        return common.dense_init(shape, g, cfg.d_model, master or dt)
 
     kw = {}
     if cfg.is_encoder_decoder:
         eu, en = transformer.encoder_program(cfg)
-        kw["encoder"] = transformer.init_stack(cfg, eu, en, g, dt)
+        kw["encoder"] = transformer.init_stack(cfg, eu, en, g, dt, master)
         kw["enc_norm"] = zeros()
     if not cfg.tie_embeddings:
-        kw["lm_head"] = common.dense_init((cfg.d_model, cfg.vocab), g, cfg.d_model, dt)
-    return Params(cfg, common.dense_init((cfg.vocab, cfg.d_model), g, cfg.d_model, dt),
-                  zeros(), units(prelude), transformer.init_stack(cfg, sb, n_super, g, dt),
-                  units(trailing), **kw)
+        kw["lm_head"] = matrix((cfg.d_model, cfg.vocab))
+    return Params(cfg, matrix((cfg.vocab, cfg.d_model)), zeros(), units(prelude),
+                  transformer.init_stack(cfg, sb, n_super, g, dt, master), units(trailing),
+                  master=master, **kw)
 
 
 # ------------------------------------------------------------------ inputs
 def embed_tokens(params: Params, cfg, tokens):
     dt = _dtype(cfg)
+    # gathered from the master, then cast: the gradient sums in float32
     x = params.embed[tokens.long()].to(dt)
     # the scale rounded to the compute dtype first, as the JAX package does
     return x * torch.tensor(cfg.d_model**0.5, dtype=dt, device=x.device)
@@ -140,8 +155,10 @@ def _routing_ctx(ctx: dict, routes, experts) -> dict:
 # ------------------------------------------------------------------ train
 def forward_train(params: Params, cfg, batch, *, routes=None, experts=None):
     """(logits [B, S, V], aux): aux is the sum of the moe units'
-    load-balance and z-losses (0 without them).  Forward only: the port
-    has no backward yet.  ``routes``, ``experts``: ``_routing_ctx``."""
+    load-balance and z-losses (0 without them).  Differentiable: with
+    trainable params autograd records it, and self-attention takes the
+    plain attention (``attention.apply_full``), recomputed per superblock
+    under ``cfg.remat``.  ``routes``, ``experts``: ``_routing_ctx``."""
     x, ctx = _decoder_input(params, cfg, batch)
     _routing_ctx(ctx, routes, experts)
     x, _, aux = _run_decoder(params, cfg, x, "train", ctx=ctx)

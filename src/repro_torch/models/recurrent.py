@@ -296,8 +296,17 @@ def linear_scan(a, b, h0):
     of two buffers.  Returns h [B, S, R]."""
     A = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
     Bv = torch.cat([h0[:, None], b], dim=1)
-    A2, B2 = torch.empty_like(A), torch.empty_like(Bv)
     n, d = A.shape[1], 1
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
+        # autograd records: the same passes into new tensors (an out= write
+        # is not differentiable)
+        while d < n:
+            Bv = torch.cat([Bv[:, :d], torch.addcmul(Bv[:, d:], A[:, d:], Bv[:, :-d])], 1)
+            if 2 * d < n:
+                A = torch.cat([A[:, :d], A[:, :-d] * A[:, d:]], 1)
+            d *= 2
+        return Bv[:, 1:]
+    A2, B2 = torch.empty_like(A), torch.empty_like(Bv)
     while d < n:
         B2[:, :d] = Bv[:, :d]
         torch.addcmul(Bv[:, d:], A[:, d:], Bv[:, :-d], out=B2[:, d:])

@@ -9,16 +9,21 @@ unit params per superblock and loops; caches are a list over superblocks
 of a tuple over units, so gemma2's local/global alternation and its
 caches map one to one onto the JAX package's.
 
-Every unit is ported; ``remat`` is for training and is left out (the
-port runs forward only).
+Every unit is ported.  In training (mode "train" with autograd
+recording) ``cfg.remat`` recomputes each superblock in the backward pass,
+as the JAX package's per-superblock ``jax.checkpoint``: "full" keeps only
+the superblock's input, "dots" also keeps the outputs of its products
+(``checkpoint_dots``); serving never recomputes.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.models import attention, common, mlp, moe, recurrent
 
@@ -100,16 +105,21 @@ def unit_shapes(cfg, u: Unit) -> dict:
     return _unit(u.kind)[1](cfg)
 
 
-def unit_params(cfg, u: Unit, tensors: dict, dtype, device=None) -> common.ParamModule:
-    """A unit's params module from its tensors by field name."""
-    return _unit(u.kind)[0](unit_shapes(cfg, u), dtype=dtype, device=device, **tensors)
+def unit_params(cfg, u: Unit, tensors: dict, dtype, device=None,
+                master=None) -> common.ParamModule:
+    """A unit's params module from its tensors by field name (trainable
+    masters in ``master``: ``common.ParamModule``)."""
+    return _unit(u.kind)[0](unit_shapes(cfg, u), dtype=dtype, device=device, master=master,
+                            **tensors)
 
 
-def unit_init(cfg, u: Unit, generator: torch.Generator, dtype) -> common.ParamModule:
+def unit_init(cfg, u: Unit, generator: torch.Generator, dtype,
+              master=None) -> common.ParamModule:
     """Each field by its init kind (``common.init_field``), as the JAX
     package initializes it (from another random stream)."""
-    return unit_params(cfg, u, {name: common.init_field(f, generator, dtype)
-                                for name, f in unit_shapes(cfg, u).items()}, dtype)
+    return unit_params(cfg, u, {name: common.init_field(f, generator, master or dtype)
+                                for name, f in unit_shapes(cfg, u).items()}, dtype,
+                       master=master)
 
 
 def unit_cache_init(cfg, u: Unit, batch, max_len, dtype, device=None):
@@ -172,10 +182,11 @@ def unit_apply(u: Unit, p, x, cfg, mode: str, cache, ctx: dict[str, Any]):
 
 
 # ------------------------------------------------------------------ stacks
-def init_stack(cfg, units: tuple[Unit, ...], n: int, generator, dtype) -> nn.ModuleList:
+def init_stack(cfg, units: tuple[Unit, ...], n: int, generator, dtype,
+               master=None) -> nn.ModuleList:
     """Per-superblock params: a ModuleList of n ModuleLists over units."""
-    return nn.ModuleList(nn.ModuleList(unit_init(cfg, u, generator, dtype) for u in units)
-                         for _ in range(n))
+    return nn.ModuleList(nn.ModuleList(unit_init(cfg, u, generator, dtype, master)
+                                       for u in units) for _ in range(n))
 
 
 def stack_cache_init(cfg, units, n, batch, max_len, dtype, device=None) -> list:
@@ -197,12 +208,42 @@ def apply_units(params, x, cfg, units, mode, cache=None, ctx=None):
     return x, tuple(new_caches), aux
 
 
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the products' outputs, recompute the rest."""
+    if op in _DOTS:
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, mode: str):
+    """``checkpoint.checkpoint``'s keywords for ``cfg.remat`` where autograd
+    records a training pass, else ``None`` (no recomputation)."""
+    if mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled():
+        return None
+    if cfg.remat == "full":
+        return {"use_reentrant": False}
+    if cfg.remat == "dots":
+        return {"use_reentrant": False, "context_fn": functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"remat {cfg.remat!r} is not one of none, dots, full")
+
+
 def apply_stack(params, x, cfg, units, n, mode: str, cache=None, ctx=None):
-    """The superblock n times, in order.  Returns (x, new caches, aux)."""
+    """The superblock n times, in order, each recomputed in the backward
+    pass under ``cfg.remat`` (``_remat``).  Returns (x, new caches, aux)."""
     new_cache, aux = [], 0.0
+    remat = _remat(cfg, mode)
     for i in range(n):
-        x, nc, a = apply_units(params[i], x, cfg, units, mode,
-                               cache[i] if cache is not None else None, ctx)
+        c = cache[i] if cache is not None else None
+        if remat is None:
+            x, nc, a = apply_units(params[i], x, cfg, units, mode, c, ctx)
+        else:
+            x, nc, a = checkpoint.checkpoint(apply_units, params[i], x, cfg, units, mode, c,
+                                             ctx, **remat)
         new_cache.append(nc)
         aux = aux + a
     return x, new_cache, aux

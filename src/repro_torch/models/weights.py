@@ -11,7 +11,9 @@ leaves are stacked on a leading [n_super] axis.
 NamedTuple's field names), so that the tests, the JAX reference writer and
 ``chip_smoke.py`` can give both packages the same weights without JAX on
 the card; ``from_jax_params`` turns the JAX package's tree, or that one,
-into the port's ``model.Params``.
+into the port's ``model.Params``, and ``to_numpy_params`` turns those back.
+``leaves`` names each of the port's tensors by the JAX package's leaf
+name, which the optimizer's moments and the checkpoints use.
 """
 from __future__ import annotations
 
@@ -95,19 +97,21 @@ def _fields(unit) -> dict:
     return unit._asdict() if hasattr(unit, "_asdict") else dict(unit)
 
 
-def from_jax_params(tree, cfg, device=None) -> model.Params:
+def from_jax_params(tree, cfg, device=None, trainable: bool = False) -> model.Params:
     """The port's params from a tree in the JAX package's layout (numpy
     arrays, or anything ``np.asarray`` takes), on ``device`` (``None``
-    means ``"cuda"``); each field in its held dtype (``common.Field.f32``:
-    float32, or ``cfg.dtype``)."""
+    means ``"cuda"``); each field frozen in the dtype it is read in
+    (``common.Field.f32``: float32, or ``cfg.dtype``), or with
+    ``trainable`` a float32 master that takes a gradient."""
     dev = resolve_device(device)
     dt = model._dtype(cfg)
+    master = common.master_dtype(cfg, trainable)
     prelude, sb, n_super, trailing = transformer.block_program(cfg)
 
     def unit(u, fields, i=None):
         return transformer.unit_params(
             cfg, u, {k: _tensor(v if i is None else np.asarray(v)[i])
-                     for k, v in _fields(fields).items()}, dt, dev)
+                     for k, v in _fields(fields).items()}, dt, dev, master)
 
     def units(us, leaves):
         return nn.ModuleList(unit(u, f) for u, f in zip(us, leaves))
@@ -116,8 +120,8 @@ def from_jax_params(tree, cfg, device=None) -> model.Params:
         return nn.ModuleList(nn.ModuleList(unit(u, f, i) for u, f in zip(us, leaves))
                              for i in range(n))
 
-    def matrix(key):
-        return _tensor(tree[key]).to(device=dev, dtype=dt)
+    def matrix(key):  # Params casts it to its held dtype
+        return _tensor(tree[key]).to(dev)
 
     kw = {}
     if cfg.is_encoder_decoder:
@@ -128,4 +132,73 @@ def from_jax_params(tree, cfg, device=None) -> model.Params:
         kw["lm_head"] = matrix("lm_head")
     return model.Params(cfg, matrix("embed"), _tensor(tree["final_norm"]).to(dev),
                         units(prelude, tree["prelude"]), stack(sb, n_super, tree["main"]),
-                        units(trailing, tree["trailing"]), **kw)
+                        units(trailing, tree["trailing"]), master=master, **kw)
+
+
+_TOP = ("embed", "final_norm", "enc_norm", "lm_head")
+
+
+def leaves(params: model.Params):
+    """(name, superblock, tensor) of every parameter: its leaf name in the
+    JAX package's tree as ``repro.train.checkpoint._leaf_id`` writes it
+    ("embed", "prelude.0.ln", "main.1.wq"), the superblock it stands at on
+    the stacked [n_super] axis of a "main" or "encoder" leaf (else
+    ``None``), and the port's tensor (the master itself, not its cast)."""
+    for key in _TOP:
+        t = params._parameters.get(key)
+        if t is not None:
+            yield key, None, t
+    for group in ("prelude", "trailing"):
+        for j, unit in enumerate(getattr(params, group)):
+            for f in unit.FIELDS:
+                yield f"{group}.{j}.{f}", None, unit._parameters[f]
+    for group in ("main", "encoder"):
+        for i, sb in enumerate(getattr(params, group) or ()):
+            for j, unit in enumerate(sb):
+                for f in unit.FIELDS:
+                    yield f"{group}.{j}.{f}", i, unit._parameters[f]
+
+
+def stacked(named) -> dict:
+    """name -> array from ``leaves``-like (name, superblock, array)
+    triples: a stacked leaf's superblocks stacked on a leading axis."""
+    out, parts = {}, {}
+    for name, i, a in named:
+        if i is None:
+            out[name] = a
+        else:
+            parts.setdefault(name, []).append(a)
+    for name, arrays in parts.items():
+        out[name] = (np.stack if isinstance(arrays[0], np.ndarray) else torch.stack)(arrays)
+    return out
+
+
+def to_numpy_params(params: model.Params, cfg) -> dict:
+    """The inverse of ``from_jax_params``: a tree in the JAX package's
+    layout (``numpy_params``': units as dicts by field name, "main" and
+    "encoder" stacked on [n_super]) of float32 numpy arrays."""
+    return layout(stacked((name, i, t.detach().to(device="cpu", dtype=torch.float32).numpy())
+                          for name, i, t in leaves(params)), cfg)
+
+
+def layout(flat: dict, cfg) -> dict:
+    """The JAX package's tree of ``cfg`` from leaf name -> array (a
+    "main" or "encoder" leaf stacked on [n_super])."""
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+
+    def units(group, us, n=None):
+        if n == 0:
+            return tuple(() for _ in us)
+        return tuple({f: flat[f"{group}.{j}.{f}"] for f in transformer.unit_shapes(cfg, u)}
+                     for j, u in enumerate(us))
+
+    tree = {"embed": flat["embed"], "final_norm": flat["final_norm"],
+            "prelude": units("prelude", prelude), "main": units("main", sb, n_super),
+            "trailing": units("trailing", trailing)}
+    if cfg.is_encoder_decoder:
+        eu, en = transformer.encoder_program(cfg)
+        tree["encoder"] = units("encoder", eu, en)
+        tree["enc_norm"] = flat["enc_norm"]
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = flat["lm_head"]
+    return tree

@@ -37,7 +37,10 @@ def test_importing_the_sweep_leaves_jax_out():
             "repro_torch.dist, repro_torch.netsim.profile, repro_torch.core.gbn, "
             "repro_torch.configs.registry, repro_torch.models.model, "
             "repro_torch.models.weights, repro_torch.models.moe, repro_torch.models.recurrent, "
-            "repro_torch.serve.engine, repro_torch.serve.compare; "
+            "repro_torch.serve.engine, repro_torch.serve.compare, "
+            "repro_torch.data.pipeline, repro_torch.train.optimizer, "
+            "repro_torch.train.checkpoint, repro_torch.launch.steps, "
+            "repro_torch.launch.train; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
