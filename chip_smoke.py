@@ -41,7 +41,10 @@ Phases, each printed as JSON lines:
                 row within FLASH_ROW_REL of the plain version, a limit that
                 the plain version with the window one block short or
                 without the softcap is shown to break; the cases without
-                a softcap also against F.scaled_dot_product_attention;
+                a softcap also against F.scaled_dot_product_attention,
+                and the serving cases with one (FLEX_CASES) against
+                torch.nn.attention.flex_attention compiled, each library
+                call timed where it holds the case's tolerance;
               each kernel is one Spec record driven by one loop; each new
               kernel's entry point (dataplane.cascade, ops.linkload,
               ops.flash_attention) is driven once with the launch counts
@@ -214,16 +217,48 @@ Phases, each printed as JSON lines:
               step, no flash launch, every loss finite; each step's wall,
               tokens/s, the model FLOPs of a step, peak memory and the
               loss curve printed.
+ 19. grad_sync the ring all-reduce (repro_torch.dist.collectives.
+              seqbalance_all_reduce over a LocalAxis: every member a row
+              of one tensor on the card): rings of 2, 4 and 8 members on
+              the float32, bfloat16 and int8 wires under three plans (the
+              default (1, -1), one path quarantined, a PinnedPlan from
+              replan_chunk_paths), GRAD_SYNC_MEMBER entries a member, each
+              against the port's CPU run and the JAX package's sampled
+              outputs (src/repro_torch/dist/grad_sync_reference.json) bit
+              for bit, within its wire's error of the exact sum, and
+              2 (n - 1) rounds a chunk (collectives.permute_rounds); then
+              gemma2-2b's embedding gradient (256,000 x 2,304, float32) at
+              2 and 4 members, the ring and baseline_all_reduce timed
+              against the bytes bound;
+ 20. train_sync_ref GRAD_SYNC_CASE: phase 17's case at B 4 through the pod
+              step (launch.steps.make_train_step on a pod mesh,
+              "seqbalance", 4 chunks) over 2 pods on the float32 and the
+              int8 wire, and at REDUCED width over 4 pods on the int8
+              wire, each against the JAX package's pod step on forced
+              host devices (grad_sync_reference.json) within TRAIN_TOL
+              (its norms only on the int8 wire: grad_sync_limits), with
+              the rounds the ring ran; the float32-wire run's loss
+              also against the port's single-device step on the same
+              batches;
+ 21. train_sync gemma2-2b as published over 2 pods on the card
+              (TRAIN_SYNC_ARGV: phase 18's run with --grad-sync
+              seqbalance --pods 2, 5 steps, one row a member): every loss
+              finite, step 0's loss within phase 17's bfloat16 loss limit
+              of phase 18's, the [cosim] lines and plan the JAX driver's,
+              the ring's rounds; step walls, tokens/s, the grad sync's
+              synchronized share of a step and the peak memory printed.
 
-Phases 1, 2 and 6 run first, alone on the card.  The others run in the
-four processes of WORKERS at once, on the same card (python3
+Phases 1, 2 and 6 run first, alone on the card.  The others but 21 run
+in the four processes of WORKERS at once, on the same card (python3
 chip_smoke.py --worker NAME): the simulator's steps are host work on a
 device that idles most of a step (phase 6), so their walls overlap.
-Phases 12-15 and 17-18 load the card and share one process, one model
-at a time.  Each process runs its phases in order, prints their lines
-and, last, a {"worker": ...} line with the launch counts of each phase (set to 0
-before the phase, read after it); the script prints each worker's lines
-once all have ended.  Their walls are taken with the others running.
+Phases 12-15 and 17-20 load the card and share one process, one model
+at a time.  Phase 21 runs last, alone, in a process of its own
+(LAST_WORKERS): it holds about 65 GB of the card.  Each process runs its
+phases in order, prints their lines and, last, a {"worker": ...} line
+with the launch counts of each phase (set to 0 before the phase, read
+after it); the script prints each worker's lines once all have ended.
+Their walls are taken with the others running.
 
 Each phase's wall is printed after it.  Then a "kernels" line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that
@@ -540,9 +575,10 @@ class Spec(NamedTuple):
     # (name, case -> None): the entry point, driven once at the main case
     # with the counts at 0; None where the sweep is the entry point
     entry: tuple | None = None
-    # (name, case -> a no-argument call or None): one PyTorch call that
-    # computes the same function, timed beside the kernel
-    library: tuple | None = None
+    # case -> None, or (its name, a no-argument call, more row fields): one
+    # PyTorch call that computes the same function, held against the plain
+    # version at the case's tolerance and timed beside the kernel if it holds
+    library: Callable | None = None
     more: Callable | None = None  # (case, got, want) -> more row fields; fails itself
     reps: tuple = ({}, {})  # time_ms's keywords: the kernel's, the plain version's
     # the row field for the key of the wrapper's tally (tallies()) that a
@@ -735,11 +771,14 @@ def flash_rows(case, got, want):
 def sdpa_call(case):
     """F.scaled_dot_product_attention in the kernel's layout, where it
     computes the same function: no softcap, no window; float32 products in
-    full float32."""
+    full float32.  Where a softcap (gemma2-2b) rules it out, for the serving
+    shapes of FLEX_CASES, ``flex_call``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
+    if case.name in FLEX_CASES:
+        return flex_call(case)
     if case.kw["softcap"] or case.kw["window"]:
         return None
     qt, kt, vt = (x.transpose(1, 2) for x in case.args)
@@ -748,7 +787,53 @@ def sdpa_call(case):
         with fa.full_fp32_matmul():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=case.kw["causal"],
                                                   enable_gqa=True).transpose(1, 2)
-    return sdpa
+    return "F.scaled_dot_product_attention(is_causal, enable_gqa)", sdpa, {}
+
+
+# the flash rows with a softcap that phases 12-13 serve (gemma2-2b's local
+# and global prefill layers in bf16, phase 12's float32 prefill), where
+# torch.nn.attention.flex_attention is the one library call
+FLEX_CASES = ("gemma2-2b-serve", "gemma2-2b-serve-global", "gemma2-2b-serve-ref")
+
+
+def flex_call(case):
+    """``flex_attention`` compiled (torch.compile, the shapes static) with a
+    tanh softcap ``score_mod``, a causal-plus-window ``block_mask`` and
+    ``enable_gqa``, in the kernel's layout, float32 products in full
+    float32; the compile (its first call) timed apart.  A compile that
+    fails gives no call: the reason is printed in its place."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.transpose(1, 2).contiguous() for x in case.args)
+    S, hd = q.shape[2], q.shape[3]
+    cap, window = case.kw["softcap"], case.kw["window"]
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def causal_window(b, h, qi, ki):
+        keep = ki <= qi
+        return keep & (qi - ki < window) if window else keep
+
+    label = (f"flex_attention(score_mod=softcap {cap}, block_mask=causal"
+             f"{f' window {window}' if window else ''}, enable_gqa) compiled")
+    compiled = torch.compile(flex_attention, dynamic=False)
+    mask = create_block_mask(causal_window, None, None, S, S, device=DEVICE)
+
+    def flex():
+        with fa.full_fp32_matmul():
+            return compiled(q, k, v, score_mod=softcap, block_mask=mask, enable_gqa=True,
+                            scale=hd ** -0.5).transpose(1, 2)
+    t0 = time.time()
+    try:
+        flex()
+        torch.cuda.synchronize()
+    except Exception as e:  # a library's compiler refusing the shape: reported, not timed
+        return label, None, {"library_compile_error": f"{type(e).__name__}: {str(e)[:300]}"}
+    return label, flex, {"library_compile_s": time.time() - t0}
 
 
 def c_entry(library: str, fn: str, argtypes: tuple, tensors, ints, floats):
@@ -865,7 +950,7 @@ def kernel_specs():
              fa.flash_attention, fa.flash_attention_torch, ("out",),
              flash_tols, flash_cases, flash_bound,
              entry=("ops.flash_attention", lambda c: ops.flash_attention(*c.args, **c.kw)),
-             library=("F.scaled_dot_product_attention(is_causal, enable_gqa)", sdpa_call),
+             library=sdpa_call,
              more=flash_rows,
              reps=(dict(reps=5, rounds=5, warmup=2), dict(reps=2, rounds=3, warmup=1)),
              ran_as="route", launch=flash_launch),
@@ -928,11 +1013,18 @@ def kernel_row(spec: Spec, case: Case) -> dict:
     torch.cuda.synchronize()
     close_enough(f"{spec.name} {case.name} through the C entry", spec.outputs, outs, want, tols)
     library = {"library_ms": None}
-    call = spec.library[1](case) if spec.library else None
-    if call is not None:
-        lib_err = float((call().float() - want[0].float()).abs().max())
-        library = {"library": spec.library[0], "library_ms": time_ms(call, **spec.reps[0]),
-                   "library_max_abs_err": lib_err}
+    lib = spec.library(case) if spec.library else None
+    if lib is not None:
+        name, call, more_lib = lib
+        library = {"library": name, **more_lib, "library_ms": None}
+        if call is not None:
+            out = call()
+            held = bool(torch.allclose(out.float(), want[0].float(), **tols[0]))
+            library.update(library_max_abs_err=float((out.float() - want[0].float()).abs().max()),
+                           library_within_tol=held)
+            del out
+            if held:  # a call that misses the kernel's tolerance computes another function
+                library["library_ms"] = time_ms(call, **spec.reps[0])
     del want, got
     ms = kernel_ms(launch, **spec.reps[0])
     c_entry = time_ms(launch, **spec.reps[0])
@@ -2922,12 +3014,15 @@ def tree_leaf(tree: dict, name: str, i):
     return leaf if i is None else leaf[i]
 
 
-def train_readings(cfg, case: dict, tree: dict, device, update=None) -> dict:
+def train_readings(cfg, case: dict, tree: dict, device, update=None, mesh=None,
+                   plan=None) -> dict:
     """``case``'s steps of the port's train step
-    (``launch.steps.make_train_step``) from ``tree``'s weights on
-    ``device``, float32 products in full float32: each step's loss, nll,
-    grad norm and lr and its gradients' ``leaf_readings`` (read by a probe
-    around ``optimizer.update``), then the update p_n - p_0 of each leaf.
+    (``launch.steps.make_train_step``; with a ``mesh``, its "seqbalance"
+    pod step with ``plan``) from ``tree``'s weights on ``device``, float32
+    products in full float32: each step's loss, nll, grad norm and lr and
+    its gradients' ``leaf_readings`` (read by a probe around
+    ``optimizer.update``: the masters' ``.grad``, or the pod step's mean
+    gradients of member 0), then the update p_n - p_0 of each leaf.
     ``update`` stands in for ``optimizer.update`` (a planted fault)."""
     import torch
 
@@ -2939,16 +3034,18 @@ def train_readings(cfg, case: dict, tree: dict, device, update=None) -> dict:
 
     params = weights.from_jax_params(tree, cfg, device, trainable=True)
     state = {"params": params, "opt": optimizer.init(params)}
-    step = steps.make_train_step(cfg, optimizer.AdamWConfig(**case["opt"]))
+    step = steps.make_train_step(cfg, optimizer.AdamWConfig(**case["opt"]), mesh,
+                                 "xla" if mesh is None else "seqbalance", plan)
     dcfg = pipeline.DataConfig(vocab=cfg.vocab, global_batch=case["batch"],
                                seq_len=case["seq"], seed=case["seed"])
     orig = optimizer.update
     real, grads, rows = update or orig, [], []
 
     def probe(g, st, p, c):
-        grads.append(leaf_readings(weights.stacked(
-            (name, i, torch.zeros_like(t) if t.grad is None else t.grad)
-            for name, i, t in weights.leaves(p)), case["samples"]))
+        if p is params:  # not another pod member's copy
+            grads.append(leaf_readings(g if g is not None else weights.stacked(
+                (name, i, torch.zeros_like(t) if t.grad is None else t.grad)
+                for name, i, t in weights.leaves(p)), case["samples"]))
         return real(g, st, p, c)
 
     optimizer.update = probe
@@ -3264,6 +3361,358 @@ def phase_train() -> int:
     return counts["cascade_tiered"]
 
 
+# ------------------------------------------------------------ grad sync
+GRAD_SYNC_REFERENCE = SRC / "repro_torch" / "dist" / "grad_sync_reference.json"
+WIRES = ("float32", "bfloat16", "int8")
+# phase 19: the ring on the card, every (members, wire, plan), each member
+# GRAD_SYNC_MEMBER entries (a size that needs padding at every ring size)
+GRAD_SYNC_RINGS = [(n, wire, plan) for n in (2, 4, 8) for wire in WIRES
+                   for plan in ("default", "inactive", "pinned")]
+GRAD_SYNC_MEMBER = 10_007
+RING_SAMPLES = 64
+# phase 19's timed leaf: gemma2-2b's tied embedding [256,000, 2,304], its
+# largest gradient leaf (2.36 GB a member in float32), at 2 and 4 members
+GRAD_SYNC_TIMED = (256_000, 2_304)
+GRAD_SYNC_TIMED_MEMBERS = (2, 4)
+# phase 20: phase 17's case over a pod axis (B 4: a share of 2 a member at
+# 2 pods), which tests/test_torch_grad_sync.py --write-grad-sync-reference
+# runs through the JAX package's pod step on forced host devices; at full
+# width 2 pods on the float32 and the int8 wire (the JAX package keeps a
+# replica of the state on each forced device: 4 pods at full width would
+# take about 48 GB on the host), and 4 pods on the int8 wire at REDUCED
+# width (both ring directions reach other members from 3 on)
+GRAD_SYNC_CASE = {**TRAIN_CASE, "batch": 4, "chunks": 4,
+                  "runs": [{"name": "2pods-float32", "pods": 2, "wire": "float32",
+                            "reduced": False},
+                           {"name": "2pods-int8", "pods": 2, "wire": "int8", "reduced": False},
+                           {"name": "4pods-int8-reduced", "pods": 4, "wire": "int8",
+                            "reduced": True}]}
+# phase 20's limits: TRAIN_TOL on the float32 wire; on a lossy wire its
+# loss, nll, norms and lr only.  There a ulp between two right float sums
+# of a member's gradient can cross a rounding tie of the wire, which moves
+# an entry by a whole quantum (an int8 scale is a segment's absmax / 127,
+# many RMS of a sparse leaf such as the embedding), and AdamW turns that
+# into +-lr: the port on the CPU reads 0.065 RMS in the sampled entries
+# and 5.5e-3 in the update's difference at full width on the int8 wire,
+# while its norms hold TRAIN_TOL and every planted fault moves them
+# (grad_sync_reference.json, "port_cpu" and "planted")
+LOSSY_WIRE_KEYS = ("loss", "nll", "grad_norm", "lr_ulps", "leaf_grad_norm", "update_norm")
+
+
+def grad_sync_limits(run: dict) -> dict:
+    keys = TRAIN_TOL if run["wire"] == "float32" else LOSSY_WIRE_KEYS
+    return {k: TRAIN_TOL[k] for k in keys}
+
+
+# phase 21: the driver as its CLI runs, gemma2-2b as published over 2 pods
+# on this one card (one row a member), after phase 18's co-simulation
+TRAIN_SYNC_ARGV = ("--arch", "gemma2-2b", "--remat", "full", "--batch", "2", "--seq", "2048",
+                   "--steps", "5", "--cosim-epochs", "4", "--log-every", "1",
+                   "--grad-sync", "seqbalance", "--pods", "2")
+
+
+def ring_plan(mod, name: str, wire: str):
+    """Phase 19's plans, as ``mod`` (either package's collectives) builds
+    them: the default (1, -1), one of two paths quarantined, and a
+    ``PinnedPlan`` from ``replan_chunk_paths`` (path 0 of four down: its
+    chunk moves to path 2, of its direction)."""
+    if name == "default":
+        return mod.PathPlan(n_chunks=4, wire_dtype=wire)
+    if name == "inactive":
+        return mod.PathPlan(n_chunks=4, directions=(1, -1), inactive=(True, False),
+                            wire_dtype=wire)
+    dirs, down = (1, -1, 1, -1), (True, False, False, False)
+    return mod.PinnedPlan(n_chunks=4, directions=dirs, inactive=down,
+                          paths=mod.replan_chunk_paths((0, 1, 2, 3), dirs, down), wire_dtype=wire)
+
+
+def ring_inputs(n: int, size: int, seed: int) -> np.ndarray:
+    """[n, size] float32, each member at its own magnitude (1e-2 to 1e2),
+    so that the int8 wire's scales differ between members."""
+    rng = np.random.default_rng(seed)
+    mag = 10.0 ** rng.uniform(-2, 2, (n, 1))
+    return (rng.standard_normal((n, size)) * mag).astype(np.float32)
+
+
+def ring_case(k: int):
+    """Phase 19's case k: (members, wire, plan name, inputs, sample index)."""
+    n, wire, plan = GRAD_SYNC_RINGS[k]
+    return (n, wire, plan, ring_inputs(n, GRAD_SYNC_MEMBER, 2000 + k),
+            sample_index(f"ring{k}", GRAD_SYNC_MEMBER, RING_SAMPLES))
+
+
+def differing_bits(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.count_nonzero(a.view(np.uint32) != b.view(np.uint32)))
+
+
+def ring_check(k: int, got: np.ndarray, cpu: np.ndarray, jax_samples, scales: list,
+               rounds: int) -> dict:
+    """Phase 19's readings of case k's card output: bits differing from the
+    port's CPU run and from the JAX package's sampled outputs, the error
+    against the exact sum and its limit, the rounds."""
+    n, wire, plan, x, idx = ring_case(k)
+    exact = x.astype(np.float64).sum(0)
+    absmax = float(np.abs(exact).max())
+    # float32: 1e-6 of the sum's absmax; bfloat16: tests/test_collectives.py:66;
+    # int8: one rounding of at most half a scale a round, n of them at most
+    limit = {"float32": 1e-6 * absmax, "bfloat16": 2e-2 * absmax,
+             "int8": n * max(scales or [0.0]) / 2}[wire]
+    return {"members": n, "wire": wire, "plan": plan,
+            "bits_off_cpu": differing_bits(got, cpu),
+            "bits_off_jax_samples": differing_bits(got[:, idx],
+                                                   np.asarray(jax_samples, np.float32)),
+            "max_abs_err": float(np.abs(got - exact[None]).max()), "limit": limit,
+            "rounds": rounds, "rounds_expected": 2 * (n - 1) * 4}
+
+
+def phase_grad_sync() -> dict:
+    """Phase 19: ``dist.collectives.seqbalance_all_reduce`` on the card (a
+    ``LocalAxis``: every member on the one device): each of GRAD_SYNC_RINGS
+    against the port's CPU run of the same inputs and the JAX package's
+    sampled outputs (grad_sync_reference.json), bit for bit, within its
+    wire's error of the exact sum, and 2 (n - 1) rounds a chunk; then
+    gemma2-2b's embedding gradient at 2 and 4 members, the ring and
+    ``baseline_all_reduce`` timed against the bytes bound.  No kernel
+    launches (the ring is PyTorch arithmetic and a roll).  Returns the
+    launch counts."""
+    import torch
+
+    from repro_torch.dist import collectives as coll
+
+    ref = json.loads(GRAD_SYNC_REFERENCE.read_text())["rings"]
+    reset_counts()
+    failures, orig = [], coll.quantize_int8
+    for k in range(len(GRAD_SYNC_RINGS)):
+        n, wire, plan_name, x, _ = ring_case(k)
+        plan = ring_plan(coll, plan_name, wire)
+        scales = []
+
+        def probe(v, dim=None):
+            q, scale = orig(v, dim)
+            scales.append(float(scale.max()))
+            return q, scale
+
+        coll.permute_rounds = 0
+        coll.quantize_int8 = probe
+        try:
+            got = coll.seqbalance_all_reduce(torch.from_numpy(x).to(DEVICE),
+                                             coll.LocalAxis(n, DEVICE), plan).cpu().numpy()
+        finally:
+            coll.quantize_int8 = orig
+        rounds = coll.permute_rounds
+        cpu = coll.seqbalance_all_reduce(torch.from_numpy(x), coll.LocalAxis(n, "cpu"),
+                                         plan).numpy()
+        row = ring_check(k, got, cpu, ref[k]["samples"], scales, rounds)
+        emit({"phase": "grad_sync", **row})
+        if (row["bits_off_cpu"] or row["bits_off_jax_samples"] or not row["max_abs_err"]
+                <= row["limit"] or rounds != row["rounds_expected"]):
+            failures.append(row)
+    timed = []
+    for n in GRAD_SYNC_TIMED_MEMBERS:
+        g = torch.Generator(device=DEVICE).manual_seed(n)
+        x = torch.randn((n, *GRAD_SYNC_TIMED), generator=g, device=DEVICE)
+        axis = coll.LocalAxis(n, DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        ring_ms = time_ms(lambda: coll.seqbalance_all_reduce(x, axis), reps=1, rounds=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        base_ms = time_ms(lambda: coll.baseline_all_reduce(x, axis), reps=1, rounds=3, warmup=1)
+        moved = 2 * nbytes(x)  # every member's leaf read once, its sum written once
+        bound_ms, by = bound(moved, (n - 1) * x[0].numel())
+        row = {"phase": "grad_sync", "nvidia_smi": card_name(), "leaf": list(GRAD_SYNC_TIMED),
+               "members": n, "plan": "PathPlan() (4 chunks, float32 wire)", "ring_ms": ring_ms,
+               "baseline_ms": base_ms, "hbm_bytes": moved, "bound_ms": bound_ms,
+               "bound_by": by, "ring_of_bound": bound_ms / ring_ms,
+               "baseline_of_bound": bound_ms / base_ms, "peak_memory_gb": peak / 1e9}
+        emit(row)
+        timed.append(row)
+        del x
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    check(not failures, f"grad_sync: the ring on the card disagrees: {failures}")
+    check(not any(counts.values()), f"grad_sync: the ring launched kernels: {counts}")
+    return counts
+
+
+def grad_sync_cfg(case: dict, run: dict):
+    """A run's config: ``case``'s cut of the published model, or at
+    REDUCED width in float32."""
+    from repro_torch.configs import registry
+
+    if run["reduced"]:
+        return registry.get_config(case["arch"], reduced=True).replace(dtype="float32")
+    return train_cfg(case, "float32")
+
+
+def grad_sync_readings(case: dict, run: dict, device, step_fn=None) -> dict:
+    """``train_readings`` of one of GRAD_SYNC_CASE's runs (its pods, wire
+    and config) through the pod step on a "local" mesh on ``device``, with
+    the rounds it ran."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import weights
+
+    cfg = grad_sync_cfg(case, run)
+    tree = weights.numpy_params(cfg, case["seed"])
+    coll.permute_rounds = 0
+    plan = coll.PathPlan(n_chunks=case["chunks"], wire_dtype=run["wire"])
+    mesh = mesh_mod.make_pod_mesh(run["pods"], device=device)
+    if step_fn is None:
+        out = train_readings(cfg, case, tree, device, mesh=mesh, plan=plan)
+    else:  # a planted fault in the step
+        from repro_torch.launch import steps
+
+        orig, steps.make_train_step = steps.make_train_step, step_fn
+        try:
+            out = train_readings(cfg, case, tree, device, mesh=mesh, plan=plan)
+        finally:
+            steps.make_train_step = orig
+    return {**out, "rounds": coll.permute_rounds}
+
+
+def rounds_of(cfg, steps_run: int, pods: int, chunks: int) -> int:
+    """The ring's rounds in ``steps_run`` pod steps: 2 (n - 1) a chunk of
+    every leaf."""
+    from repro_torch.dist import sharding
+
+    return steps_run * len(sharding.param_shapes(cfg)) * chunks * 2 * (pods - 1)
+
+
+def phase_train_sync_ref() -> dict:
+    """Phase 20: GRAD_SYNC_CASE's runs of the pod step on the card against
+    the JAX package's pod step (grad_sync_reference.json) within
+    ``grad_sync_limits``, the rounds each ran, and the float32-wire run's loss
+    against the port's single-device step on the same B 4 batches.  No
+    kernel launches.  Returns the launch counts."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import weights
+
+    ref = json.loads(GRAD_SYNC_REFERENCE.read_text())
+    case = ref["case"]
+    check(case == GRAD_SYNC_CASE, f"grad_sync_reference.json holds another case: {case}")
+    reset_counts()
+    failures = []
+    for run in case["runs"]:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = grad_sync_readings(case, run, DEVICE)
+        wall = time.time() - t0
+        agree = train_agreement(got, ref["runs"][run["name"]])
+        cfg = grad_sync_cfg(case, run)
+        limits = grad_sync_limits(run)
+        want_rounds = rounds_of(cfg, case["steps"], run["pods"], case["chunks"])
+        row = {"phase": "train_sync_ref", "nvidia_smi": card_name(), **run,
+               "against": "the JAX package's pod step", "wall_s": wall,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": [r["loss"] for r in got["steps"]],
+               "jax_losses": [r["loss"] for r in ref["runs"][run["name"]]["steps"]],
+               "agreement": agree, "limits": limits, "rounds": got["rounds"],
+               "rounds_expected": want_rounds,
+               "failed": sorted(k for k in limits if not agree[k] <= limits[k])}
+        failures += [f"{run['name']} {k}: {agree[k]} > {limits[k]}" for k in row["failed"]]
+        if got["rounds"] != want_rounds:
+            failures.append(f"{run['name']}: {got['rounds']} rounds, not {want_rounds}")
+        if run["wire"] == "float32":
+            single = train_readings(cfg, case, weights.numpy_params(cfg, case["seed"]), DEVICE)
+            own = train_agreement(got, single)
+            row["against_single_device_step"] = own
+            if not own["loss"] <= TRAIN_TOL["loss"]:
+                failures.append(f"{run['name']}: loss {own['loss']} off the single-device step")
+            del single
+        emit(row)
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    check(not failures, f"train_sync_ref: the pod step disagrees: {failures}")
+    check(not any(counts.values()), f"train_sync_ref: the pod step launched kernels: {counts}")
+    return counts
+
+
+def phase_train_sync(step0_loss: float) -> int:
+    """Phase 21: ``repro_torch.launch.train`` as its CLI runs
+    (TRAIN_SYNC_ARGV): gemma2-2b as published over 2 pods on the card,
+    one row a member, the grad sync through the ring with the
+    co-simulation's plan.  Gates: every loss finite; step 0's loss (before
+    any update) within phase 17's bfloat16 loss limit (``bf16_limits``) of
+    phase 18's one-device step 0 (``step0_loss``); the ``[cosim]`` lines
+    and the final plan the JAX driver's (train_reference.json); the ring's
+    rounds; one tiered launch a stepped step, no flash launch.  Prints each
+    step's wall, tokens/s, the grad sync's synchronized share of a step
+    (a probe around each leaf's ``tree_all_reduce_mean``) and the peak
+    memory.  Returns the tiered kernel's launches."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import train
+    from repro_torch.netsim import compact
+
+    ref = json.loads(TRAIN_REFERENCE.read_text())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(compact.run_core.counts)
+    orig, sync_s = coll.tree_all_reduce_mean, []
+
+    def timed_sync(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = orig(*a)
+        torch.cuda.synchronize()
+        sync_s.append(time.perf_counter() - t)
+        return res
+
+    reset_counts()
+    coll.permute_rounds = 0
+    t0 = time.time()
+    coll.tree_all_reduce_mean = timed_sync
+    try:
+        out = train.main([*TRAIN_SYNC_ARGV, "--device", DEVICE])
+    finally:
+        coll.tree_all_reduce_mean = orig
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    rounds = coll.permute_rounds
+    loop = {k: compact.run_core.counts[k] - before[k] for k in before}
+    peak = torch.cuda.max_memory_allocated()
+    args = train.parser().parse_args(list(TRAIN_SYNC_ARGV))
+    cfg = registry.get_config(args.arch, reduced=args.reduced)
+    want_rounds = rounds_of(cfg, args.steps, args.pods, out["plan"].n_chunks)
+    leaves = len(sync_s) // max(args.steps, 1)
+    per_step = [sum(sync_s[i * leaves:(i + 1) * leaves]) for i in range(args.steps)]
+    walls = [r["wall_s"] for r in out["steps"]]
+    steady = statistics.mean(walls[1:])
+    losses = [r["loss"] for r in out["steps"]]
+    limit = bf16_limits(ref)["loss"]
+    step0_rel = abs(losses[0] - step0_loss) / abs(step0_loss)
+    emit({"phase": "train_sync", "nvidia_smi": card_name(), "argv": list(TRAIN_SYNC_ARGV),
+          "arch": cfg.name, "pods": out["pods"], "plan": repr(out["plan"]), "wall_s": wall,
+          "step_walls_s": walls, "steady_step_s": steady,
+          "tokens_per_s": args.batch * args.seq / steady, "grad_sync_s": per_step,
+          "grad_sync_share": [a / b for a, b in zip(per_step[1:], walls[1:])],
+          "peak_memory_gb": peak / 1e9, "losses": losses,
+          "grad_norms": [r["grad_norm"] for r in out["steps"]],
+          "step0_loss_one_device": step0_loss, "step0_rel": step0_rel, "step0_limit": limit,
+          "rounds": rounds, "rounds_expected": want_rounds, "cosim": out["cosim"],
+          "kernel_launches": counts, "cosim_loop": loop})
+    check(out["pods"] == args.pods, f"train_sync: the driver ran {out['pods']} pods")
+    check(len(losses) == args.steps and all(np.isfinite(losses)), f"train_sync: losses {losses}")
+    check(step0_rel <= limit, f"train_sync: step 0's loss {losses[0]} lies {step0_rel} off "
+                              f"the one-device step's {step0_loss} (limit {limit})")
+    check(strip_builds(out["cosim"]) == strip_builds(ref["cosim"]["lines"]),
+          f"train_sync: the [cosim] lines differ from the JAX driver's: {out['cosim']}")
+    check(list(out["plan"].inactive) == ref["cosim"]["inactive"],
+          f"train_sync: the final plan's inactive set {out['plan'].inactive}")
+    check(rounds == want_rounds, f"train_sync: {rounds} ring rounds, not {want_rounds}")
+    check_launches("train_sync", "ecmp", counts["cascade_tiered"], loop)
+    check(counts["flash_attention"] == 0,
+          f"train_sync: the train step launched flash_attention {counts['flash_attention']} times")
+    return counts["cascade_tiered"]
+
+
 def cluster_sweep() -> None:
     """Each cluster kernel (tiered, flat, linkload) at each of its phase 2
     shapes on clusters of 1 to 16 CTAs through its C entry, held against
@@ -3412,24 +3861,38 @@ def worker_serve() -> dict:
            "serve_families": timed("serve_families", phase_serve_families)}
     gc.collect()  # the serving models are gone before training loads the card
     torch.cuda.empty_cache()
-    return {**out, "train_ref": timed("train_ref", phase_train_ref),
-            "train": timed("train", phase_train)}
+    out.update(train_ref=timed("train_ref", phase_train_ref), train=timed("train", phase_train))
+    gc.collect()  # phase 18's model and moments are gone before the rings load the card
+    torch.cuda.empty_cache()
+    out["grad_sync"] = timed("grad_sync", phase_grad_sync)
+    return {**out, "train_sync_ref": timed("train_sync_ref", phase_train_sync_ref)}
 
 
-# the processes that run phases 3-18 but 6 at once, each its phases in
+def worker_train_sync() -> dict:
+    """Phase 21, given phase 18's step-0 loss (the argument after its
+    name)."""
+    return {"train_sync": timed("train_sync", phase_train_sync, float(sys.argv[3]))}
+
+
+# the processes that run phases 3-20 but 6 at once, each its phases in
 # order -> their launch counts; the serving and training phases share one,
 # so that one model at a time holds the card's memory
 WORKERS = {"fig12": worker_fig12, "adaptive": worker_adaptive, "record": worker_record,
            "serve": worker_serve}
+# phase 21 runs in a process of its own after them: it holds most of the
+# card's memory, and none of it is left to what the main process holds
+LAST_WORKERS = {"train_sync": worker_train_sync}
 WORKER_THREADS = 2  # torch's CPU threads in each, so that the four share 8 cores
 DEADLINE_S = 1140.0  # after START: the workers still running are stopped
 
 
-def run_workers() -> dict:
-    """Each of WORKERS in a process of its own, all started together; once
-    all have ended, each one's output printed in turn.  Returns name -> the
-    counts of its {"worker": ...} line.  A worker that fails, or runs past
-    DEADLINE_S, fails the script, and the others are stopped."""
+def run_workers(workers: dict, argv: tuple = ()) -> tuple[dict, dict]:
+    """Each of ``workers`` (WORKERS or LAST_WORKERS) in a process of its own
+    (``argv`` after its name), all started together; once all have ended,
+    each one's output printed in turn.  Returns (name -> the counts of its
+    {"worker": ...} line, phase -> the last {"phase": ...} line a worker
+    printed of it).  A worker that fails, or runs past DEADLINE_S, fails
+    the script, and the others are stopped."""
     import signal
     import tempfile
 
@@ -3438,10 +3901,10 @@ def run_workers() -> dict:
     procs, failed = {}, []
     with tempfile.TemporaryDirectory() as tmp:
         try:
-            for name in WORKERS:
+            for name in workers:
                 out = open(pathlib.Path(tmp) / f"{name}.jsonl", "w+")
                 procs[name] = (subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"), "--worker", name],
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--worker", name, *argv],
                     cwd=ROOT, stdout=out), out)
             while True:
                 rcs = {n: p.poll() for n, (p, _) in procs.items()}
@@ -3459,17 +3922,20 @@ def run_workers() -> dict:
                 if p.poll() is None:
                     p.kill()
                 p.wait()
-        counts = {}
+        counts, phases = {}, {}
         for name, (_, out) in procs.items():
             out.seek(0)
             for line in out:
                 print(line, end="", flush=True)
                 if line.startswith('{"worker"'):
                     counts[name] = json.loads(line)["launches"]
+                elif line.startswith('{"phase": '):
+                    obj = json.loads(line)
+                    phases[obj["phase"]] = obj
             out.close()
     check(not failed, "; ".join(failed))
-    check(set(counts) == set(WORKERS), f"workers without a result: {set(WORKERS) - set(counts)}")
-    return counts
+    check(set(counts) == set(workers), f"workers without a result: {set(workers) - set(counts)}")
+    return counts, phases
 
 
 def main() -> int:
@@ -3493,7 +3959,7 @@ def main() -> int:
         except SmokeFailure as e:
             print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
             return 1
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
+    if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         torch.set_num_threads(WORKER_THREADS)
         if sys.argv[2] == "serve":  # cuBLAS repeats bit for bit (phase 17's restart check)
             import os
@@ -3501,7 +3967,8 @@ def main() -> int:
             os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         try:
             load_kernels()
-            emit({"worker": sys.argv[2], "launches": WORKERS[sys.argv[2]]()})
+            emit({"worker": sys.argv[2],
+                  "launches": {**WORKERS, **LAST_WORKERS}[sys.argv[2]]()})
         except SmokeFailure as e:
             print(f"chip_smoke.py --worker {sys.argv[2]}: FAILED: {e}", file=sys.stderr)
             return 1
@@ -3520,8 +3987,11 @@ def main() -> int:
         timed("profile", phase_profile)
         torch.cuda.empty_cache()
         t0 = time.time()
-        counts = {k: v for c in run_workers().values() for k, v in c.items()}
+        by_worker, phases = run_workers(WORKERS)
+        counts = {k: v for c in by_worker.values() for k, v in c.items()}
         emit({"phase_wall": "workers", "s": time.time() - t0})
+        last, _ = run_workers(LAST_WORKERS, (repr(phases["train"]["losses"][0]),))
+        train_sync_launches = last["train_sync"]["train_sync"]
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3540,15 +4010,16 @@ def main() -> int:
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
         if name == "cascade_tiered":
             # the main path: the fig12 sweep, phases 7-11, the testbed and
-            # the training driver's co-simulation
+            # the training driver's co-simulation, on one device and over pods
             by_path.update(repeat=repeat_launches, adaptive=adaptive_launches,
                            faults=fault_launches,
                            flowcell=flowcell_launches, record=record_launches,
                            cosim=cosim_launches, testbed=testbed_launches,
-                           train=train_launches)
+                           train=train_launches, train_sync=train_sync_launches)
             launches = (sweep_counts[name] + repeat_launches + adaptive_launches
                         + fault_launches + flowcell_launches + record_launches
-                        + cosim_launches + testbed_launches + train_launches)
+                        + cosim_launches + testbed_launches + train_launches
+                        + train_sync_launches)
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
         elif name == "flash_attention":  # the serving path: phases 12-15, none in training
             route = row["route"]
@@ -3557,7 +4028,7 @@ def main() -> int:
                             "serve": serve_launches if route == "wgmma" else 0,
                             "serve_families_ref": families_ref_launches.get(route, 0),
                             "serve_families": families_launches if route == "wgmma" else 0,
-                            "train": 0})
+                            "train": 0, "train_sync": 0})
             launches = sum(by_path[k] for k in ("serve_ref", "serve", "serve_families_ref",
                                                 "serve_families"))
             extra = {"flash_route": route}

@@ -1,0 +1,204 @@
+"""FSDP + TP sharding rules for the production meshes, mirroring
+``repro.dist.sharding``, as pure functions of shapes and axis sizes.
+
+One shape-driven rule serves all ten architectures: for every parameter
+matrix the largest dim divisible by the ``model`` axis takes tensor
+parallelism and the largest remaining dim divisible by the ``data`` axis
+takes FSDP; vectors (norms, biases) stay replicated, and the ``pod`` axis
+is never used for params (across pods the model is data-parallel, and the
+grad sync goes through ``dist.collectives``).
+
+The rule reads the JAX package's layout, where it was written: a "main" or
+"encoder" leaf stacked on [n_super] (so at 16 x 16 ``data`` may land on
+the stacked axis: qwen3-32b's ``main.0.ln`` (64, 5120) is ``("data",
+"model")``), and KV caches as [B, S, K, hd].  So ``param_specs`` and
+``cache_specs`` take a config, compute that layout's shapes from the
+port's field tables without allocating anything, and key each spec by the
+JAX leaf name (``models.weights.leaves``' names: "main.1.wq"); a cache's
+spec is then carried to the port's head-major [B, K, S, hd].
+
+A ``Spec`` is a trimmed tuple, one entry a dim: an axis name, a tuple of
+axis names (major first) or ``None``, as ``PartitionSpec`` carries them;
+``placements`` turns one into DTensor placements over a mesh.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import transformer
+
+
+class Spec(tuple):
+    """A PartitionSpec's entries: ``Spec("data", "model")``, ``Spec()``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+def _axis_sizes(mesh) -> dict:
+    return dict(mesh.shape)
+
+
+def _trim(assign: list) -> Spec:
+    while assign and assign[-1] is None:
+        assign.pop()
+    return Spec(*assign)
+
+
+def _matrix_spec(shape, data: int | None, model: int | None) -> Spec:
+    if len(shape) < 2:
+        return Spec()  # norms / biases / scalars: replicate
+    order = sorted(range(len(shape)), key=lambda i: (-shape[i], i))
+    assign: list = [None] * len(shape)
+    mi = next((i for i in order if model and shape[i] % model == 0), None)
+    if mi is not None:
+        assign[mi] = "model"
+    di = next((i for i in order if i != mi and data and shape[i] % data == 0), None)
+    if di is not None:
+        assign[di] = "data"
+    return _trim(assign)
+
+
+def _groups(cfg):
+    """(group, units, n): the stacks of ``cfg`` in ``weights.leaves``' order,
+    n the stacked superblocks (``None`` for an unstacked group)."""
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+    out = [("prelude", prelude, None), ("trailing", trailing, None), ("main", sb, n_super)]
+    if cfg.is_encoder_decoder:
+        out.append(("encoder", *transformer.encoder_program(cfg)))
+    return out
+
+
+def param_shapes(cfg) -> dict:
+    """leaf name -> shape in the JAX package's layout (a "main" or "encoder"
+    leaf with its leading [n_super]), from the field tables."""
+    D = cfg.d_model
+    out = {"embed": (cfg.vocab, D), "final_norm": (D,)}
+    if cfg.is_encoder_decoder:
+        out["enc_norm"] = (D,)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (D, cfg.vocab)
+    for group, units, n in _groups(cfg):
+        if n == 0:
+            continue
+        for j, u in enumerate(units):
+            for f, field in transformer.unit_shapes(cfg, u).items():
+                out[f"{group}.{j}.{f}"] = (() if n is None else (n,)) + tuple(field.shape)
+    return out
+
+
+def param_specs(cfg, mesh) -> dict:
+    """leaf name -> Spec of each parameter of ``cfg`` (and of its AdamW
+    moments, which mirror it), the rule applied to the JAX layout's
+    shape."""
+    sizes = _axis_sizes(mesh)
+    data, model = sizes.get("data"), sizes.get("model")
+    return {name: _matrix_spec(shape, data, model)
+            for name, shape in param_shapes(cfg).items()}
+
+
+def _dp(sizes: dict):
+    """The data-parallel axes present and their product."""
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    return dp, math.prod(sizes[a] for a in dp)
+
+
+def batch_specs(batch: dict, mesh) -> dict:
+    """Inputs shard their leading (global batch) dim over pod x data
+    (``batch``: name -> a tensor, or its shape)."""
+    dp, n = _dp(_axis_sizes(mesh))
+
+    def spec(leaf):
+        shape = tuple(getattr(leaf, "shape", leaf))
+        if not shape or n <= 1 or shape[0] % n:
+            return Spec()
+        return Spec(dp if len(dp) > 1 else dp[0])
+
+    return {k: spec(v) for k, v in batch.items()}
+
+
+HEAD_MAJOR = (0, 2, 1, 3)  # the port's [B, K, S, hd] -> the JAX package's [B, S, K, hd]
+
+
+def cache_shapes(cfg, batch: int, max_len: int) -> dict:
+    """leaf name -> (the port's shape, the permutation of its dims that gives
+    the JAX package's layout) of each cache leaf of ``cfg`` ("main.0.k":
+    a stacked leaf with its leading [n_super], as in the JAX package; KV
+    caches head-major in the port), read from the port's own cache init on
+    the meta device."""
+    out = {}
+    for group, units, n in _groups(cfg):
+        if group == "encoder" or n == 0:
+            continue  # the encoder keeps no cache
+        for j, u in enumerate(units):
+            c = transformer.unit_cache_init(cfg, u, batch, max_len,
+                                            getattr(torch, cfg.dtype), device="meta")
+            named = c._asdict().items() if hasattr(c, "_asdict") else enumerate(c)
+            lead = () if n is None else (n,)
+            for f, leaf in named:
+                shape = tuple(getattr(leaf, "shape", ()))
+                perm = HEAD_MAJOR if u.kind in ("attn", "cross") and f != "pos" else None
+                perm = tuple(range(len(shape))) if perm is None else perm
+                out[f"{group}.{j}.{f}"] = (lead + shape,
+                                           tuple(range(len(lead))) + tuple(d + len(lead)
+                                                                           for d in perm))
+    return out
+
+
+def _carry(spec: Spec, perm: tuple) -> Spec:
+    """A spec over the JAX layout's dims (``perm[j]`` the port's dim of JAX
+    dim j) as a spec over the port's dims."""
+    assign = [None] * len(perm)
+    for j, entry in enumerate(spec):
+        assign[perm[j]] = entry
+    return _trim(assign)
+
+
+def cache_specs(cfg, mesh, batch: int, max_len: int) -> dict:
+    """leaf name -> Spec of each KV / recurrent cache leaf in the port's
+    layout: the JAX package's rule (the leading dim over pod x data, plus
+    ``model`` on the first later dim it divides) applied to the JAX
+    layout's [B, S, K, hd] (S where the axis divides it, where the port's
+    own [B, K, S, hd] would give K), then carried to the port's dims."""
+    sizes = _axis_sizes(mesh)
+    model = sizes.get("model")
+    dp, n = _dp(sizes)
+
+    def spec(shape) -> Spec:
+        assign: list = [None] * len(shape)
+        if shape and n > 1 and shape[0] % n == 0:
+            assign[0] = dp if len(dp) > 1 else dp[0]
+        for i in range(1, len(shape)):
+            if model and shape[i] % model == 0:
+                assign[i] = "model"
+                break
+        return _trim(assign)
+
+    out = {}
+    for name, (shape, perm) in cache_shapes(cfg, batch, max_len).items():
+        out[name] = _carry(spec(tuple(shape[d] for d in perm)), perm)
+    return out
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` over ``mesh``'s dims: ``Shard(d)`` on
+    each mesh dim that shards tensor dim d, else ``Replicate()``; a tuple
+    entry ("pod", "data") is ``Shard(d)`` on both, the major one first, as
+    DTensor splits a dim over mesh dims in their order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    where = {}
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        order = [mesh.axis_names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"{entry} is not in the mesh's order {mesh.axis_names}")
+        for a in axes:
+            where[a] = d
+    return tuple(Shard(where[a]) if a in where else Replicate() for a in mesh.axis_names)
+

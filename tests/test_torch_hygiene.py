@@ -40,7 +40,7 @@ def test_importing_the_sweep_leaves_jax_out():
             "repro_torch.serve.engine, repro_torch.serve.compare, "
             "repro_torch.data.pipeline, repro_torch.train.optimizer, "
             "repro_torch.train.checkpoint, repro_torch.launch.steps, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.dist.sharding, repro_torch.launch.mesh; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -108,6 +108,13 @@ def test_entry_points_default_to_cuda():
     params = model.init_params(mcfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.ServeEngine(mcfg, params, batch_size=2, max_len=16)
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_pod_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        collectives.seqbalance_all_reduce(np.ones((2, 8), np.float32), collectives.LocalAxis(2))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -701,3 +701,27 @@ def test_moe_apply_repeats_bit_for_bit_on_the_card(cuda):
     r, r_cpu = moe.routing(p, x.to(cuda), cfg), moe.routing(p_cpu, x, cfg)
     assert int(r.dropped) > 0
     assert torch.equal(r.gate_idx.cpu(), r_cpu.gate_idx) and torch.equal(r.slot.cpu(), r_cpu.slot)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ("float32", "bfloat16", "int8"))
+def test_local_ring_on_the_card_equals_the_cpu_bit_for_bit(cuda, wire):
+    """dist.collectives' ring over a LocalAxis on the card against the same
+    ring on the CPU, rings of 2, 4 and 8 members, each plan of chip_smoke's
+    phase 19: the same float32 sums, roundings and roll, bit for bit."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from repro_torch.dist import collectives as coll
+
+    for n in (2, 4, 8):
+        for plan in ("default", "inactive", "pinned"):
+            x = torch.from_numpy(chip_smoke.ring_inputs(n, 1001, n))
+            p = chip_smoke.ring_plan(coll, plan, wire)
+            coll.permute_rounds = 0
+            got = coll.seqbalance_all_reduce(x.to(cuda), coll.LocalAxis(n, cuda), p).cpu()
+            assert coll.permute_rounds == 2 * (n - 1) * p.n_chunks
+            want = coll.seqbalance_all_reduce(x, coll.LocalAxis(n, "cpu"), p)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (n, plan)

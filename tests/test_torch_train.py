@@ -259,11 +259,32 @@ def test_train_steps_match_reference(arch):
     assert max(errs.values()) <= STEP_UPDATE_REL, max(errs.items(), key=lambda kv: kv[1])
 
 
-def test_train_step_refuses_a_mesh_and_the_seqbalance_sync():
+def test_seqbalance_step_without_a_pod_axis_is_the_single_device_step():
+    """As in the JAX package, the seqbalance grad sync needs a pod axis of
+    more than one member: without one (no mesh, a data x model mesh, one
+    pod) the step is the single-device step, bit for bit, and runs no
+    ring."""
+    from repro_torch.dist import collectives as tcoll
+    from repro_torch.launch import mesh as tmesh
+
     _, tcfg = configs("granite-3-8b")
-    for kw in ({"mesh": object()}, {"grad_sync": "seqbalance"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            tsteps.make_train_step(tcfg, topt.AdamWConfig(), **kw)
+    dc = tpipe.DataConfig(vocab=tcfg.vocab, global_batch=4, seq_len=16)
+    runs = []
+    for grad_sync, mesh in (("xla", None), ("seqbalance", None),
+                            ("seqbalance", tmesh.make_mesh_like((2, 2), device="cpu")),
+                            ("seqbalance", tmesh.make_pod_mesh(1, device="cpu")),
+                            ("xla", tmesh.make_pod_mesh(2, device="cpu"))):
+        state = tsteps.init_state(tcfg, 0, device="cpu")
+        step = tsteps.make_train_step(tcfg, topt.AdamWConfig(lr=1e-3), mesh, grad_sync)
+        tcoll.permute_rounds = 0
+        state, m = step(state, tpipe.batch_at(dc, 0, device="cpu"))
+        assert tcoll.permute_rounds == 0
+        runs.append(({k: float(v) for k, v in m.items()}, port_params(state["params"])))
+    for m, p in runs[1:]:
+        assert m == runs[0][0]
+        assert all(np.array_equal(p[k], runs[0][1][k]) for k in p)
+    with pytest.raises(ValueError, match="grad_sync"):
+        tsteps.make_train_step(tcfg, topt.AdamWConfig(), None, "ring")
 
 
 # ------------------------------------------------------------ checkpoints
@@ -439,10 +460,26 @@ def test_cosim_only_prints_the_jax_drivers_plan(epochs, kill, capsys):
     assert len(printed) == epochs + 1
 
 
-def test_driver_refuses_the_seqbalance_grad_sync():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        ttrain.main(["--arch", "granite-3-8b", "--reduced", "--steps", "1", "--device", "cpu",
-                     "--grad-sync", "seqbalance"])
+def test_driver_falls_back_to_one_device_for_one_pod_or_an_odd_batch(capsys):
+    """``--pods 1``, and 4 pods for a batch of 6: the JAX driver's fallback
+    line (its own, under this process's one JAX device), and the
+    single-device step."""
+    argv = ["--arch", "granite-3-8b", "--reduced", "--steps", "0", "--seq", "8",
+            "--grad-sync", "seqbalance"]
+    old_argv = sys.argv
+    sys.argv = ["train", *argv, "--batch", "4"]
+    try:
+        jtrain.main()
+    finally:
+        sys.argv = old_argv
+    want = [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("[grad-sync]")]
+    assert len(want) == 1 and "falling back" in want[0]
+    for more in (["--pods", "1", "--batch", "4"], ["--pods", "4", "--batch", "6"]):
+        out = ttrain.main([*argv, *more, "--device", "cpu"])
+        got = [line for line in capsys.readouterr().out.splitlines()
+               if line.startswith("[grad-sync]")]
+        assert got == want and out["pods"] == 1, (more, got)
 
 
 def test_training_entry_points_default_to_cuda():
