@@ -247,14 +247,38 @@ Phases, each printed as JSON lines:
               of phase 18's, the [cosim] lines and plan the JAX driver's,
               the ring's rounds; step walls, tokens/s, the grad sync's
               synchronized share of a step and the peak memory printed.
+ 22. dryrun   repro_torch.launch.dryrun on both production meshes (16 x 16
+              and 2 x 16 x 16, this process one rank of a fake group of
+              256 or 512) for DRYRUN_CELLS (gemma2-2b train_4k,
+              prefill_32k and decode_32k, deepseek-moe-16b train_4k), on
+              fake tensors on "cuda" (nothing allocated on the card:
+              checked), against the JAX package's run_cell of the same
+              cells (src/repro_torch/launch/dryrun_reference.json): each
+              record's argument bytes equal to the count from shapes,
+              specs and dtypes and the JAX package's to its own layout's
+              (so the two differ by the listed stacked-dim leaves alone),
+              the dense cells' FLOPs (less the flash kernel's) within
+              DRYRUN_FLOPS_LIMIT of the JAX package's; peak
+              and collective bytes printed beside the JAX package's, not
+              gated (the partitioners differ); each trace's wall printed;
+ 23. shard_rank one rank of gemma2-2b train_4k as published at the 16 x 16
+              sharding (the FSDP + TP step of launch.steps on DTensors
+              over a fake group of 256: real tensors on the card, the
+              collectives moving nothing), remat "dots", 3 steps: each
+              step's wall (one rank's compute, communication left out),
+              torch.cuda.max_memory_allocated of the steps beside phase
+              22's peak_bytes of that cell and the card's memory (it must
+              fit), the launches by kernel; its loss is not checked (the
+              fake collectives leave garbage in it).
 
-Phases 1, 2 and 6 run first, alone on the card.  The others but 21 run
-in the four processes of WORKERS at once, on the same card (python3
-chip_smoke.py --worker NAME): the simulator's steps are host work on a
-device that idles most of a step (phase 6), so their walls overlap.
-Phases 12-15 and 17-20 load the card and share one process, one model
-at a time.  Phase 21 runs last, alone, in a process of its own
-(LAST_WORKERS): it holds about 65 GB of the card.  Each process runs its
+Phases 1, 2 and 6 run first, alone on the card.  The others but 21 and
+23 run in the five processes of WORKERS at once, on the same card
+(python3 chip_smoke.py --worker NAME): the simulator's steps are host
+work on a device that idles most of a step (phase 6), so their walls
+overlap; phase 22 traces on the host alone.  Phases 12-15 and 17-20 load
+the card and share one process, one model at a time.  Phases 21 and 23
+run last, in that order, in a process of their own (LAST_WORKERS): each
+holds most of the card.  Each process runs its
 phases in order, prints their lines and, last, a {"worker": ...} line
 with the launch counts of each phase (set to 0 before the phase, read
 after it); the script prints each worker's lines once all have ended.
@@ -3409,6 +3433,24 @@ def grad_sync_limits(run: dict) -> dict:
 TRAIN_SYNC_ARGV = ("--arch", "gemma2-2b", "--remat", "full", "--batch", "2", "--seq", "2048",
                    "--steps", "5", "--cosim-epochs", "4", "--log-every", "1",
                    "--grad-sync", "seqbalance", "--pods", "2")
+# phase 22: the port's dry run of these cells on both production meshes,
+# against the JAX package's run_cell of the same cells
+# (src/repro_torch/launch/dryrun_reference.json; tests/test_torch_dryrun.py)
+DRYRUN_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"),
+                ("gemma2-2b", "decode_32k"), ("deepseek-moe-16b", "train_4k"))
+DRYRUN_REFERENCE = SRC / "repro_torch" / "launch" / "dryrun_reference.json"
+# the port's FLOPs a device (less the flash kernel's: XLA's count of the JAX
+# package's Pallas call holds none of it) over the JAX package's: within a
+# factor of DRYRUN_FLOPS_LIMIT.  XLA's cost analysis of these programs reads
+# low and unevenly (gemma2-2b prefill_32k: 1.45e12 a device on 256 devices
+# and 6.67e12 on 512; train_4k 2.2e13, a third of 6 N tokens / 256), and the
+# dense cells' ratios lie within 0.87-11.4 (dryrun_reference.json's
+# "flops_ratio"); a product left unsharded moves a count 16 or 256 times.
+# Held on the dense cells, where products dominate; an MoE cell's ratio is
+# printed (deepseek-moe-16b: 29-35 under torch 2.11 on the card, 11-13 under
+# torch 2.13 on the CPU; DTensor runs the weight gradients of the
+# projections whose contraction the rule shards unsplit over "model")
+DRYRUN_FLOPS_LIMIT = 20.0
 
 
 def ring_plan(mod, name: str, wire: str):
@@ -3713,6 +3755,152 @@ def phase_train_sync(step0_loss: float) -> int:
     return counts["cascade_tiered"]
 
 
+def phase_dryrun() -> dict:
+    """Phase 22: the port's dry run of DRYRUN_CELLS on both production
+    meshes, on fake tensors on the card, against the JAX package's run_cell
+    of the same cells (DRYRUN_REFERENCE).  Gates: every cell OK; its
+    argument bytes equal to ``dryrun.expected_argument_bytes`` and the JAX
+    package's to the same count in its own layout; a dense cell's FLOPs
+    (less the flash kernel's) within a factor DRYRUN_FLOPS_LIMIT of the
+    JAX package's (where its cell is OK; an MoE cell's printed); nothing
+    allocated on the card; no kernel launched.  Returns the launch counts
+    and each cell's peak bytes (phase 23 reads gemma2-2b train_4k's)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun, mesh as tmesh
+
+    ref = json.loads(DRYRUN_REFERENCE.read_text())
+    check([tuple(c) for c in ref["cells"]] == list(DRYRUN_CELLS),
+          f"dryrun_reference.json holds other cells: {ref['cells']}")
+    reset_counts()
+    allocated = torch.cuda.memory_allocated()
+    failures, peaks = [], {}
+    for label, multi in dryrun.MESHES.items():
+        mesh = tmesh.fake_production_mesh(multi_pod=multi)
+        for arch, shape in DRYRUN_CELLS:
+            key = f"{label}/{arch}/{shape}"
+            try:
+                rec = dryrun.run_cell(arch, shape, label, device=DEVICE, mesh=mesh)
+            except Exception as e:  # recorded as the JAX package's dry run records it
+                import traceback
+
+                rec = {"status": "FAIL", "error": f"{type(e).__name__}: {e}"[:2000],
+                       "trace": traceback.format_exc()[-2000:]}
+            want = ref["jax"][key]
+            row = {"phase": "dryrun_cell", "cell": key, "status": rec["status"]}
+            if rec["status"] != "OK":
+                failures.append(f"{key}: {rec['status']} {rec.get('error', '')[:300]}")
+                emit({**row, **rec})
+                continue
+            cfg, cell = registry.get_config(arch), registry.get_shape(shape)
+            expected = dryrun.expected_argument_bytes(cfg, cell, mesh)
+            expected_jax = dryrun.expected_argument_bytes(cfg, cell, mesh, "jax")
+            peaks[key] = rec["peak_bytes"]
+            row.update(trace_s=rec["trace_s"], argument_size_bytes=rec["argument_size_bytes"],
+                       expected=expected, jax_status=want.get("status"),
+                       jax_argument_size_bytes=want.get("argument_size_bytes"),
+                       expected_jax=expected_jax, flops=rec["flops"],
+                       jax_flops=want.get("flops"), peak_bytes=rec["peak_bytes"],
+                       jax_peak_bytes=want.get("peak_bytes"),
+                       jax_temp_size_bytes=want.get("temp_size_bytes"),
+                       collectives=rec["collectives"], jax_collectives=want.get("collectives"),
+                       bytes_accessed=rec["bytes_accessed"],
+                       jax_bytes_accessed=want.get("bytes_accessed"))
+            if rec["argument_size_bytes"] != expected:
+                failures.append(f"{key}: {rec['argument_size_bytes']} argument bytes, "
+                                f"not {expected}")
+            if want.get("status") == "OK":
+                ratio = (rec["flops"] - rec["flash_flops"]) / want["flops"]
+                row["flops_ratio"] = ratio
+                if want["argument_size_bytes"] != expected_jax:
+                    failures.append(f"{key}: the JAX package's {want['argument_size_bytes']} "
+                                    f"argument bytes, not its layout's {expected_jax}")
+                row["flops_gated"] = cfg.family != "moe"
+                if row["flops_gated"] and not 1 / DRYRUN_FLOPS_LIMIT <= ratio <= DRYRUN_FLOPS_LIMIT:
+                    failures.append(f"{key}: FLOPs {ratio} of the JAX package's")
+            emit(row)
+    torch.distributed.destroy_process_group()
+    counts = read_counts()
+    emit({"phase": "dryrun", "nvidia_smi": card_name(), "cells": len(peaks),
+          "peak_bytes": peaks, "allocated_before": allocated,
+          "allocated_after": torch.cuda.memory_allocated(), "kernel_launches": counts})
+    check(torch.cuda.memory_allocated() == allocated,
+          "dryrun: the fake tensors allocated memory on the card")
+    check(not failures, f"dryrun: {failures}")
+    check(not any(counts.values()), f"dryrun: kernels launched: {counts}")
+    return counts
+
+
+SHARD_RANK_STEPS = 3  # phase 23
+
+
+def phase_shard_rank(predicted_peak: float) -> dict:
+    """Phase 23: rank 0 of gemma2-2b train_4k at the 16 x 16 sharding (a fake
+    group of 256), real tensors on the card: the state built whole and
+    sharded (``shard_params``; the moments made from the sharded masters),
+    then SHARD_RANK_STEPS steps of ``launch.steps.make_train_step`` on
+    this rank's share of the global batch, remat "dots".  Prints each
+    step's wall (this rank's compute: the fake collectives move nothing)
+    and the steps' peak memory beside ``predicted_peak`` (phase 22's
+    peak_bytes of the cell) and the card's memory; fails if it does not
+    fit.  The loss is garbage (the fake collectives) and is not checked.
+    Returns the launch counts."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as tmesh, steps
+    from repro_torch.models import model
+    from repro_torch.train import optimizer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = tmesh.fake_production_mesh()
+    cfg = registry.get_config("gemma2-2b").replace(remat="dots")
+    cell = registry.get_shape("train_4k")
+    t0 = time.time()
+    params = sharding.shard_params(model.init_params(cfg, 0, device=DEVICE, trainable=True),
+                                   cfg, mesh)
+    state = {"params": params, "opt": optimizer.init(params)}
+    torch.cuda.synchronize()
+    build_s, build_peak = time.time() - t0, torch.cuda.max_memory_allocated()
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, global_batch=cell.global_batch,
+                               seq_len=cell.seq_len, seed=0)
+    step = steps.make_train_step(cfg, optimizer.AdamWConfig(), mesh, "xla")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    walls, losses = [], []
+    for i in range(SHARD_RANK_STEPS):
+        batch = sharding.shard_batch(pipeline.batch_at(dcfg, i, device=DEVICE), mesh)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    local = batch["tokens"].to_local().shape
+    emit({"phase": "shard_rank", "nvidia_smi": card_name(), "arch": cfg.name,
+          "mesh": "16x16 (rank 0 of a fake group of 256)", "remat": cfg.remat,
+          "local_batch": list(local), "build_s": build_s, "build_peak_gb": build_peak / 1e9,
+          "state_gb": held / 1e9, "step_walls_s": walls,
+          "steady_step_s": statistics.mean(walls[1:]),
+          "tokens_per_s_this_rank": local[0] * local[1] / statistics.mean(walls[1:]),
+          "peak_memory_gb": peak / 1e9, "predicted_peak_gb": predicted_peak / 1e9,
+          "card_memory_gb": total / 1e9, "losses_unchecked": losses,
+          "kernel_launches": counts})
+    torch.distributed.destroy_process_group()
+    check(peak < total, f"shard_rank: {peak / 1e9} GB at the peak, over the card's "
+                        f"{total / 1e9}")
+    check(not any(counts.values()), f"shard_rank: kernels launched: {counts}")
+    return counts
+
+
 def cluster_sweep() -> None:
     """Each cluster kernel (tiered, flat, linkload) at each of its phase 2
     shapes on clusters of 1 to 16 CTAs through its C entry, held against
@@ -3868,21 +4056,34 @@ def worker_serve() -> dict:
     return {**out, "train_sync_ref": timed("train_sync_ref", phase_train_sync_ref)}
 
 
+def worker_dryrun() -> dict:
+    return {"dryrun": timed("dryrun", phase_dryrun)}
+
+
 def worker_train_sync() -> dict:
     """Phase 21, given phase 18's step-0 loss (the argument after its
-    name)."""
-    return {"train_sync": timed("train_sync", phase_train_sync, float(sys.argv[3]))}
+    name), then phase 23, given phase 22's peak bytes of its cell (the
+    next), once phase 21's model is gone."""
+    import gc
+
+    import torch
+
+    out = {"train_sync": timed("train_sync", phase_train_sync, float(sys.argv[3]))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**out, "shard_rank": timed("shard_rank", phase_shard_rank, float(sys.argv[4]))}
 
 
 # the processes that run phases 3-20 but 6 at once, each its phases in
 # order -> their launch counts; the serving and training phases share one,
 # so that one model at a time holds the card's memory
 WORKERS = {"fig12": worker_fig12, "adaptive": worker_adaptive, "record": worker_record,
-           "serve": worker_serve}
-# phase 21 runs in a process of its own after them: it holds most of the
-# card's memory, and none of it is left to what the main process holds
+           "serve": worker_serve, "dryrun": worker_dryrun}
+# phases 21 and 23 run in a process of their own after them, one after the
+# other: each holds most of the card's memory, and none of it is left to
+# what the main process holds
 LAST_WORKERS = {"train_sync": worker_train_sync}
-WORKER_THREADS = 2  # torch's CPU threads in each, so that the four share 8 cores
+WORKER_THREADS = 2  # torch's CPU threads in each, so that the five share 8 cores
 DEADLINE_S = 1140.0  # after START: the workers still running are stopped
 
 
@@ -3990,7 +4191,8 @@ def main() -> int:
         by_worker, phases = run_workers(WORKERS)
         counts = {k: v for c in by_worker.values() for k, v in c.items()}
         emit({"phase_wall": "workers", "s": time.time() - t0})
-        last, _ = run_workers(LAST_WORKERS, (repr(phases["train"]["losses"][0]),))
+        peak = phases["dryrun"]["peak_bytes"]["single_pod_16x16/gemma2-2b/train_4k"]
+        last, _ = run_workers(LAST_WORKERS, (repr(phases["train"]["losses"][0]), repr(peak)))
         train_sync_launches = last["train_sync"]["train_sync"]
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
@@ -4005,6 +4207,8 @@ def main() -> int:
     serve_ref_launches, families_ref_launches = counts["serve_ref"], counts["serve_families_ref"]
     families_launches = counts["serve_families"]
     train_launches = counts["train"]
+    # phases 22-23 (the dry run's fake tensors, one rank's training): none
+    dryrun_launches, shard_rank_launches = counts["dryrun"], last["train_sync"]["shard_rank"]
     for lib, row in rows.items():
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
@@ -4028,7 +4232,9 @@ def main() -> int:
                             "serve": serve_launches if route == "wgmma" else 0,
                             "serve_families_ref": families_ref_launches.get(route, 0),
                             "serve_families": families_launches if route == "wgmma" else 0,
-                            "train": 0, "train_sync": 0})
+                            "train": 0, "train_sync": 0,
+                            "dryrun": dryrun_launches[name],
+                            "shard_rank": shard_rank_launches[name]})
             launches = sum(by_path[k] for k in ("serve_ref", "serve", "serve_families_ref",
                                                 "serve_families"))
             extra = {"flash_route": route}

@@ -27,7 +27,9 @@ is written once, over two transports of an axis:
     card runs a pod axis: NCCL refuses two ranks on one GPU).
 
 ``permute_rounds`` counts the ring's rounds (one a chunk a round, whatever
-the transport): 2 (n - 1) a chunk of every leaf.
+the transport): 2 (n - 1) a chunk of every leaf; ``permute_bytes`` the
+bytes those rounds delivered to one member (the dry run's
+collective-permute bytes).
 """
 from __future__ import annotations
 
@@ -197,6 +199,7 @@ def replan_chunk_paths(paths: tuple[int, ...], directions: tuple[int, ...],
 
 # ------------------------------------------------------------ the ring's axes
 permute_rounds = 0  # ring rounds run (one a chunk a round), by _permute
+permute_bytes = 0  # the bytes those rounds delivered to one member
 
 
 class LocalAxis:
@@ -339,8 +342,9 @@ def _add_decoded(acc: torch.Tensor, y: tuple, wire: str) -> torch.Tensor:
 
 
 def _permute(payload: tuple, axis, d: int) -> tuple:
-    global permute_rounds
+    global permute_rounds, permute_bytes
     permute_rounds += 1
+    permute_bytes += sum(a.nbytes for a in payload) // axis.members
     return axis.permute(payload, d)
 
 

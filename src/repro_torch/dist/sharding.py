@@ -20,6 +20,15 @@ spec is then carried to the port's head-major [B, K, S, hd].
 A ``Spec`` is a trimmed tuple, one entry a dim: an axis name, a tuple of
 axis names (major first) or ``None``, as ``PartitionSpec`` carries them;
 ``placements`` turns one into DTensor placements over a mesh.
+
+``shard_params``, ``shard_opt_state``, ``shard_batch`` and ``shard_cache``
+turn the port's tensors into DTensors with those placements, which the
+steps of ``launch.steps`` then run as FSDP + TP.  The port holds each
+superblock as a tensor of its own where the JAX layout stacks them, so an
+axis the rule puts on the stacked dim is dropped (``port_spec``,
+``stacked_drops``): whisper-large-v3 has 13 such leaves, qwen3-32b and
+internvl2-26b 4, nemotron-4-15b 5 and granite-moe-3b-a800m 8 at the
+production meshes, the other five configurations none.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import math
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import common, transformer
 
 
 class Spec(tuple):
@@ -41,7 +50,20 @@ class Spec(tuple):
 
 
 def _axis_sizes(mesh) -> dict:
-    return dict(mesh.shape)
+    """axis name -> size of a ``launch.mesh.Mesh`` or a ``DeviceMesh``."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _axis_names(mesh) -> tuple:
+    return tuple(getattr(mesh, "axis_names", None) or mesh.mesh_dim_names)
+
+
+def device_mesh(mesh):
+    """The DeviceMesh of a "process" ``launch.mesh.Mesh``, or ``mesh`` itself
+    where it is one (a submesh)."""
+    return mesh.to_device_mesh() if hasattr(mesh, "to_device_mesh") else mesh
 
 
 def _trim(assign: list) -> Spec:
@@ -192,13 +214,135 @@ def placements(spec: Spec, mesh) -> tuple:
     DTensor splits a dim over mesh dims in their order."""
     from torch.distributed.tensor import Replicate, Shard
 
+    names = _axis_names(mesh)
     where = {}
     for d, entry in enumerate(spec):
         axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
-        order = [mesh.axis_names.index(a) for a in axes]
+        order = [names.index(a) for a in axes]
         if order != sorted(order):
-            raise ValueError(f"{entry} is not in the mesh's order {mesh.axis_names}")
+            raise ValueError(f"{entry} is not in the mesh's order {names}")
         for a in axes:
             where[a] = d
-    return tuple(Shard(where[a]) if a in where else Replicate() for a in mesh.axis_names)
+    return tuple(Shard(where[a]) if a in where else Replicate() for a in names)
 
+
+
+# ------------------------------------------------------- the port's DTensors
+STACKED = ("main.", "encoder.")  # the groups stacked on [n_super] in the JAX layout
+
+
+def port_spec(name: str, spec: Spec) -> Spec:
+    """The spec of the port's tensor of leaf ``name``: a stacked leaf's
+    spec without its stacked dim.  The port holds each superblock as a
+    tensor of its own, so an axis the JAX layout puts on the stacked dim
+    cannot be carried across: it is dropped (the port's tensor is
+    replicated over it)."""
+    if name.startswith(STACKED):
+        return _trim(list(spec[1:]))
+    return spec
+
+
+def stacked_drops(specs: dict) -> dict:
+    """leaf name -> the axis entry on the stacked dim, for each leaf of
+    ``specs`` (``param_specs``' or ``cache_specs``' names) whose JAX spec
+    puts one there: what ``port_spec`` drops."""
+    return {name: spec[0] for name, spec in specs.items()
+            if name.startswith(STACKED) and spec and spec[0] is not None}
+
+
+def distribute(t: torch.Tensor, mesh, spec: Spec, requires_grad: bool | None = None):
+    """``t`` (the whole tensor, the same on every rank) as a DTensor over
+    ``mesh`` (a "process" ``launch.mesh.Mesh`` or a DeviceMesh) with
+    ``spec``'s placements: each rank keeps its own block,
+    and nothing is sent (every rank already holds the whole)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    out = distribute_tensor(t.detach(), device_mesh(mesh), placements(spec, mesh),
+                            **common.no_source())
+    if requires_grad:
+        out.requires_grad_(True)
+    return out
+
+
+def shard_params(params, cfg, mesh):
+    """``params`` (``models.model.Params``) with each tensor replaced, in
+    place, by a DTensor over ``mesh`` with the placements of its
+    ``param_specs`` (FSDP over ``data``, TP over ``model``, replicated over
+    ``pod``), less the stacked dim (``port_spec``); returns ``params``."""
+    from torch import nn
+
+    from repro_torch.models import weights
+
+    specs = param_specs(cfg, mesh)
+    for name, _, module, attr in weights.slots(params):
+        p = module._parameters[attr]
+        module._parameters[attr] = nn.Parameter(
+            distribute(p, mesh, port_spec(name, specs[name])), requires_grad=p.requires_grad)
+    return params
+
+
+def shard_opt_state(opt, cfg, mesh):
+    """The AdamW state with each moment (the JAX layout's, a stacked leaf
+    stacked on [n_super]) a DTensor over ``mesh`` that mirrors its
+    parameter's placements (ZeRO: the moments are sharded as the params
+    are), the stacked dim replicated; the step count stays a tensor."""
+    specs = param_specs(cfg, mesh)
+
+    def one(moments: dict) -> dict:
+        out = {}
+        for name, m in moments.items():
+            spec = port_spec(name, specs[name])
+            out[name] = distribute(m, mesh, Spec(None, *spec) if name.startswith(STACKED)
+                                   else spec)
+        return out
+
+    return type(opt)(step=opt.step, mu=one(opt.mu), nu=one(opt.nu))
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """Each input (the global batch, the same on every rank) as a DTensor
+    with its ``batch_specs`` placements: dim 0 over pod x data."""
+    specs = batch_specs(batch, mesh)
+    return {k: distribute(v, mesh, specs[k]) for k, v in batch.items()}
+
+
+def _cache_leaves(cache: dict):
+    """(name, superblock, unit index, field) of each tensor of a cache of
+    ``models.model.init_cache``, under ``cache_specs``' names."""
+    for group in ("prelude", "trailing"):
+        for j, c in enumerate(cache[group]):
+            for f, leaf in (c._asdict().items() if hasattr(c, "_asdict") else enumerate(c)):
+                if isinstance(leaf, torch.Tensor):
+                    yield f"{group}.{j}.{f}", None, j, f
+    for i, sb in enumerate(cache["main"]):
+        for j, c in enumerate(sb):
+            for f, leaf in (c._asdict().items() if hasattr(c, "_asdict") else enumerate(c)):
+                if isinstance(leaf, torch.Tensor):
+                    yield f"main.{j}.{f}", i, j, f
+
+
+def shard_cache(cache: dict, cfg, mesh, batch: int, max_len: int) -> dict:
+    """A cache of ``model.init_cache(params, cfg, batch, max_len)`` with each
+    tensor a DTensor with its ``cache_specs`` placements (less the stacked
+    dim, ``port_spec``): a plain tensor distributed, a DTensor
+    redistributed; the structure and the ints (a KV cache's ``pos``)
+    kept."""
+    specs = cache_specs(cfg, mesh, batch, max_len)
+
+    def unit(c, group: str, j: int):
+        def put(f, leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            spec = port_spec(f"{group}.{j}.{f}", specs[f"{group}.{j}.{f}"])
+            if common.is_dtensor(leaf):
+                return leaf.redistribute(leaf.device_mesh, placements(spec, mesh))
+            return distribute(leaf, mesh, spec)
+        if hasattr(c, "_asdict"):
+            return type(c)(**{f: put(f, v) for f, v in c._asdict().items()})
+        return tuple(put(f, v) for f, v in enumerate(c))
+
+    return {"prelude": tuple(unit(c, "prelude", j) for j, c in enumerate(cache["prelude"])),
+            "main": [tuple(unit(c, "main", j) for j, c in enumerate(sb))
+                     for sb in cache["main"]],
+            "trailing": tuple(unit(c, "trailing", j)
+                              for j, c in enumerate(cache["trailing"]))}

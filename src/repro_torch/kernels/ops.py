@@ -4,6 +4,15 @@ CUDA kernel on the card, its plain PyTorch version on the CPU.
 Tensor arguments decide the device (they must all lie on one).  Arguments
 that are not tensors (numpy arrays, lists) go to ``device``, where
 ``None`` means ``"cuda"``: without a CUDA device that raises.
+
+Flash attention is a ``torch.library`` custom op,
+``torch.ops.repro_torch.flash_attention``, so that a traced step sees it
+whole: its fake implementation (``register_fake``) gives the output's
+shape under ``FakeTensorMode`` without launching anything, and
+``register_flash_sharding`` gives DTensor its rule (batch and heads
+sharded, no communication; replicated where the heads do not split).
+Its real implementation is the wrapper of ``kernels.flash_attention``, so
+the same kernel launches as without the op.
 """
 from __future__ import annotations
 
@@ -12,6 +21,54 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as _fa, linkload as _ll
 
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+              softcap: float) -> torch.Tensor:
+    # contiguous, as the kernel's own output (a DTensor views its local shard)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap).contiguous()
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, softcap):
+    return torch.empty_like(q)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def register_flash_sharding() -> None:
+    """DTensor's rule for the flash op (once a process): every input and the
+    output replicated, or sharded alike on the batch dim, or on the heads
+    dim where the query and the KV heads split evenly over the shards the
+    inputs come with (query head h reads KV head h // (H / K), which a
+    contiguous split of both keeps).  No rule moves data: the caller
+    (``models.attention``) lays the inputs out first."""
+    if register_flash_sharding.done:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def rule(q, k, v, causal, window, softcap):
+        rest = [None, None, None]
+        out = [([Replicate()], [Replicate()] * 3 + rest), ([Shard(0)], [Shard(0)] * 3 + rest)]
+        n = 1
+        for d, p in enumerate(q.placements):
+            if p.is_shard(2):
+                n *= q.mesh.size(d)
+        if n > 1 and q.shape[2] % n == 0 and k.shape[2] % n == 0:
+            out.append(([Shard(2)], [Shard(2)] * 3 + rest))
+        return out
+
+    register_flash_sharding.done = True
+
+
+register_flash_sharding.done = False
 
 
 def _placed(arrays, dtypes, device):
@@ -35,8 +92,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Causal GQA attention with an optional sliding window and tanh
     softcap: q [B, S, H, hd], k and v [B, S, K, hd], float32 or bfloat16;
     returns q's dtype and shape."""
-    q, k, v = _placed((q, k, v), (None, None, None), device)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    if torch.is_grad_enabled() and any(getattr(t, "requires_grad", False) for t in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward: it refuses inputs that "
+                           "require grad")
+    if not any(_is_dtensor(t) for t in (q, k, v)):
+        q, k, v = _placed((q, k, v), (None, None, None), device)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, int(window), float(softcap))
 
 
 def linkload(link_ids, rates, queue, capacity, *, n_links: int, kmin: float = 400e3,

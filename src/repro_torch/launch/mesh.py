@@ -3,16 +3,19 @@ the members of an axis talk.
 
 A ``Mesh`` has one of three transports:
 
-  * ``"process"``: one member per process of the initialized
-    ``torch.distributed`` group (NCCL across cards, gloo on the CPU);
-    ``to_device_mesh`` builds its ``DeviceMesh``;
+  * ``"process"``: one member per rank of the initialized
+    ``torch.distributed`` group (NCCL across cards, gloo on the CPU, or
+    the "fake" group of ``fake_group``, where this process is one rank of
+    many and the collectives move nothing); ``to_device_mesh`` builds its
+    ``DeviceMesh``;
   * ``"local"``: every member on one device, as a leading [n] dim (the
     port's counterpart of the JAX package's forced host devices: NCCL
     refuses two ranks on one GPU);
   * ``None``: abstract, names and sizes only (``make_production_mesh``),
     which the sharding rules read.
 
-The constructors build nothing on a device and start no process.
+The constructors build nothing on a device and start no process; nothing
+is built, and no environment variable set, at import.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.dist import collectives
+from repro_torch.models.common import real_tensors
 
 AXES = ("pod", "data", "model")
 
@@ -66,13 +70,73 @@ class Mesh:
 
     def to_device_mesh(self):
         """The ``torch.distributed`` ``DeviceMesh`` of a "process" mesh, on
-        each process's current device type."""
+        each process's current device type; built once a group (its
+        subgroups are process groups of their own)."""
         if self.transport != "process":
             raise ValueError(f"a {self.transport or 'abstract'} mesh has no device mesh")
+        import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 
         kind = "cuda" if torch.cuda.is_available() else "cpu"
-        return init_device_mesh(kind, self.sizes, mesh_dim_names=self.axis_names)
+        key = (self.axis_names, self.sizes, kind, id(dist.group.WORLD))
+        if key not in _DEVICE_MESHES:
+            with real_tensors():
+                _DEVICE_MESHES[key] = init_device_mesh(kind, self.sizes,
+                                                       mesh_dim_names=self.axis_names)
+        return _DEVICE_MESHES[key]
+
+
+_DEVICE_MESHES: dict = {}  # (axes, sizes, device type, world group) -> DeviceMesh
+_SUBMESHES: dict = {}  # (id of a DeviceMesh, axes) -> (the mesh, its submesh)
+
+
+def submesh(dm, axes: tuple):
+    """``dm[axes]``, built once a DeviceMesh."""
+    key = (id(dm), tuple(axes))
+    if key not in _SUBMESHES:
+        with real_tensors():
+            _SUBMESHES[key] = (dm, dm[tuple(axes)])
+    return _SUBMESHES[key][1]
+
+
+def _register_fake_backend() -> None:
+    """torch's "fake" backend (``torch.testing._internal.distributed.fake_pg``,
+    copied: that module is for torch's own tests), unless it is registered."""
+    import torch.distributed as dist
+
+    if "fake" in getattr(dist.Backend, "_plugins", {}):
+        return
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    def create(common_opts, backend_opts):
+        return FakeProcessGroup._create_internal(common_opts.group_rank,
+                                                 common_opts.group_size, backend_opts)
+
+    dist.Backend.register_backend("fake", create, extended_api=True, devices=["cpu", "cuda"])
+
+
+def fake_group(world: int, rank: int = 0) -> None:
+    """Make the default ``torch.distributed`` group a "fake" group of
+    ``world`` ranks in which this process is rank ``rank``: no other
+    process exists, and a collective returns at once with its output's
+    shape and garbage in it (the dry run's and one rank's view of a
+    production mesh).  A group already up of another kind or size is
+    destroyed first."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        if (dist.get_backend() == "fake" and dist.get_world_size() == world
+                and dist.get_rank() == rank):
+            return
+        dist.destroy_process_group()
+        _DEVICE_MESHES.clear()
+        _SUBMESHES.clear()
+    _register_fake_backend()
+
+    class FakeStore(dist.Store):
+        """The key-value store the fake group is initialized with (unused)."""
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
 
 
 def _members(sizes: tuple[int, ...], axes: tuple[str, ...], device) -> Mesh:
@@ -90,6 +154,21 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     if multi_pod:
         return Mesh(AXES, (2, 16, 16))
     return Mesh(AXES[1:], (16, 16))
+
+
+def fake_mesh(shape: tuple[int, ...], rank: int = 0) -> Mesh:
+    """A "process" mesh of ``shape`` (its axes the last of ("pod", "data",
+    "model")) over a fake group of its size, this process its rank
+    ``rank`` (``fake_group``)."""
+    shape = tuple(shape)
+    fake_group(math.prod(shape), rank)
+    return Mesh(AXES[-len(shape):], shape, "process")
+
+
+def fake_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """``make_production_mesh``'s 16 x 16 or 2 x 16 x 16 over a fake group
+    of 256 or 512 ranks."""
+    return fake_mesh(make_production_mesh(multi_pod=multi_pod).sizes, rank)
 
 
 def make_mesh_like(shape: tuple[int, ...], device=None) -> Mesh:

@@ -27,11 +27,13 @@ Two grad-sync modes, as in the JAX package:
 from __future__ import annotations
 
 import copy
+import weakref
 
 import torch
 
 from repro_torch.dist import collectives, sharding
-from repro_torch.models import model, weights
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import common, model, weights
 from repro_torch.train import optimizer as opt_mod
 
 
@@ -130,18 +132,167 @@ def _pod_train_step(cfg, opt_cfg, mesh, plan):
     return train_step
 
 
+def _sharded(params) -> bool:
+    """Whether ``params`` are DTensors (``dist.sharding.shard_params``)."""
+    return common.is_dtensor(params.embed)
+
+
+def _on_submesh(params, sub):
+    """A copy of the module ``params`` whose tensors are DTensors over the
+    DeviceMesh ``sub`` (the mesh without "pod") holding the same local
+    shards, the storage shared: what one pod's ranks hold of params
+    replicated over "pod"."""
+    from torch import nn
+
+    memo = {id(p): nn.Parameter(_drop_pod(p.detach(), sub), requires_grad=p.requires_grad)
+            for p in params.parameters()}
+    return copy.deepcopy(params, memo)
+
+
+_VIEWS = weakref.WeakKeyDictionary()  # sharded params -> their one-pod views
+
+
+def _pod_view(params, sub):
+    """``_on_submesh(params, sub)``, built once a params (the storage is
+    shared, so the optimizer's in-place updates show through)."""
+    view = _VIEWS.get(params)
+    if view is None:
+        view = _VIEWS[params] = _on_submesh(params, sub)
+    return view
+
+
+def _drop_pod(t, sub):
+    """A DTensor over the whole mesh as one pod holds it, over ``sub``: the
+    same local shard, without the pod entry of its placements (replicated
+    over "pod", or its dim 0 split pod-major: one pod's share of a batch or
+    a cache)."""
+    from torch.distributed.tensor import DTensor
+
+    keep = [pl for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements) if name != "pod"]
+    return DTensor.from_local(t.to_local(), sub, keep, run_check=False)
+
+
+def _lift(t, dm, split: bool = True):
+    """A DTensor over ``sub`` holding one pod's rows (dim 0) as a DTensor
+    over the whole mesh ``dm``: dim 0 split over "pod" first, or with
+    ``split`` false (a batch that does not split over the pods: each pod
+    runs all its rows) replicated over "pod"."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    keep = iter(t.placements)
+    pod = Shard(0) if split else Replicate()
+    pl = [pod if name == "pod" else next(keep) for name in dm.mesh_dim_names]
+    return DTensor.from_local(t.to_local(), dm, pl, run_check=False)
+
+
+def _pod_mean(grads: dict, axis, grad_sync: str, plan) -> dict:
+    """Each gradient's mean over the pod axis, a leaf at a time: the ring
+    (``tree_all_reduce_mean`` with ``plan``) for "seqbalance", one
+    all-reduce (``baseline_all_reduce``) for "xla"."""
+    if grad_sync == "seqbalance":
+        return _sync(grads, axis, plan)
+    n = axis.size
+    return {name: collectives.baseline_all_reduce(grads.pop(name), axis).div_(n)
+            for name in list(grads)}
+
+
+def _sharded_train_step(cfg, opt_cfg, mesh, grad_sync, plan):
+    """The FSDP + TP step on DTensor state over ``mesh`` (a "process" mesh),
+    as the JAX package's step jitted with the production rule's
+    ``in_shardings``: the loss and its gradients through DTensor, each
+    gradient's partial sums reduced onto its master's layout, AdamW on the
+    local shards.
+
+    On a mesh with a "pod" axis, the JAX package's partial-manual
+    ``shard_map`` (manual over "pod", auto over the rest): each pod runs
+    the loss on its share of the batch over the mesh without "pod", and
+    each gradient's local shard is then averaged over the pod subgroup,
+    through the ring with ``plan`` for ``grad_sync="seqbalance"``, in one
+    all-reduce for "xla" (the JAX package's "xla" mode leaves the pod axis
+    to GSPMD, which makes that all-reduce; the pods' means are its global
+    mean where every pod holds as many tokens, but an MoE unit routes each
+    pod's tokens alone where GSPMD routes the global batch)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    pods = mesh.shape.get("pod", 1) > 1
+    dm = mesh.to_device_mesh()
+    sub = mesh_mod.submesh(dm, tuple(a for a in mesh.axis_names if a != "pod")) if pods else None
+    axis = mesh.axis("pod") if pods else None
+
+    def pod_grads(params, batch):
+        view = _pod_view(params, sub)
+        for p in view.parameters():
+            p.grad = None
+        share = {k: _drop_pod(v, sub) for k, v in batch.items()}
+        loss, metrics = model.loss_fn(view, cfg, share)
+        loss.backward()
+        grads = weights.stacked(
+            (name, i, torch.zeros_like(p.to_local()) if p.grad is None
+             else p.grad.redistribute(sub, p.placements).to_local())
+            for name, i, p in weights.leaves(view))
+        for p in view.parameters():
+            p.grad = None
+        n = axis.size
+        loss = collectives.baseline_all_reduce(loss.full_tensor().detach(), axis) / n
+        nll = collectives.baseline_all_reduce(metrics["nll"].full_tensor().detach(), axis) / n
+        return loss, nll, _pod_mean(grads, axis, grad_sync, plan)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if not common.is_dtensor(next(iter(batch.values()))):
+            batch = sharding.shard_batch(batch, mesh)
+        with implicit_replication():
+            if pods:
+                loss, nll, grads = pod_grads(params, batch)
+            else:
+                for p in params.parameters():
+                    p.grad = None
+                loss, metrics = model.loss_fn(params, cfg, batch)
+                loss.backward()
+                loss, nll, grads = (loss.full_tensor().detach(),
+                                    metrics["nll"].full_tensor().detach(), None)
+            params, opt, om = opt_mod.update(grads, state["opt"], params, opt_cfg)
+        for p in params.parameters():
+            p.grad = None
+        return {"params": params, "opt": opt}, {"loss": loss, "nll": nll, **om}
+
+    return train_step
+
+
 def make_train_step(cfg, opt_cfg: opt_mod.AdamWConfig, mesh=None, grad_sync: str = "xla",
                     plan=None):
     """``train_step(state, batch) -> (state, {"loss", "nll", "grad_norm",
     "lr"})``; ``state`` is ``init_state``'s, its masters and moments updated
-    in place.  With ``grad_sync="seqbalance"`` and a ``pod`` axis of more
-    than one member on ``mesh`` (``launch.mesh``), the pod step over it
-    with ``plan`` (the grad sync's PathPlan; ``None``: the default plan);
-    else the single-device step, which reads neither."""
+    in place.  On a "process" mesh whose state is sharded
+    (``dist.sharding.shard_params`` and ``shard_opt_state``), the FSDP + TP
+    step (``_sharded_train_step``; a batch that is not a DTensor is
+    sharded by ``batch_specs``).  Else, with ``grad_sync="seqbalance"`` and
+    a ``pod`` axis of more than one member on ``mesh`` (``launch.mesh``),
+    the pod step over it with ``plan`` (the grad sync's PathPlan; ``None``:
+    the default plan); else the single-device step, which reads neither."""
     if grad_sync not in ("xla", "seqbalance"):
         raise ValueError(f"grad_sync {grad_sync!r}")
     if grad_sync == "seqbalance" and mesh is not None and mesh.shape.get("pod", 1) > 1:
-        return _pod_train_step(cfg, opt_cfg, mesh, plan)
+        plain = _pod_train_step(cfg, opt_cfg, mesh, plan)
+    else:
+        plain = _single_train_step(cfg, opt_cfg)
+    if mesh is None or mesh.transport != "process" or len(mesh.sizes) == 1:
+        return plain
+    built = {}
+
+    def train_step(state, batch):
+        if not _sharded(state["params"]):
+            return plain(state, batch)
+        if "step" not in built:
+            built["step"] = _sharded_train_step(cfg, opt_cfg, mesh, grad_sync, plan)
+        return built["step"](state, batch)
+
+    return train_step
+
+
+def _single_train_step(cfg, opt_cfg):
+    """The single-device step: autograd over ``model.loss_fn``, then AdamW
+    on each master's ``.grad``."""
 
     def train_step(state, batch):
         params = state["params"]
@@ -158,19 +309,97 @@ def make_train_step(cfg, opt_cfg: opt_mod.AdamWConfig, mesh=None, grad_sync: str
     return train_step
 
 
+def _serving(params, batch: dict):
+    """Sharded ``params`` and ``batch`` as one pod runs them: on a mesh with
+    a "pod" axis (pure data parallelism: serving's pods are replicas), the
+    params' views over the mesh without "pod" (``_pod_view``) and this pod's share of the batch (laid out by
+    ``batch_specs`` first, unless made of DTensors); else both as they
+    are.  Returns (params, batch, the mesh they run on, to_pod, lift):
+    ``to_pod`` takes a DTensor of the whole mesh to the pod's, ``lift``
+    one of the pod's back (``_drop_pod``, ``_lift``)."""
+    dm = params.embed.device_mesh
+    if not common.is_dtensor(next(iter(batch.values()))):
+        batch = sharding.shard_batch(batch, dm)
+    names = tuple(dm.mesh_dim_names)
+    if "pod" not in names or dm.size(names.index("pod")) == 1:
+        return params, batch, dm, (lambda t: t), (lambda t: t)
+    sub = mesh_mod.submesh(dm, tuple(a for a in names if a != "pod"))
+    split = next(iter(batch.values())).placements[names.index("pod")].is_shard(0)
+    return (_pod_view(params, sub), {k: _drop_pod(v, sub) for k, v in batch.items()}, sub,
+            lambda t: _drop_pod(t, sub), lambda t: _lift(t, dm, split))
+
+
+def _map_cache(fn, cache):
+    """``fn`` over each tensor of a cache, its structure and ints kept."""
+    def unit(c):
+        if hasattr(c, "_asdict"):
+            return type(c)(**{f: fn(v) if isinstance(v, torch.Tensor) else v
+                              for f, v in c._asdict().items()})
+        return tuple(fn(v) if isinstance(v, torch.Tensor) else v for v in c)
+
+    return {"prelude": tuple(unit(c) for c in cache["prelude"]),
+            "main": [tuple(unit(c) for c in sb) for sb in cache["main"]],
+            "trailing": tuple(unit(c) for c in cache["trailing"])}
+
+
+def serving_cache(params, cfg, batch: int, max_len: int):
+    """The empty cache of ``batch`` rows laid out as ``make_prefill_step``
+    returns it for sharded ``params``: ``cache_specs`` over the mesh one
+    pod runs on, for its share of the rows, lifted over the whole mesh."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    rows = torch.zeros((batch, 1), dtype=torch.int32, device=params.device)
+    params, share, mesh, _, lift = _serving(params, {"tokens": rows})
+    B = share["tokens"].shape[0]
+    with implicit_replication():
+        cache = sharding.shard_cache(model.init_cache(params, cfg, B, max_len), cfg, mesh, B,
+                                     max_len)
+    return _map_cache(lift, cache)
+
+
 def make_prefill_step(cfg, max_len: int):
+    """``prefill_step(params, batch) -> (last logits, cache)``.  On sharded
+    params the inputs are laid out by ``batch_specs`` and the cache comes
+    out laid out by ``cache_specs`` (the JAX dry run's ``out_shardings``);
+    on a pod mesh each pod prefills its share of the rows (``_serving``)
+    into a cache laid out for its share (``serving_cache``)."""
+
     def prefill_step(params, batch):
-        return model.prefill(params, cfg, batch, max_len)
+        if not _sharded(params):
+            return model.prefill(params, cfg, batch, max_len)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        params, batch, mesh, _, lift = _serving(params, batch)
+        B = next(iter(batch.values())).shape[0]
+        with implicit_replication():
+            cache = sharding.shard_cache(model.init_cache(params, cfg, B, max_len), cfg, mesh,
+                                         B, max_len)
+            logits, cache = model.prefill(params, cfg, batch, max_len, cache=cache)
+        cache = sharding.shard_cache(cache, cfg, mesh, B, max_len)
+        return lift(logits), _map_cache(lift, cache)
 
     return prefill_step
 
 
 def make_serve_step(cfg):
-    """One decode step: greedy next token against the KV cache."""
+    """One decode step: greedy next token against the KV cache (on sharded
+    params, the tokens laid out by ``batch_specs`` and the cache as the
+    prefill step returns it, each pod decoding its share of the rows)."""
 
     def serve_step(params, tokens, cache):
-        logits, cache = model.decode_step(params, cfg, tokens, cache)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        if not _sharded(params):
+            logits, cache = model.decode_step(params, cfg, tokens, cache)
+        else:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            params, batch, _, to_pod, lift = _serving(params, {"tokens": tokens})
+            with implicit_replication():
+                logits, cache = model.decode_step(params, cfg, batch["tokens"],
+                                                  _map_cache(to_pod, cache))
+            logits, cache = lift(logits), _map_cache(lift, cache)
+        # the vocab gathered first: DTensor's argmax over a sharded dim reads
+        # its shards' results on the host
+        next_tok = torch.argmax(common.gathered_on(logits, (1,)), dim=-1).to(torch.int32)[:, None]
         return next_tok, logits, cache
 
     return serve_step

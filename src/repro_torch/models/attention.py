@@ -55,12 +55,14 @@ def shapes(cfg) -> dict:
 
 def _proj(x, w):
     """x [B, S, D] @ w [D, H, hd] -> [B, S, H, hd]."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    y = x @ common.merge_ready(w, 1, -1).reshape(w.shape[0], -1)
+    return common.fenced(common.split_ready(y, -1, w.shape[1]).unflatten(-1, w.shape[1:]))
 
 
 def _out(x, out, wo):
     """The residual plus out [B, S, H, hd] @ wo [H, hd, D]."""
-    return x + out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    wo2 = common.merge_ready(wo, 0, 1).reshape(-1, wo.shape[-1])
+    return x + common.fenced(common.merge_ready(out, -2, -1).flatten(-2)) @ wo2
 
 
 def _qkv(p: AttnParams, x, positions, cfg):
@@ -81,14 +83,71 @@ def _sdpa(q, k, v, mask, cfg):
     B, Sq, H, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     G = H // K
-    qh = q.reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4).reshape(B, K, G * Sq, hd)
-    scores = (qh @ k.transpose(-1, -2)).view(B, K, G, Sq, Skv).to(torch.float32)
-    scores = scores * (hd**-0.5)
+    ready, merged = common.split_ready, common.merge_ready  # DTensor layouts (no-ops else)
+    qh = merged(ready(q, 2, K).reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4), 2, 3)
+    scores = ready(qh.reshape(B, K, G * Sq, hd) @ k.transpose(-1, -2), 2, G)
+    scores = scores.view(B, K, G, Sq, Skv).to(torch.float32) * (hd**-0.5)
     scores = common.softcap(scores, cfg.attn_softcap)
     scores = torch.where(mask[:, None, None, :, :], scores, fa.NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = (w.view(B, K, G * Sq, Skv) @ v).view(B, K, G, Sq, hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    w = merged(torch.softmax(scores, dim=-1).to(q.dtype), 2, 3)
+    out = ready(w.view(B, K, G * Sq, Skv) @ v, 2, G).view(B, K, G, Sq, hd)
+    return merged(out.permute(0, 3, 1, 2, 4), 2, 3).reshape(B, Sq, H, hd)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous (a DTensor's view of
+    a local gradient needs one)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attend(q, k, v, mask, cfg):
+    """``_sdpa``; on DTensors, ``_sdpa`` on each device's block (``local_map``,
+    the inputs laid out first): the batch over the mesh's data-parallel
+    dims; over "model" the heads where both the query and the KV heads
+    split over it, else the query rows where they split (k and v whole,
+    the mask's rows as the queries'), else nothing.  So the score matrix
+    is never held whole on a device where the heads do not split (gemma2-2b's
+    8 and 4 heads on 16), and no reshape of ``_sdpa`` splits a DTensor."""
+    if not common.is_dtensor(q):
+        return _sdpa(q, k, v, mask, cfg)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    B, Sq, H = q.shape[:3]
+    K = k.shape[1]
+    dp, qp, kp, mp = 1, [], [], []
+    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
+        if name == "model" and H % n == 0 and K % n == 0:
+            qp.append(Shard(2)), kp.append(Shard(1)), mp.append(Replicate())
+        elif name == "model" and Sq % n == 0:
+            qp.append(Shard(1)), kp.append(Replicate()), mp.append(Shard(1))
+        elif name != "model" and B % (dp * n) == 0:
+            dp *= n
+            qp.append(Shard(0)), kp.append(Shard(0))
+            mp.append(Shard(0) if mask.shape[0] == B else Replicate())
+        else:
+            qp.append(Replicate()), kp.append(Replicate()), mp.append(Replicate())
+    if common.is_dtensor(mask):
+        mask = mask.redistribute(mesh, mp)
+    else:
+        mask = distribute_tensor(mask, mesh, mp, **common.no_source())
+    q, k, v = q.redistribute(mesh, qp), k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+    def block(q, k, v, mask):  # contiguous out and gradients: DTensor views the shards
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return _sdpa(q, k, v, mask, cfg).contiguous()
+
+    fn = local_map(block, out_placements=qp, in_placements=(qp, kp, kp, mp))
+    # the rows gathered back: the output projection's product would merge a
+    # split sequence with the batch
+    return common.batch_layout(fn(q, k, v, mask))
 
 
 def _self_attention(q, k, v, cfg, window: int, causal: bool, plain: bool = False):
@@ -98,7 +157,32 @@ def _self_attention(q, k, v, cfg, window: int, causal: bool, plain: bool = False
     kw = dict(causal=causal, window=window if causal else 0, softcap=cfg.attn_softcap)
     if plain:
         return fa.flash_attention_torch(q, k, v, **kw)
+    if common.is_dtensor(q):
+        q, k, v = _flash_layout(q, k, v)
     return ops.flash_attention(q, k, v, **kw)
+
+
+def _flash_layout(q, k, v):
+    """DTensor q, k, v laid out for the flash op's rule
+    (``ops.register_flash_sharding``): the batch over the mesh's
+    data-parallel dims, the heads over "model" where both the query and the
+    KV heads split over it (not gemma2-2b's 8 and 4 on 16), else replicated
+    there."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ops.register_flash_sharding()
+    mesh = q.device_mesh
+    B, H, K = q.shape[0], q.shape[2], k.shape[2]
+    dp, out = 1, []
+    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
+        if name == "model":
+            out.append(Shard(2) if H % n == 0 and K % n == 0 else Replicate())
+        elif B % (dp * n) == 0:
+            dp *= n
+            out.append(Shard(0))
+        else:
+            out.append(Replicate())
+    return tuple(t.redistribute(mesh, out) for t in (q, k, v))
 
 
 def causal_mask(Sq: int, window: int = 0, device=None) -> torch.Tensor:
@@ -133,7 +217,7 @@ def _sdpa_chunked(q, k, v, cfg, window: int):
         m = j[None, :] <= i[:, None]
         if window:
             m &= (i[:, None] - j[None, :]) < window
-        outs.append(_sdpa(q[:, c0:c0 + C], k, v, m[None], cfg))
+        outs.append(_attend(q[:, c0:c0 + C], k, v, m[None], cfg))
     return torch.cat(outs, dim=1)
 
 
@@ -162,7 +246,7 @@ def apply_full(p: AttnParams, x, cfg, *, window: int = 0, is_causal: bool = True
             else:
                 mask = (causal_mask(S, window, x.device) if is_causal
                         else full_mask(S, S, x.device))
-                out = _sdpa(q, k, v, mask, cfg)
+                out = _attend(q, k, v, mask, cfg)
         else:
             out = _self_attention(q, k, v, cfg, window, is_causal)
     else:
@@ -170,7 +254,7 @@ def apply_full(p: AttnParams, x, cfg, *, window: int = 0, is_causal: bool = True
         if cfg.qk_norm:
             q = common.rms_norm(q, p.q_norm)
         k, v = kv_override
-        out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), full_mask(S, k.shape[2], x.device), cfg)
+        out = _attend(q, k.to(q.dtype), v.to(q.dtype), full_mask(S, k.shape[2], x.device), cfg)
     return _out(x, out, p.wo)
 
 
@@ -204,8 +288,8 @@ def apply_prefill(p: AttnParams, x, cfg, cache: KVCache, *, window: int = 0,
     Sc = cache.k.shape[2]
     k, v = k.transpose(1, 2), v.transpose(1, 2)  # head-major
     if S >= Sc:  # keep last Sc entries, ring-aligned
-        ks = torch.roll(k[:, :, -Sc:], S % Sc, dims=2).to(cache.k.dtype)
-        vs = torch.roll(v[:, :, -Sc:], S % Sc, dims=2).to(cache.v.dtype)
+        ks = common.roll(k[:, :, -Sc:], S % Sc, 2).to(cache.k.dtype)
+        vs = common.roll(v[:, :, -Sc:], S % Sc, 2).to(cache.v.dtype)
         return y, KVCache(k=ks, v=vs, pos=S)
     cache.k[:, :, :S] = k
     cache.v[:, :, :S] = v
@@ -230,5 +314,5 @@ def apply_decode(p: AttnParams, x, cfg, cache: KVCache, *, window: int = 0):
     mask = (pos - age) >= 0
     if window:
         mask &= age < window
-    out = _sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask, cfg)
+    out = _attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask, cfg)
     return _out(x, out, p.wo), KVCache(k=cache.k, v=cache.v, pos=pos + 1)

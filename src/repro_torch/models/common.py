@@ -19,9 +19,238 @@ def span(name: str):
     return contextlib.nullcontext()
 
 
+def real_tensors():
+    """A context in which tensors are real even inside a ``FakeTensorMode``
+    (a DeviceMesh holds its ranks in a tensor that it reads)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    return unset_fake_temporarily()
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a sharded step's tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def no_source() -> dict:
+    """``distribute_tensor``'s keyword for a tensor that every rank already
+    holds whole (each keeps its block, nothing is sent), where the
+    installed torch has it."""
+    import inspect
+
+    from torch.distributed.tensor import distribute_tensor
+
+    if "src_data_rank" in inspect.signature(distribute_tensor).parameters:
+        return {"src_data_rank": None}
+    return {}
+
+
+def _shards_on(t, dim: int) -> int:
+    """How many shards a DTensor ``t`` has along ``dim``."""
+    n = 1
+    for d, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            n *= t.device_mesh.size(d)
+    return n
+
+
+def gathered_on(t, dims):
+    """``t`` replicated on every mesh dim that shards one of ``dims`` where it
+    is a DTensor, else as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    out = [Replicate() if any(pl.is_shard(d) for d in dims) else pl for pl in t.placements]
+    return t if out == list(t.placements) else t.redistribute(t.device_mesh, out)
+
+
+def fsdp_gathered(t):
+    """A DTensor weight as a step uses it: gathered whole over the
+    data-parallel mesh dims ("data", "pod"), still split over "model"
+    (FSDP's gather before use; its gradient's backward is the
+    reduce-scatter).  Left to itself DTensor would rather move the batch's
+    activations than the weight, and hold a product over the whole batch
+    on a device.  A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    out = [Replicate() if name in ("data", "pod") else pl
+           for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements)]
+    return t if out == list(t.placements) else t.redistribute(t.device_mesh, out)
+
+
+def roll(t, shift: int, dim: int):
+    """``torch.roll`` along ``dim``; a DTensor (which has no rule for it in
+    every torch) gathered along ``dim`` and rolled shard by shard."""
+    if not is_dtensor(t):
+        return torch.roll(t, shift, dim)
+    from torch.distributed.tensor import DTensor
+
+    t = gathered_on(t, (dim % t.dim(),))
+    return DTensor.from_local(torch.roll(t.to_local(), shift, dim), t.device_mesh,
+                              t.placements, run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def batch_layout(x):
+    """The residual stream's layout on a DTensor x [B, ...]: the batch over
+    the mesh's data-parallel dims (those it divides, major first),
+    replicated over "model", as a sharding constraint on the stream would
+    hold it under GSPMD (DTensor left alone lets it drift: its embedding
+    gather shards the model dim and the sequence instead).  A plain tensor
+    as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, dp, out = x.device_mesh, 1, []
+    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
+        if name != "model" and x.shape[0] % (dp * n) == 0:
+            dp *= n
+            out.append(Shard(0))
+        else:
+            out.append(Replicate())
+    return x if list(x.placements) == out else x.redistribute(mesh, out)
+
+
+class _Fence(torch.autograd.Function):
+    """The identity, whose gradient is laid out as ``batch_layout`` lays the
+    residual stream."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return batch_layout(g)
+
+
+def fenced(t):
+    """A DTensor activation whose gradient is laid out as the residual
+    stream (its batch over the data-parallel dims, gathered over "model")
+    before it reaches the reshape that made ``t``: the reshape's backward
+    would otherwise split a shard DTensor chose into a strided one.  A
+    plain tensor as it is."""
+    return _Fence.apply(t) if is_dtensor(t) else t
+
+
+def merge_ready(t, start: int, end: int):
+    """``t`` ready for its dims ``start`` to ``end`` (inclusive) to be merged
+    into one: a DTensor sharded on one of them after ``start`` gathered
+    there (the merge would make a strided shard, which DTensor plans very
+    slowly and GSPMD does not make; for a weight this is FSDP's gather
+    before use).  A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    start, end = start % t.dim(), end % t.dim()
+    return gathered_on(t, range(start + 1, end + 1))
+
+
+def split_ready(t, dim: int, first: int):
+    """``t`` ready for its dim ``dim`` to be split into (``first``, rest): a
+    DTensor whose shards along ``dim`` do not divide ``first`` gathered
+    there (the heads do not split over the mesh).  A plain tensor as it
+    is."""
+    if not is_dtensor(t):
+        return t
+    dim = dim % t.dim()
+    return t if first % _shards_on(t, dim) == 0 else gathered_on(t, (dim,))
+
+
+def on_whole(fn, *args):
+    """``fn(*args)`` where some arguments (or the tensors of a NamedTuple
+    among them) may be DTensors: each is gathered whole on every device
+    (replicated over its mesh) and ``fn`` runs on the whole tensors; the
+    tensors ``fn`` returns come back as DTensors replicated over that mesh.
+    For a step of a sharded unit whose ops have no DTensor rule (a sort, a
+    search, a scatter), the redistribution at its boundary that GSPMD
+    would make.  Without DTensors, ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.utils import _pytree as pytree
+
+    meshes = []
+
+    def whole(a):
+        if not isinstance(a, DTensor):
+            return a
+        meshes.append(a.device_mesh)
+        return a.redistribute(a.device_mesh, [Replicate()] * a.device_mesh.ndim).to_local()
+
+    out = fn(*pytree.tree_map(whole, args))
+    if not meshes:
+        return out
+    mesh = meshes[0]
+
+    def back(o):
+        if not isinstance(o, torch.Tensor):
+            return o
+        return DTensor.from_local(o, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    return pytree.tree_map(back, out)
+
+
+def on_rows(fn, rows: tuple, whole: tuple):
+    """``fn(*rows, *whole)`` on each device's own rows of the batch where
+    some arguments are DTensors: each of ``rows`` (dim 0 the batch; a
+    plain tensor is taken as the whole batch, the same on every device)
+    laid out as ``batch_layout`` lays the residual stream, each of
+    ``whole`` (weights) gathered whole, and ``fn`` run on the local
+    tensors; its tensor outputs (dim 0 the batch) come back as DTensors
+    laid out so.  A whole argument's gradient is a partial sum over the
+    devices that split the rows.  For a loop over time that DTensor would
+    dispatch op by op (the sLSTM).  Without DTensors, ``fn(*rows,
+    *whole)``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
+    from torch.utils import _pytree as pytree
+
+    ref = next((t for t in rows + whole if is_dtensor(t)), None)
+    if ref is None:
+        return fn(*rows, *whole)
+    mesh = ref.device_mesh
+    lead = next(t for t in rows if is_dtensor(t))
+    layout = batch_layout(lead).placements
+    grads = [Partial() if p.is_shard() else Replicate() for p in layout]
+
+    def local(t, placements):
+        if not is_dtensor(t):
+            t = distribute_tensor(t, mesh, [Replicate()] * mesh.ndim, **no_source())
+        return t.redistribute(mesh, placements)
+
+    args = [local(t, layout).to_local() for t in rows]
+    args += [local(t, [Replicate()] * mesh.ndim).to_local(grad_placements=grads) for t in whole]
+    out = fn(*args)
+    B = lead.shape[0]
+
+    def back(o):
+        if not isinstance(o, torch.Tensor):
+            return o
+        shape = (B, *o.shape[1:])
+        return DTensor.from_local(o, mesh, layout, run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    return pytree.tree_map(back, out)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor, which has no rule for its backward,
+    the same function as min(x, 0) - log1p(exp(-|x|)), the formula of
+    torch's CPU kernel."""
+    if is_dtensor(x):
+        return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-torch.abs(x)))
+    return F.logsigmoid(x)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """In float32, scaled by ``1 + scale``; returns x's dtype."""
+    """In float32, scaled by ``1 + scale``; returns x's dtype.  A DTensor
+    scale (a vector the rule may shard, qwen3-32b's on "model") is
+    gathered first, so that x keeps its layout."""
     dt = x.dtype
+    scale = gathered_on(scale, range(scale.dim()))
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + scale.to(torch.float32))).to(dt)
@@ -158,4 +387,5 @@ class ParamModule(nn.Module):
     def __getattr__(self, name: str):
         t = super().__getattr__(name)
         read_as = self.__dict__.get("_read_as", {}).get(name)
-        return t if read_as is None else t.to(read_as)  # a no-op on serving's weights
+        # a no-op on serving's weights; a sharded step's gathered over "data"
+        return t if read_as is None else fsdp_gathered(t.to(read_as))

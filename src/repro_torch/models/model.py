@@ -13,6 +13,7 @@ the JAX package casts its masters (``common.ParamModule``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
@@ -94,7 +95,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 def embed_tokens(params: Params, cfg, tokens):
     dt = _dtype(cfg)
     # gathered from the master, then cast: the gradient sums in float32
-    x = params.embed[tokens.long()].to(dt)
+    if common.is_dtensor(tokens):  # DTensor's rule for the embedding (and its backward)
+        x = F.embedding(tokens.long(), common.fsdp_gathered(params.embed))
+        x = common.fenced(common.batch_layout(x))  # its gradient too: the rule's backward
+    else:
+        x = params.embed[tokens.long()]
+    x = x.to(dt)
     # the scale rounded to the compute dtype first, as the JAX package does
     return x * torch.tensor(cfg.d_model**0.5, dtype=dt, device=x.device)
 
@@ -136,7 +142,8 @@ def _run_decoder(params: Params, cfg, x, mode, cache=None, ctx=None):
 
 def logits_fn(params: Params, cfg, x):
     head = params.embed.t() if cfg.tie_embeddings else params.lm_head
-    return common.softcap(x @ head.to(x.dtype), cfg.logit_softcap)
+    x = common.batch_layout(x)  # a sharded step's logits then split the vocab over "model"
+    return common.softcap(x @ common.fsdp_gathered(head.to(x.dtype)), cfg.logit_softcap)
 
 
 def _routing_ctx(ctx: dict, routes, experts) -> dict:
@@ -167,15 +174,79 @@ def forward_train(params: Params, cfg, batch, *, routes=None, experts=None):
                                                       device=x.device)
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """logsumexp - the gold logit of DTensor logits [B, S, V] (float32)
+    whose vocab may be sharded, for DTensor labels [B, S], with no shard of
+    the vocab gathered (the vocab-parallel cross entropy): each device's
+    max, sum of exponentials and gold logit over its vocab shard, each
+    reduced over the mesh dims that shard the vocab, and in the backward
+    softmax - one-hot on each shard.  DTensor's own rules would gather the
+    whole vocab of the logits' gradient on every device."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh, last = logits.device_mesh, logits.dim() - 1
+        vocab = [d for d, p in enumerate(logits.placements) if p.is_shard(last)]
+        rows = [Replicate() if d in vocab else p for d, p in enumerate(logits.placements)]
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        lg = logits.to_local()
+        lab = labels.redistribute(mesh, rows).to_local()
+        # this device's first vocab id (the shards may be uneven: 51,866 on 16)
+        with common.real_tensors():
+            v0 = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                       logits.placements)[1][-1]
+        Vl = lg.shape[-1]
+
+        def reduce(t, op):
+            for d in vocab:
+                t = funcol.all_reduce(t, op, mesh.get_group(d))
+            return t
+
+        m = reduce(lg.amax(-1), "max")
+        lse = torch.log(reduce(torch.exp(lg - m[..., None]).sum(-1), "sum")) + m
+        idx = lab - v0
+        inside = (idx >= 0) & (idx < Vl)
+        idx = idx.clamp(0, Vl - 1)
+        gold = reduce(torch.where(inside, lg.gather(-1, idx[..., None])[..., 0], 0.0), "sum")
+        ctx.save_for_backward(lg, lse, idx, inside)
+        ctx.layout = (mesh, logits.placements, rows, logits.shape, logits.stride())
+        return DTensor.from_local(lse - gold, mesh, rows, run_check=False, shape=labels.shape,
+                                  stride=labels.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        lg, lse, idx, inside = ctx.saved_tensors
+        mesh, placements, rows, shape, stride = ctx.layout
+        g = grad.redistribute(mesh, rows).to_local()
+        p = torch.exp(lg - lse[..., None])
+        p.scatter_add_(-1, idx[..., None], -inside[..., None].to(p.dtype))
+        return DTensor.from_local(p * g[..., None], mesh, placements, run_check=False,
+                                  shape=shape, stride=stride), None
+
+
 def loss_fn(params: Params, cfg, batch):
     logits, aux = forward_train(params, cfg, batch)
     labels = batch["labels"].long()
     mask = (labels >= 0).to(torch.float32)
     lab = torch.clamp(labels, min=0)
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
-    nll = (lse - gold) * mask
+    if common.is_dtensor(logits):
+        from torch.distributed.tensor import Shard
+
+        # a partial sum over a mesh dim reduced onto the vocab's shards
+        part = [Shard(logits.dim() - 1) if p.is_partial() else p for p in logits.placements]
+        logits = logits.redistribute(logits.device_mesh, part)
+        nll = _VocabParallelNLL.apply(logits, lab) * mask
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+        nll = (lse - gold) * mask
     ntok = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / ntok + aux
     return loss, {"nll": nll.sum() / ntok, "aux": aux, "ntok": ntok}
@@ -195,15 +266,18 @@ def init_cache(params: Params, cfg, batch_size: int, max_len: int):
 
 
 def prefill(params: Params, cfg, batch, max_len: int, *, plain_attention: bool = False,
-            routes=None, experts=None):
+            routes=None, experts=None, cache=None):
     """Process the prompt; returns (last-position logits [B, V], cache).
     ``plain_attention`` runs the decoder's self-attention through the plain
     version of the attention kernel on the card (a reference to hold the
-    kernel against); ``routes``, ``experts``: ``_routing_ctx``."""
+    kernel against); ``routes``, ``experts``: ``_routing_ctx``; ``cache``:
+    the cache to fill (``init_cache``'s, or a sharded one), else a new
+    one."""
     x, ctx = _decoder_input(params, cfg, batch)
     ctx["plain_attention"] = plain_attention
     _routing_ctx(ctx, routes, experts)
-    cache = init_cache(params, cfg, x.shape[0], max_len)
+    if cache is None:
+        cache = init_cache(params, cfg, x.shape[0], max_len)
     x, cache, _ = _run_decoder(params, cfg, x, "prefill", cache=cache, ctx=ctx)
     x = common.rms_norm(x[:, -1:], params.final_norm)
     return logits_fn(params, cfg, x)[:, 0], cache

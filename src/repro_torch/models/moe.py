@@ -79,24 +79,29 @@ class Routing(NamedTuple):
 def _route(p: MoEParams, flat: torch.Tensor, cfg, experts=None) -> Routing:
     """``moe.py:59-80`` of the JAX package on the normed tokens [T, D];
     with ``experts`` [T, k], those experts instead of the top-k."""
+    return _route_logits(flat.to(torch.float32) @ p.router.to(torch.float32), cfg, experts)
+
+
+def _route_logits(logits: torch.Tensor, cfg, experts=None) -> Routing:
+    """``_route`` from the router's logits [T, E] (float32)."""
     m = cfg.moe
-    T = flat.shape[0]
+    T = logits.shape[0]
     E, k = m.n_experts, m.top_k
     C = _capacity(T, E, k, m.capacity_factor)
-    logits = flat.to(torch.float32) @ p.router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     if experts is None:
         gate_vals, gate_idx = torch.topk(probs, k, dim=-1, sorted=True)
     else:
-        gate_idx = experts.to(device=flat.device, dtype=torch.long)
+        gate_idx = experts.to(device=logits.device, dtype=torch.long)
         gate_vals = probs.gather(-1, gate_idx)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     # group the replicas by expert, the earliest token first (a stable sort)
     e_flat = gate_idx.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[order]
-    grp_start = torch.searchsorted(e_sorted, torch.arange(E, device=flat.device), right=False)
-    pos = torch.arange(T * k, device=flat.device) - grp_start[e_sorted]
+    grp_start = torch.searchsorted(e_sorted, torch.arange(E, device=logits.device),
+                                  right=False)
+    pos = torch.arange(T * k, device=logits.device) - grp_start[e_sorted]
     slot_sorted = torch.where(pos < C, e_sorted * C + pos, E * C)
     slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)  # replica order
     return Routing(logits, probs, gate_idx, gate_vals, slot.view(T, k), C)
@@ -108,47 +113,104 @@ def routing(p: MoEParams, x: torch.Tensor, cfg) -> Routing:
     return _route(p, common.rms_norm(x, p.ln).reshape(-1, x.shape[-1]), cfg)
 
 
+def _dispatch(r: Routing, flat: torch.Tensor):
+    """The replicas' tokens by slot, xe [E, C, D], and each slot's weight
+    [E * C + 1] (float32; a dropped replica writes the sentinel slot E * C,
+    which nothing reads)."""
+    T, D = flat.shape
+    E, k = r.probs.shape[-1], r.gate_idx.shape[-1]
+    C, EC = r.capacity, r.sentinel
+    slot = r.slot.reshape(-1)
+    tok = torch.arange(T, device=flat.device).repeat_interleave(k)
+    tok_of_slot = torch.full((EC + 1,), T, dtype=torch.long, device=flat.device)
+    tok_of_slot.scatter_(0, slot, tok)
+    w_of_slot = torch.zeros(EC + 1, dtype=torch.float32, device=flat.device)
+    w_of_slot.scatter_(0, slot, r.gate_vals.reshape(-1))
+    flat_pad = torch.cat([flat, flat.new_zeros((1, D))])  # sentinel token T
+    return flat_pad[tok_of_slot[:EC]].view(E, C, D), w_of_slot
+
+
+def _combine(ye: torch.Tensor, r: Routing) -> torch.Tensor:
+    """Each token's kept slots of ye [E * C, D] added in ascending (expert)
+    order: [T, D]."""
+    ye = torch.cat([ye, ye.new_zeros((1, ye.shape[-1]))])  # the sentinel slot: zeros
+    by_expert = torch.argsort(r.gate_idx, dim=-1)
+    parts = ye[r.slot.gather(-1, by_expert)]  # [T, k, D]
+    out = parts[:, 0]
+    for j in range(1, parts.shape[1]):
+        out = out + parts[:, j]
+    return out
+
+
+def _aux(r: Routing, m, E: int) -> dict:
+    """Switch load balance, E * sum_e (frac_tokens_e * mean_prob_e), and the
+    router z-loss."""
+    frac = F.one_hot(r.gate_idx[:, 0], E).to(torch.float32).mean(0)
+    mean_prob = r.probs.mean(0)
+    return {"lb_loss": m.aux_loss * E * torch.sum(frac * mean_prob),
+            "z_loss": m.router_z_loss * torch.mean(torch.logsumexp(r.logits, -1) ** 2)}
+
+
+def _over_experts(xe):
+    """A DTensor xe [E, C, D] with its experts split over the mesh's
+    data-parallel dims (a slice of the replicated whole: nothing moves),
+    so that each device runs the products of its own experts."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = xe.device_mesh
+    E, dp, out = xe.shape[0], 1, []
+    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
+        if name != "model" and E % (dp * n) == 0:
+            dp *= n
+            out.append(Shard(0))
+        else:
+            out.append(Replicate())
+    return xe.redistribute(mesh, out)
+
+
 def apply(p: MoEParams, x: torch.Tensor, cfg, with_aux: bool = True, routes=None,
           experts=None):
     """(x + the mixer's output, aux losses): ``{"lb_loss", "z_loss"}`` as
     the JAX package's where ``with_aux``, else an empty dict (serving
     reads none).  For the checks: ``routes``, a list, receives the
     dispatch (``Routing``); ``experts`` [T, k] sends each token to those
-    experts instead of its top-k (a reference run routed as another)."""
+    experts instead of its top-k (a reference run routed as another).
+
+    On DTensors (a sharded step) the router's product stays sharded; the
+    routing (a global sort, a search and scatters, which have no DTensor
+    rule), the dispatch and the combine run on the whole tensors gathered
+    on every device (``common.on_whole``), as GSPMD gathers a sorted
+    dim; the expert products run with the experts split over the
+    data-parallel dims."""
     m = cfg.moe
     B, S, D = x.shape
-    E, k = m.n_experts, m.top_k
+    E = m.n_experts
     dt = x.dtype
     flat = common.rms_norm(x, p.ln).reshape(-1, D)
-    T = flat.shape[0]
+    sharded = common.is_dtensor(x)
     with common.span("moe.dispatch"):
-        r = _route(p, flat, cfg, experts)
+        if sharded:
+            logits = flat.to(torch.float32) @ p.router.to(torch.float32)
+            r = common.on_whole(_route_logits, logits, cfg, experts)
+            xe, w_of_slot = common.on_whole(_dispatch, r, flat)
+            xe = _over_experts(xe)
+        else:
+            r = _route(p, flat, cfg, experts)
+            xe, w_of_slot = _dispatch(r, flat)
         if routes is not None:
             routes.append(r)
-        C, EC = r.capacity, r.sentinel
-        # the token and weight of each slot; a dropped replica writes the
-        # sentinel slot EC, which nothing reads
-        slot = r.slot.reshape(-1)
-        tok = torch.arange(T, device=x.device).repeat_interleave(k)
-        tok_of_slot = torch.full((EC + 1,), T, dtype=torch.long, device=x.device)
-        tok_of_slot.scatter_(0, slot, tok)
-        w_of_slot = torch.zeros(EC + 1, dtype=torch.float32, device=x.device)
-        w_of_slot.scatter_(0, slot, r.gate_vals.reshape(-1))
-        flat_pad = torch.cat([flat, flat.new_zeros((1, D))])  # sentinel token T
-        xe = flat_pad[tok_of_slot[:EC]].view(E, C, D)
+        EC = r.sentinel
 
     with common.span("moe.experts"):
         up = torch.bmm(xe, p.we_i)
         gate = F.silu(torch.bmm(xe, p.we_g))
-        ye = torch.bmm(gate * up, p.we_o).view(EC, D) * w_of_slot[:EC, None].to(dt)
+        ye = torch.bmm(gate * up, p.we_o)
+        if sharded:  # the experts' dim whole where it does not split evenly (40 on 16)
+            ye = common.merge_ready(common.split_ready(ye, 0, E), 0, 1)
+        ye = ye.view(EC, D) * w_of_slot[:EC, None].to(dt)
 
     with common.span("moe.combine"):  # each token's kept slots in ascending (expert) order
-        ye = torch.cat([ye, ye.new_zeros((1, D))])  # the sentinel slot: zeros
-        by_expert = torch.argsort(r.gate_idx, dim=-1)
-        parts = ye[r.slot.gather(-1, by_expert)]  # [T, k, D]
-        out = parts[:, 0]
-        for j in range(1, k):
-            out = out + parts[:, j]
+        out = common.on_whole(_combine, ye, r) if sharded else _combine(ye, r)
 
     # ---- shared experts (dense)
     if p.ws_i.shape[-1]:
@@ -157,9 +219,6 @@ def apply(p: MoEParams, x: torch.Tensor, cfg, with_aux: bool = True, routes=None
         out = out + (sg * su) @ p.ws_o
 
     aux = {}
-    if with_aux:  # Switch load balance: E * sum_e (frac_tokens_e * mean_prob_e)
-        frac = F.one_hot(r.gate_idx[:, 0], E).to(torch.float32).mean(0)
-        mean_prob = r.probs.mean(0)
-        aux = {"lb_loss": m.aux_loss * E * torch.sum(frac * mean_prob),
-               "z_loss": m.router_z_loss * torch.mean(torch.logsumexp(r.logits, -1) ** 2)}
+    if with_aux:
+        aux = common.on_whole(_aux, r, m, E) if sharded else _aux(r, m, E)
     return x + out.view(B, S, D), aux

@@ -21,6 +21,7 @@ package's field names and layouts.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,7 +39,8 @@ def _ones(shape) -> common.Field:
 
 def _proj(x, w):
     """x [B, S, P] @ w [P, H, hd] -> [B, S, H, hd]."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    y = x @ common.merge_ready(w, 1, -1).reshape(w.shape[0], -1)
+    return common.fenced(common.split_ready(y, -1, w.shape[1]).unflatten(-1, w.shape[1:]))
 
 
 # ----------------------------------------------------------------- conv1d
@@ -96,10 +98,14 @@ def mlstm_cache_init(cfg, batch: int, dtype, device=None) -> MLSTMCache:
 
 
 def _mlstm_gates(uc, p: MLSTMParams):
-    """i (clamped exp) and log-f (log-sigmoid) gates [B, S, H], float32."""
-    g = (uc @ p.w_if).to(torch.float32)
+    """i (clamped exp) and log-f (log-sigmoid) gates [B, S, H], float32.
+    On DTensors the product runs on each device's rows with the whole
+    weight (``common.on_rows``): its 2H columns do not split over "model",
+    and DTensor would split the rows there, merged with the batch into a
+    strided shard by the next product."""
+    g = common.on_rows(torch.matmul, (uc,), (p.w_if,)).to(torch.float32)
     H = g.shape[-1] // 2
-    return torch.exp(torch.clamp(g[..., :H], max=8.0)), F.logsigmoid(g[..., H:])
+    return torch.exp(torch.clamp(g[..., :H], max=8.0)), common.log_sigmoid(g[..., H:])
 
 
 def _mlstm_chunk(C0, n0, q, k, v, i, logf, scale: float):
@@ -124,6 +130,18 @@ def _mlstm_chunk(C0, n0, q, k, v, i, logf, scale: float):
     C1 = torch.exp(bL)[..., None, None] * C0 + torch.einsum("blhk,blhv->bhkv", kdec, v)
     n1 = torch.exp(bL)[..., None] * n0 + kdec.sum(1)
     return C1, n1, h
+
+
+def _mlstm_scan(q, k, v, i, logf, C0, n0, scale: float):
+    """The chunks in order from the state (C0, n0): (h [B, S, H, hd], C1,
+    n1)."""
+    S = q.shape[1]
+    L = min(MLSTM_CHUNK, S)
+    C1, n1, hs = C0, n0, []
+    for c in range(0, S, L):
+        C1, n1, hc = _mlstm_chunk(C1, n1, *(t[:, c:c + L] for t in (q, k, v, i, logf)), scale)
+        hs.append(hc)
+    return torch.cat(hs, dim=1), C1, n1
 
 
 def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
@@ -161,18 +179,14 @@ def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
             den = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", qs, n1)), min=1.0)
             h = (num / den[..., None])[:, None]  # [B, 1, H, hd]
         else:
-            L = min(MLSTM_CHUNK, S)
-            if S % L:
+            if S % min(MLSTM_CHUNK, S):
                 raise ValueError(f"the mLSTM runs {S} tokens in chunks of {MLSTM_CHUNK}: "
                                  "a sequence must be shorter than a chunk or a multiple of it")
-            C1, n1, hs = C0, n0, []
-            for c in range(0, S, L):
-                C1, n1, hc = _mlstm_chunk(C1, n1, *(t[:, c:c + L] for t in (q, k, v, i, logf)),
-                                          scale)
-                hs.append(hc)
-            h = torch.cat(hs, dim=1)
+            # on DTensors each device runs its own rows' chunks (common.on_rows)
+            h, C1, n1 = common.on_rows(functools.partial(_mlstm_scan, scale=scale),
+                                       (q, k, v, i, logf, C0, n0), ())
     h = common.rms_norm(h.to(dt), p.gn - 1.0)  # per-head group norm
-    out = h.reshape(B, S, -1) * F.silu(z)
+    out = common.fenced(common.merge_ready(h, 2, 3).reshape(B, S, -1)) * F.silu(z)
     return x + out @ p.w_down, MLSTMCache(C=C1, n=n1, conv=conv_new)
 
 
@@ -216,9 +230,10 @@ def _slstm_cell(state: SLSTMCache, gx, r) -> SLSTMCache:
     """gx [B, H, 4, hd]: the input's pre-activations; r [H, hd, 4 * hd]."""
     c, n, h, m = state
     B, H, _, hd = gx.shape
-    g = gx + torch.bmm(h.transpose(0, 1), r).transpose(0, 1).view(B, H, 4, hd)
+    hr = common.split_ready(torch.bmm(h.transpose(0, 1), r), 2, 4)
+    g = gx + hr.transpose(0, 1).view(B, H, 4, hd)
     it, ft, zt, ot = g.unbind(2)
-    logf = F.logsigmoid(ft)
+    logf = common.log_sigmoid(ft)
     m_new = torch.maximum(logf + m, it)
     i_s = torch.exp(it - m_new)
     f_s = torch.exp(logf + m - m_new)
@@ -228,24 +243,44 @@ def _slstm_cell(state: SLSTMCache, gx, r) -> SLSTMCache:
     return SLSTMCache(c=c_new, n=n_new, h=h_new, m=m_new)
 
 
+def _slstm_scan(gx, c, n, h, m, r):
+    """The loop over time: (h at every step [B, S, H, hd], the last state)."""
+    state, hs = SLSTMCache(c=c, n=n, h=h, m=m), []
+    for t in range(gx.shape[1]):  # decode: S == 1
+        state = _slstm_cell(state, gx[:, t], r)
+        hs.append(state.h)
+    return torch.stack(hs, dim=1), state
+
+
+def _slstm_ffn(hs, w_up1, w_up2, w_down):
+    """The gated FFN after the cell."""
+    return (F.silu(hs @ w_up1) * (hs @ w_up2)) @ w_down
+
+
 def slstm_apply(p: SLSTMParams, x, cfg, cache: SLSTMCache | None = None,
                 decode: bool = False):
     B, S, D = x.shape
     dt = x.dtype
     h_in = common.rms_norm(x, p.ln)
-    gx = (h_in @ p.w.reshape(D, -1)).to(torch.float32).view(B, S, *p.w.shape[1:]) + p.b
     H, hd = p.r.shape[0], p.r.shape[1]
-    r = p.r.reshape(H, hd, 4 * hd)
+    gx = h_in @ common.merge_ready(p.w, 1, -1).reshape(D, -1)
+    gx = common.split_ready(gx.to(torch.float32), -1, H).view(B, S, *p.w.shape[1:])
+    # the batch's layout before the bias (torch 2.11's DTensor cannot add a
+    # sharded bias to a partial sum)
+    gx = common.batch_layout(common.fenced(gx)) + p.b
+    r = common.merge_ready(p.r, 2, 3).reshape(H, hd, 4 * hd)
     state = cache if cache is not None else slstm_cache_init(cfg, B, device=x.device)
-    hs = []
     with common.span("recurrent.slstm"):
-        for t in range(S):  # decode: S == 1
-            state = _slstm_cell(state, gx[:, t], r)
-            hs.append(state.h)
-        hs = torch.stack(hs, dim=1)  # [B, S, H, hd]
-    hs = common.rms_norm(hs.to(dt), p.gn - 1.0).reshape(B, S, D)
-    up = F.silu(hs @ p.w_up1) * (hs @ p.w_up2)
-    return x + up @ p.w_down, state
+        # on DTensors each device runs its own rows' loop (common.on_rows)
+        hs, state = common.on_rows(_slstm_scan, (gx, *state), (r,))
+    hs = common.batch_layout(hs)
+    hs = common.rms_norm(hs.to(dt), p.gn - 1.0)
+    hs = common.fenced(common.merge_ready(hs, 2, 3).reshape(B, S, D))
+    # on DTensors each device runs its own rows through the whole weights
+    # (common.on_rows): F = 2,730 does not split over "model", and DTensor
+    # would split the rows there, which the next product merges with the
+    # batch into a strided shard
+    return x + common.on_rows(_slstm_ffn, (hs,), (p.w_up1, p.w_up2, p.w_down)), state
 
 
 # ------------------------------------------------------------------ RG-LRU
@@ -327,9 +362,13 @@ def rglru_apply(p: RGLRUParams, x, cfg, cache: RGLRUCache | None = None,
     gate = F.gelu(hx @ p.w_gate, approximate="tanh")
     xin = hx @ p.w_in
     xc, conv_new = causal_conv1d(xin, p.conv_w, cache.conv if cache is not None else None)
-    a, b = _rglru_coeffs(xc, p)
+    a, b = _rglru_coeffs(common.fenced(common.batch_layout(xc)), p)
     h0 = cache.h if cache is not None else a.new_zeros((B, a.shape[-1]))
     with common.span("recurrent.rglru"):
-        hs = (a[:, 0] * h0 + b[:, 0])[:, None] if decode else linear_scan(a, b, h0)
-    out = hs.to(dt) * gate
+        # on DTensors each device scans its own rows (common.on_rows)
+        hs = ((a[:, 0] * h0 + b[:, 0])[:, None] if decode
+              else common.on_rows(linear_scan, (a, b, h0), ()))
+    # the stream's layout before the product (its rows would otherwise merge
+    # a split sequence with the batch into a strided shard)
+    out = common.batch_layout(common.fenced(hs.to(dt) * gate))
     return x + out @ p.w_out, RGLRUCache(h=hs[:, -1].clone(), conv=conv_new)

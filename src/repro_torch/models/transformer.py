@@ -202,7 +202,7 @@ def apply_units(params, x, cfg, units, mode, cache=None, ctx=None):
     new_caches, aux = [], 0.0
     for j, u in enumerate(units):
         c = cache[j] if cache is not None else None
-        x, nc, a = unit_apply(u, params[j], x, cfg, mode, c, ctx)
+        x, nc, a = unit_apply(u, params[j], common.batch_layout(x), cfg, mode, c, ctx)
         new_caches.append(nc)
         aux = aux + a
     return x, tuple(new_caches), aux

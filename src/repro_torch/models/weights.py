@@ -138,25 +138,31 @@ def from_jax_params(tree, cfg, device=None, trainable: bool = False) -> model.Pa
 _TOP = ("embed", "final_norm", "enc_norm", "lm_head")
 
 
+def slots(params: model.Params):
+    """(name, superblock, module, attribute) of every parameter, in
+    ``leaves``' order: where ``module._parameters[attribute]`` holds it."""
+    for key in _TOP:
+        if params._parameters.get(key) is not None:
+            yield key, None, params, key
+    for group in ("prelude", "trailing"):
+        for j, unit in enumerate(getattr(params, group)):
+            for f in unit.FIELDS:
+                yield f"{group}.{j}.{f}", None, unit, f
+    for group in ("main", "encoder"):
+        for i, sb in enumerate(getattr(params, group) or ()):
+            for j, unit in enumerate(sb):
+                for f in unit.FIELDS:
+                    yield f"{group}.{j}.{f}", i, unit, f
+
+
 def leaves(params: model.Params):
     """(name, superblock, tensor) of every parameter: its leaf name in the
     JAX package's tree as ``repro.train.checkpoint._leaf_id`` writes it
     ("embed", "prelude.0.ln", "main.1.wq"), the superblock it stands at on
     the stacked [n_super] axis of a "main" or "encoder" leaf (else
     ``None``), and the port's tensor (the master itself, not its cast)."""
-    for key in _TOP:
-        t = params._parameters.get(key)
-        if t is not None:
-            yield key, None, t
-    for group in ("prelude", "trailing"):
-        for j, unit in enumerate(getattr(params, group)):
-            for f in unit.FIELDS:
-                yield f"{group}.{j}.{f}", None, unit._parameters[f]
-    for group in ("main", "encoder"):
-        for i, sb in enumerate(getattr(params, group) or ()):
-            for j, unit in enumerate(sb):
-                for f in unit.FIELDS:
-                    yield f"{group}.{j}.{f}", i, unit._parameters[f]
+    for name, i, module, attr in slots(params):
+        yield name, i, module._parameters[attr]
 
 
 def stacked(named) -> dict:

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models import weights
+from repro_torch.models import common, weights
 
 
 class AdamWConfig(NamedTuple):
@@ -63,16 +63,43 @@ def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32))) for t in tensors))
+    """sqrt of the sum of squares of every tensor, in float32.  Of DTensors
+    (laid out without partial sums): each shard's sum of squares, the sums
+    of the tensors laid out alike added on each device, and each such
+    group reduced once over the mesh dims it is sharded on; a plain
+    tensor."""
+    tensors = list(tensors)
+    if not any(common.is_dtensor(t) for t in tensors):
+        return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32))) for t in tensors))
+    groups: dict = {}
+    for t in tensors:
+        s = torch.sum(torch.square(t.to(torch.float32)))
+        groups.setdefault((s.device_mesh, s.placements), []).append(s)
+    return torch.sqrt(sum(sum(ss).full_tensor() for ss in groups.values()))
+
+
+def _local(t):
+    """A DTensor's local shard (the tensor itself: writing it writes the
+    DTensor), else ``t``."""
+    return t.to_local() if common.is_dtensor(t) else t
 
 
 def _grad(grads, name: str, i, p: torch.Tensor) -> torch.Tensor:
     """A leaf's gradient: from ``grads`` (leaf name -> the JAX layout's
     stacked array), else the master's ``.grad``; zeros where it has none
-    (a parameter the loss does not read)."""
+    (a parameter the loss does not read).  For a DTensor master, laid out
+    as the master: a DTensor gradient redistributed (its partial sums
+    reduced), a plain one taken as the master's local shard."""
     g = p.grad if grads is None else (grads[name] if i is None else grads[name][i])
-    return torch.zeros_like(p) if g is None else g
+    if g is None:
+        return torch.zeros_like(p)
+    if common.is_dtensor(p):
+        from torch.distributed.tensor import DTensor
+
+        if common.is_dtensor(g):
+            return g.redistribute(p.device_mesh, p.placements)
+        return DTensor.from_local(g, p.device_mesh, p.placements, run_check=False)
+    return g
 
 
 def update(grads, state: AdamWState, params, cfg: AdamWConfig):
@@ -89,8 +116,9 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig):
     b2c = 1 - torch.pow(cfg.b2, t)
     with torch.no_grad():
         for name, i, p, g in named:
-            m = state.mu[name] if i is None else state.mu[name][i]
-            v = state.nu[name] if i is None else state.nu[name][i]
+            m, v, p, g = _local(state.mu[name]), _local(state.nu[name]), _local(p), _local(g)
+            if i is not None:
+                m, v = m[i], v[i]
             g = g.to(torch.float32) * scale
             m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
             v.mul_(cfg.b2).add_(torch.square(g).mul_(1 - cfg.b2))

@@ -40,7 +40,8 @@ def test_importing_the_sweep_leaves_jax_out():
             "repro_torch.serve.engine, repro_torch.serve.compare, "
             "repro_torch.data.pipeline, repro_torch.train.optimizer, "
             "repro_torch.train.checkpoint, repro_torch.launch.steps, "
-            "repro_torch.launch.train, repro_torch.dist.sharding, repro_torch.launch.mesh; "
+            "repro_torch.launch.train, repro_torch.dist.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -48,6 +49,20 @@ def test_importing_the_sweep_leaves_jax_out():
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_importing_the_dry_run_sets_no_environment_variable():
+    """``repro.launch.dryrun`` sets XLA_FLAGS at its import (line 2); the
+    port's dry run changes nothing of the environment."""
+    code = ("import os, json; before = dict(os.environ); "
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh; "
+            "print(json.dumps(sorted(k for k in set(before) | set(os.environ) "
+            "if before.get(k) != os.environ.get(k))))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_entry_points_default_to_cuda():
