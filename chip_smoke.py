@@ -250,17 +250,21 @@ Phases, each printed as JSON lines:
  22. dryrun   repro_torch.launch.dryrun on both production meshes (16 x 16
               and 2 x 16 x 16, this process one rank of a fake group of
               256 or 512) for DRYRUN_CELLS (gemma2-2b train_4k,
-              prefill_32k and decode_32k, deepseek-moe-16b train_4k), on
+              prefill_32k and decode_32k, deepseek-moe-16b train_4k,
+              recurrentgemma-9b train_4k, xlstm-1.3b prefill_32k: its
+              sLSTM loop traced one step and counted for all), on
               fake tensors on "cuda" (nothing allocated on the card:
               checked), against the JAX package's run_cell of the same
               cells (src/repro_torch/launch/dryrun_reference.json): each
               record's argument bytes equal to the count from shapes,
               specs and dtypes and the JAX package's to its own layout's
               (so the two differ by the listed stacked-dim leaves alone),
-              the dense cells' FLOPs (less the flash kernel's) within
-              DRYRUN_FLOPS_LIMIT of the JAX package's; peak
-              and collective bytes printed beside the JAX package's, not
-              gated (the partitioners differ); each trace's wall printed;
+              every cell's FLOPs (less the flash kernel's) within
+              DRYRUN_FLOPS_LIMIT of the JAX package's, an MoE train
+              cell's within DRYRUN_MOE_RECKONING_LIMIT of the model's own
+              count (train_flops) a device, printed for every train cell;
+              peak and collective bytes printed beside the JAX package's,
+              not gated (the partitioners differ); each trace's wall printed;
  23. shard_rank one rank of gemma2-2b train_4k as published at the 16 x 16
               sharding (the FSDP + TP step of launch.steps on DTensors
               over a fake group of 256: real tensors on the card, the
@@ -270,12 +274,24 @@ Phases, each printed as JSON lines:
               22's peak_bytes of that cell and the card's memory (it must
               fit), the launches by kernel; its loss is not checked (the
               fake collectives leave garbage in it).
+ 24. examples the examples' twins as their CLIs run on the card
+              (EXAMPLES_REFERENCE, written from the JAX examples' own code
+              path on the CPU): repro_torch.examples.simulate_datacenter,
+              default and --elephants, the five schemes' FCT stats at
+              GATES and the tiered kernel launched; serve_decode for
+              EXAMPLES_DECODE_ARCHS, its tokens equal to a plain-attention
+              run on the same weights up to each row's first near-tie and
+              the float32 flash kernel (simt) launched; quickstart's lines
+              the JAX example's; and, run inside phase 11 on the flight
+              log it writes, repro_torch.obs.report with an epoch row for
+              each of its epochs.
 
 Phases 1, 2 and 6 run first, alone on the card.  The others but 21 and
-23 run in the five processes of WORKERS at once, on the same card
+23 run in the six processes of WORKERS at once, on the same card
 (python3 chip_smoke.py --worker NAME): the simulator's steps are host
 work on a device that idles most of a step (phase 6), so their walls
-overlap; phase 22 traces on the host alone.  Phases 12-15 and 17-20 load
+overlap; phase 22 traces on the host alone, in two of them
+(DRYRUN_SPLIT).  Phases 12-15 and 17-20 load
 the card and share one process, one model at a time.  Phases 21 and 23
 run last, in that order, in a process of their own (LAST_WORKERS): each
 holds most of the card.  Each process runs its
@@ -2297,6 +2313,7 @@ def phase_cosim() -> int:
                     if run["flight_events"] != {"campaign": 1, "epoch": len(hist.records),
                                                 "run_end": 1}:
                         failures.append(f"{name} {label}: flight log {run['flight_events']}")
+                    report_check(spec["flight"], len(hist.records))  # phase 24's report twin
                 row["runs"][label] = run
             if name == "cosim_grid":  # each history alone, bit for bit
                 t0 = time.time()
@@ -3270,15 +3287,24 @@ def phase_train_ref() -> dict:
     return counts
 
 
-def param_count(cfg) -> int:
-    """Parameters of ``cfg``'s model, from its field tables."""
+def param_count(cfg, active: bool = False) -> int:
+    """Parameters of ``cfg``'s model, from its field tables; with ``active``
+    an MoE unit's routed experts counted as the top-k at the capacity
+    factor of them that a token's replicas run through."""
     from repro_torch.models import transformer
 
     prelude, sb, n_super, trailing = transformer.block_program(cfg)
 
+    def unit(u, name, f):
+        n = int(np.prod(f.shape))
+        if active and u.kind == "moe" and name.startswith("we_"):
+            m = cfg.moe
+            n = n * m.top_k * m.capacity_factor / m.n_experts
+        return n
+
     def units(us):
-        return sum(int(np.prod(f.shape)) for u in us
-                   for f in transformer.unit_shapes(cfg, u).values())
+        return sum(unit(u, name, f) for u in us
+                   for name, f in transformer.unit_shapes(cfg, u).items())
 
     n = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2) + cfg.d_model
     n += n_super * units(sb) + units(prelude + trailing)
@@ -3289,10 +3315,10 @@ def param_count(cfg) -> int:
 
 
 def train_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of a train step: 6 N tokens, plus attention's two
-    products over the causal (windowed) query-key pairs, forward and
-    backward (12 B H hd pairs a layer); remat's recomputation not
-    counted."""
+    """Model FLOPs of a train step: 6 N tokens (N the active parameters:
+    ``param_count(active=True)``), plus attention's two products over the
+    causal (windowed) query-key pairs, forward and backward (12 B H hd
+    pairs a layer); remat's recomputation not counted."""
     from repro_torch.models import transformer
 
     prelude, sb, n_super, trailing = transformer.block_program(cfg)
@@ -3301,7 +3327,7 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     pos = np.arange(seq)
     attn = sum(12 * batch * cfg.n_heads * cfg.hd
                * int(np.minimum(pos + 1, u.window or seq).sum()) for u in layers)
-    return 6.0 * param_count(cfg) * batch * seq + attn
+    return 6.0 * param_count(cfg, active=True) * batch * seq + attn
 
 
 def phase_train() -> int:
@@ -3437,19 +3463,25 @@ TRAIN_SYNC_ARGV = ("--arch", "gemma2-2b", "--remat", "full", "--batch", "2", "--
 # against the JAX package's run_cell of the same cells
 # (src/repro_torch/launch/dryrun_reference.json; tests/test_torch_dryrun.py)
 DRYRUN_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"),
-                ("gemma2-2b", "decode_32k"), ("deepseek-moe-16b", "train_4k"))
+                ("gemma2-2b", "decode_32k"), ("deepseek-moe-16b", "train_4k"),
+                ("recurrentgemma-9b", "train_4k"), ("xlstm-1.3b", "prefill_32k"))
 DRYRUN_REFERENCE = SRC / "repro_torch" / "launch" / "dryrun_reference.json"
 # the port's FLOPs a device (less the flash kernel's: XLA's count of the JAX
 # package's Pallas call holds none of it) over the JAX package's: within a
-# factor of DRYRUN_FLOPS_LIMIT.  XLA's cost analysis of these programs reads
-# low and unevenly (gemma2-2b prefill_32k: 1.45e12 a device on 256 devices
-# and 6.67e12 on 512; train_4k 2.2e13, a third of 6 N tokens / 256), and the
-# dense cells' ratios lie within 0.87-11.4 (dryrun_reference.json's
-# "flops_ratio"); a product left unsharded moves a count 16 or 256 times.
-# Held on the dense cells, where products dominate; an MoE cell's ratio is
-# printed (deepseek-moe-16b: 29-35 under torch 2.11 on the card, 11-13 under
-# torch 2.13 on the CPU; DTensor runs the weight gradients of the
-# projections whose contraction the rule shards unsplit over "model")
+# factor of DRYRUN_FLOPS_LIMIT, on every cell.  XLA's cost analysis of these
+# programs reads low and unevenly (gemma2-2b prefill_32k: 1.45e12 a device on
+# 256 devices and 6.67e12 on 512; train_4k 2.2e13, a third of 6 N tokens /
+# 256), so the port's ratios spread over a decade (dryrun_reference.json's
+# "flops_ratio"), while a product left unsharded moves a count 16 or 256
+# times
+DRYRUN_FLOPS_LIMIT = 20.0
+# a train cell's FLOPs a device over the model's own count of the step
+# (``train_flops``: 6 N_active tokens, the routed experts at the capacity
+# factor, plus causal attention; remat's recompute not counted) over the
+# devices: printed on every train cell, held on the MoE cells, whose weight
+# gradients DTensor left unsplit over "model" until the products were laid
+# out as their weights (``common.matmul``)
+DRYRUN_MOE_RECKONING_LIMIT = 2.0
 DRYRUN_FLOPS_LIMIT = 20.0
 
 
@@ -3755,14 +3787,16 @@ def phase_train_sync(step0_loss: float) -> int:
     return counts["cascade_tiered"]
 
 
-def phase_dryrun() -> dict:
-    """Phase 22: the port's dry run of DRYRUN_CELLS on both production
-    meshes, on fake tensors on the card, against the JAX package's run_cell
-    of the same cells (DRYRUN_REFERENCE).  Gates: every cell OK; its
+def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
+    """Phase 22: the port's dry run of ``cells`` (of DRYRUN_CELLS; the
+    phase's lines named ``name``) on both production meshes, on fake
+    tensors on the card, against the JAX package's run_cell of the same
+    cells (DRYRUN_REFERENCE).  Gates: every cell OK; its
     argument bytes equal to ``dryrun.expected_argument_bytes`` and the JAX
-    package's to the same count in its own layout; a dense cell's FLOPs
-    (less the flash kernel's) within a factor DRYRUN_FLOPS_LIMIT of the
-    JAX package's (where its cell is OK; an MoE cell's printed); nothing
+    package's to the same count in its own layout; a cell's FLOPs (less
+    the flash kernel's) within a factor DRYRUN_FLOPS_LIMIT of the JAX
+    package's (where its cell is OK), and an MoE train cell's within
+    DRYRUN_MOE_RECKONING_LIMIT of ``train_flops`` a device; nothing
     allocated on the card; no kernel launched.  Returns the launch counts
     and each cell's peak bytes (phase 23 reads gemma2-2b train_4k's)."""
     import torch
@@ -3778,7 +3812,7 @@ def phase_dryrun() -> dict:
     failures, peaks = [], {}
     for label, multi in dryrun.MESHES.items():
         mesh = tmesh.fake_production_mesh(multi_pod=multi)
-        for arch, shape in DRYRUN_CELLS:
+        for arch, shape in cells:
             key = f"{label}/{arch}/{shape}"
             try:
                 rec = dryrun.run_cell(arch, shape, label, device=DEVICE, mesh=mesh)
@@ -3810,19 +3844,24 @@ def phase_dryrun() -> dict:
             if rec["argument_size_bytes"] != expected:
                 failures.append(f"{key}: {rec['argument_size_bytes']} argument bytes, "
                                 f"not {expected}")
+            if cell.kind == "train":
+                reckoned = train_flops(cfg, cell.global_batch, cell.seq_len) / mesh.size
+                row.update(reckoned_flops=reckoned, flops_over_reckoning=rec["flops"] / reckoned)
+                if cfg.family == "moe" and rec["flops"] > DRYRUN_MOE_RECKONING_LIMIT * reckoned:
+                    failures.append(f"{key}: FLOPs {rec['flops']:.4g}, over "
+                                    f"{DRYRUN_MOE_RECKONING_LIMIT} x {reckoned:.4g}")
             if want.get("status") == "OK":
                 ratio = (rec["flops"] - rec["flash_flops"]) / want["flops"]
                 row["flops_ratio"] = ratio
                 if want["argument_size_bytes"] != expected_jax:
                     failures.append(f"{key}: the JAX package's {want['argument_size_bytes']} "
                                     f"argument bytes, not its layout's {expected_jax}")
-                row["flops_gated"] = cfg.family != "moe"
-                if row["flops_gated"] and not 1 / DRYRUN_FLOPS_LIMIT <= ratio <= DRYRUN_FLOPS_LIMIT:
+                if not 1 / DRYRUN_FLOPS_LIMIT <= ratio <= DRYRUN_FLOPS_LIMIT:
                     failures.append(f"{key}: FLOPs {ratio} of the JAX package's")
             emit(row)
     torch.distributed.destroy_process_group()
     counts = read_counts()
-    emit({"phase": "dryrun", "nvidia_smi": card_name(), "cells": len(peaks),
+    emit({"phase": name, "nvidia_smi": card_name(), "cells": len(peaks),
           "peak_bytes": peaks, "allocated_before": allocated,
           "allocated_after": torch.cuda.memory_allocated(), "kernel_launches": counts})
     check(torch.cuda.memory_allocated() == allocated,
@@ -3899,6 +3938,108 @@ def phase_shard_rank(predicted_peak: float) -> dict:
                         f"{total / 1e9}")
     check(not any(counts.values()), f"shard_rank: kernels launched: {counts}")
     return counts
+
+
+# phase 24: the examples' twins (repro_torch.examples, repro_torch.obs.report)
+# as their CLIs run, against src/repro_torch/examples/examples_reference.json
+# (the JAX example's own code path on the CPU; tests/test_torch_examples.py)
+EXAMPLES_REFERENCE = SRC / "repro_torch" / "examples" / "examples_reference.json"
+EXAMPLES_SIMULATE = {"default": (), "elephants": ("--elephants",)}
+EXAMPLES_DECODE_ARCHS = ("gemma2-2b", "deepseek-moe-16b")
+
+
+def report_epoch_rows(text: str) -> int:
+    """The epoch rows of ``obs.report``'s table in its printed ``text``."""
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.split()[:2] == ["ep", "p99_us"])
+    rows = 0
+    for ln in lines[start + 1:]:
+        if not ln.strip():
+            break
+        rows += 1
+    return rows
+
+
+def report_check(path: str, epochs: int) -> dict:
+    """Phase 24's report twin on a flight log of phase 11 (``path``, a run of
+    ``epochs`` epochs): as its CLI runs, its exit code 0 and an epoch row
+    of its table for each epoch."""
+    import contextlib
+    import io
+
+    from repro_torch.obs import report
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report.main([path])
+    row = {"phase": "examples_report", "rc": rc, "epoch_rows": report_epoch_rows(buf.getvalue()),
+           "epochs": epochs, "lines": len(buf.getvalue().splitlines())}
+    emit(row)
+    check(rc == 0 and row["epoch_rows"] == epochs,
+          f"examples_report: {row['epoch_rows']} epoch rows for {epochs} epochs, rc {rc}")
+    return row
+
+
+def phase_examples() -> dict:
+    """Phase 24: the examples' twins on the card as their CLIs run.
+    simulate_datacenter, default and --elephants: the five schemes' FCT
+    stats against the JAX example's at GATES, the tiered kernel launched;
+    serve_decode for EXAMPLES_DECODE_ARCHS: its tokens equal to a run of
+    the plain attention on the same weights up to each row's first
+    near-tie, the float32 flash kernel (route simt) launched; quickstart:
+    its lines equal the JAX example's.  Returns the launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.examples import quickstart, serve_decode, simulate_datacenter
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import compare
+
+    ref = json.loads(EXAMPLES_REFERENCE.read_text())
+    out = {"cascade_tiered": 0, "simt": 0}
+    for name, argv in EXAMPLES_SIMULATE.items():
+        reset_counts()
+        run = simulate_datacenter.main(list(argv))
+        launched = read_counts()["cascade_tiered"]
+        out["cascade_tiered"] += launched
+        want = ref[name]
+        check(run["flows"] == want["flows"], f"examples {name}: {run['flows']} flows, "
+                                             f"not {want['flows']}")
+        worst = gated_diffs(run["stats"], want["stats"], f"examples simulate_datacenter {name}")
+        emit({"phase": "examples", "example": "simulate_datacenter", "case": name,
+              "wall_s": run["wall_s"], "flows": run["flows"], "max_diff": worst,
+              "tiered_launches": launched,
+              "stats": {s: {k: st[k] for k in (*GATES, "imbalance_median")}
+                        for s, st in run["stats"].items()}})
+        check(launched > 0, f"examples {name}: the tiered kernel was not launched")
+    for arch in EXAMPLES_DECODE_ARCHS:
+        reset_counts()
+        run = serve_decode.main(["--arch", arch])
+        simt = fa.flash_attention.route_launches.get("simt", 0)
+        out["simt"] += simt
+        plain = serve_decode.decode(run["params"], run["cfg"], run["batch"],
+                                    run["tokens"].shape[1], plain_attention=True)
+        logits = plain["logits"].cpu()
+        rms = logits.pow(2).mean(-1).sqrt()
+        upto = compare.tokens_before_near_tie(compare.margins(logits), rms,
+                                              compare.SERVE_TOL["float32"])
+        got, want = run["tokens"].cpu(), plain["tokens"].cpu()
+        equal = [bool(torch.equal(got[i, :n], want[i, :n])) for i, n in enumerate(upto)]
+        emit({"phase": "examples", "example": "serve_decode", "arch": arch,
+              "prefill_s": run["prefill_s"], "decode_ms": run["decode_ms"],
+              "simt_launches": simt, "steps_before_near_tie": upto, "equal": equal,
+              "sample": got[0, :16].tolist()})
+        check(all(equal) and min(upto) >= 1, f"examples serve_decode {arch}: tokens {equal} "
+                                              f"before the near-ties {upto}")
+        check(simt > 0, f"examples serve_decode {arch}: the simt flash kernel was not launched")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lines = quickstart.main([])
+    emit({"phase": "examples", "example": "quickstart", "lines": lines})
+    check(lines == ref["quickstart"], f"examples quickstart: {lines}")
+    return out
 
 
 def cluster_sweep() -> None:
@@ -4057,7 +4198,13 @@ def worker_serve() -> dict:
 
 
 def worker_dryrun() -> dict:
-    return {"dryrun": timed("dryrun", phase_dryrun)}
+    return {"dryrun": timed("dryrun", phase_dryrun, DRYRUN_SPLIT["dryrun"]),
+            "examples": timed("examples", phase_examples)}
+
+
+def worker_dryrun_train() -> dict:
+    return {"dryrun_train": timed("dryrun_train", phase_dryrun, DRYRUN_SPLIT["dryrun_train"],
+                                  "dryrun_train")}
 
 
 def worker_train_sync() -> dict:
@@ -4078,12 +4225,17 @@ def worker_train_sync() -> dict:
 # order -> their launch counts; the serving and training phases share one,
 # so that one model at a time holds the card's memory
 WORKERS = {"fig12": worker_fig12, "adaptive": worker_adaptive, "record": worker_record,
-           "serve": worker_serve, "dryrun": worker_dryrun}
+           "serve": worker_serve, "dryrun": worker_dryrun, "dryrun_train": worker_dryrun_train}
+# phase 22's cells in its two workers: the train cells of the MoE and
+# hybrid families apart, so that neither outlasts the serve worker
+DRYRUN_SPLIT = {"dryrun": tuple(c for c in DRYRUN_CELLS if c[0] in ("gemma2-2b", "xlstm-1.3b")),
+                "dryrun_train": tuple(c for c in DRYRUN_CELLS
+                                      if c[0] not in ("gemma2-2b", "xlstm-1.3b"))}
 # phases 21 and 23 run in a process of their own after them, one after the
 # other: each holds most of the card's memory, and none of it is left to
 # what the main process holds
 LAST_WORKERS = {"train_sync": worker_train_sync}
-WORKER_THREADS = 2  # torch's CPU threads in each, so that the five share 8 cores
+WORKER_THREADS = 2  # torch's CPU threads in each, so that the six share 8 cores
 DEADLINE_S = 1140.0  # after START: the workers still running are stopped
 
 
@@ -4206,9 +4358,10 @@ def main() -> int:
     testbed_launches, serve_launches = counts["testbed"], counts["serve"]
     serve_ref_launches, families_ref_launches = counts["serve_ref"], counts["serve_families_ref"]
     families_launches = counts["serve_families"]
-    train_launches = counts["train"]
+    train_launches, examples_launches = counts["train"], counts["examples"]
     # phases 22-23 (the dry run's fake tensors, one rank's training): none
-    dryrun_launches, shard_rank_launches = counts["dryrun"], last["train_sync"]["shard_rank"]
+    dryrun_launches = {k: counts["dryrun"][k] + counts["dryrun_train"][k] for k in counts["dryrun"]}
+    shard_rank_launches = last["train_sync"]["shard_rank"]
     for lib, row in rows.items():
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
@@ -4219,11 +4372,12 @@ def main() -> int:
                            faults=fault_launches,
                            flowcell=flowcell_launches, record=record_launches,
                            cosim=cosim_launches, testbed=testbed_launches,
-                           train=train_launches, train_sync=train_sync_launches)
+                           train=train_launches, train_sync=train_sync_launches,
+                           examples=examples_launches["cascade_tiered"])
             launches = (sweep_counts[name] + repeat_launches + adaptive_launches
                         + fault_launches + flowcell_launches + record_launches
                         + cosim_launches + testbed_launches + train_launches
-                        + train_sync_launches)
+                        + train_sync_launches + examples_launches["cascade_tiered"])
             extra = {"clusters_fig12_sweep": sweep_by[name], "clusters_dense_engine": dense_by[name]}
         elif name == "flash_attention":  # the serving path: phases 12-15, none in training
             route = row["route"]
@@ -4234,9 +4388,10 @@ def main() -> int:
                             "serve_families": families_launches if route == "wgmma" else 0,
                             "train": 0, "train_sync": 0,
                             "dryrun": dryrun_launches[name],
-                            "shard_rank": shard_rank_launches[name]})
+                            "shard_rank": shard_rank_launches[name],
+                            "examples": examples_launches["simt"] if route == "simt" else 0})
             launches = sum(by_path[k] for k in ("serve_ref", "serve", "serve_families_ref",
-                                                "serve_families"))
+                                                "serve_families", "examples"))
             extra = {"flash_route": route}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]

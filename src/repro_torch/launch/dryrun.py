@@ -36,8 +36,11 @@ shards and records, as the JAX package's record does:
     analysis counts a scan body once; the port runs each superblock as
     its own code, so the direct counts are whole.
 
-``trace_s`` (the wall of the traced step) takes the place of ``lower_s``
-and ``compile_s``.  Results append to ``<out>/dryrun_<mesh>_<grad
+A serving step's recurrent loops (the sLSTM's time steps, the mLSTM's
+chunks) are traced one step and counted for all (``_loops_counted``):
+the same record, number for number, as tracing every step, which took
+xlstm-1.3b's prefill_32k past an hour a mesh.  ``trace_s`` (the wall of
+the traced step) takes the place of ``lower_s`` and ``compile_s``.  Results append to ``<out>/dryrun_<mesh>_<grad
 sync>.json``; a cell already there as OK or SKIP is not traced again.
 
 Usage:
@@ -131,6 +134,24 @@ class Counter(TorchDispatchMode):
         self._sizes: dict = {}
         self._propagating = 0
 
+    def readings(self) -> dict:
+        """The counts that grow with each operation (FLOPs, bytes accessed,
+        collectives), for ``add``."""
+        return {"flops": self.flops, "flash_flops": self.flash_flops,
+                "bytes_accessed": self.bytes_accessed,
+                "collectives": dict(self.collectives), "counts": dict(self.counts)}
+
+    def add(self, since: dict, times: int) -> None:
+        """The counts made since the readings ``since``, added ``times``
+        more times (the steps of a loop counted once)."""
+        now = self.readings()
+        for k in ("flops", "flash_flops", "bytes_accessed"):
+            setattr(self, k, getattr(self, k) + times * (now[k] - since[k]))
+        for k in ("collectives", "counts"):
+            d = getattr(self, k)
+            for kind in d:
+                d[kind] += times * (now[k][kind] - since[k][kind])
+
     # ------------------------------------------------------------ memory
     def track(self, t: torch.Tensor) -> int:
         """Count ``t``'s storage live until it is freed (once); returns its
@@ -208,6 +229,59 @@ class Counter(TorchDispatchMode):
         return out
 
 
+def _nbytes(t) -> int:
+    """The bytes of a fresh contiguous tensor shaped as ``t``."""
+    return t.numel() * t.element_size()
+
+
+def _loops_counted(counter):
+    """(``recurrent._slstm_scan``, ``recurrent._mlstm_scan``) for ``counter``:
+    each loop's first step (an sLSTM time step, an mLSTM chunk) traced,
+    its counts added for the other steps (each runs the same operations on
+    tensors of the same shapes), and the outputs made as the loop makes
+    them; the live bytes carry what the whole loop would hold at its last
+    step and its stack (the earlier steps' outputs, and the state the last
+    step starts from), so that the peak is the whole loop's.  Without
+    autograd only (a training pass keeps each step's graph for its
+    backward), and for more than one step."""
+    from repro_torch.models import recurrent
+
+    slstm, mlstm = recurrent._slstm_scan, recurrent._mlstm_scan
+
+    def slstm_scan(gx, c, n, h, m, r):
+        S = gx.shape[1]
+        if S < 2 or torch.is_grad_enabled():
+            return slstm(gx, c, n, h, m, r)
+        held = _nbytes(h)  # each state tensor [B, H, hd]
+        counter.live += (S + 2) * held  # h_0 .. h_{S-2}; c, n, m before the last step
+        since = counter.readings()
+        state = recurrent._slstm_cell(recurrent.SLSTMCache(c=c, n=n, h=h, m=m), gx[:, 0], r)
+        counter.add(since, S - 1)
+        counter.live -= 3 * held  # the last step's predecessor state freed
+        hs = torch.stack([state.h] * S, dim=1)
+        counter.live -= (S - 1) * held  # the list of hidden states freed on return
+        return hs, state
+
+    def mlstm_scan(q, k, v, i, logf, C0, n0, scale: float):
+        S = q.shape[1]
+        L = min(recurrent.MLSTM_CHUNK, S)
+        K = S // L
+        if K < 2 or torch.is_grad_enabled():
+            return mlstm(q, k, v, i, logf, C0, n0, scale)
+        out, state = _nbytes(q) // K, _nbytes(C0) + _nbytes(n0)
+        counter.live += (K - 1) * out + state  # h of chunks 0 .. K-2; (C, n) before the last
+        since = counter.readings()
+        C1, n1, h = recurrent._mlstm_chunk(C0, n0, *(t[:, :L] for t in (q, k, v, i, logf)),
+                                           scale)
+        counter.add(since, K - 1)
+        counter.live -= state
+        h = torch.cat([h] * K, dim=1)
+        counter.live -= (K - 1) * out
+        return h, C1, n1
+
+    return slstm_scan, mlstm_scan
+
+
 def local_tensors(tree) -> list:
     """The local tensors of every DTensor and the plain tensors of a
     pytree (a Params module's masters included)."""
@@ -262,11 +336,18 @@ def _build(cfg, shape, mesh, grad_sync: str, device):
     return steps.make_serve_step(cfg), (params, tokens, cache)
 
 
-def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None) -> dict:
+def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
+               loop_count: bool = True) -> dict:
     """Trace one step of ``cfg`` at ``shape`` over ``mesh`` (a "process"
     mesh of a fake group) on fake tensors on ``device`` (``None``: "cuda"
-    where a card is present, else "cpu"); the record's counts."""
+    where a card is present, else "cpu"); the record's counts.  With
+    ``loop_count`` a serving step's recurrent loops (the sLSTM's time
+    steps, the mLSTM's chunks) are traced one step and counted for all
+    (``_loops_counted``: the same counts, number for number); else every
+    step is traced."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import recurrent
 
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
@@ -279,8 +360,14 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None) -> dict:
             counter.track(t)
         arg_bytes = counter.live
         rounds, sent = collectives.permute_rounds, collectives.permute_bytes
-        with counter, torch.set_grad_enabled(shape.kind == "train"):
-            out = step(*args)
+        whole = recurrent._slstm_scan, recurrent._mlstm_scan
+        if loop_count:
+            recurrent._slstm_scan, recurrent._mlstm_scan = _loops_counted(counter)
+        try:
+            with counter, torch.set_grad_enabled(shape.kind == "train"):
+                out = step(*args)
+        finally:
+            recurrent._slstm_scan, recurrent._mlstm_scan = whole
         permutes = collectives.permute_rounds - rounds
         outputs = local_tensors(out)
         out_bytes = storage_bytes(outputs)

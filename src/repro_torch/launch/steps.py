@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.dist import collectives, sharding
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.models import common, model, weights
+from repro_torch.models import common, model, moe, weights
 from repro_torch.train import optimizer as opt_mod
 
 
@@ -203,15 +203,16 @@ def _sharded_train_step(cfg, opt_cfg, mesh, grad_sync, plan):
     gradient's partial sums reduced onto its master's layout, AdamW on the
     local shards.
 
-    On a mesh with a "pod" axis, the JAX package's partial-manual
-    ``shard_map`` (manual over "pod", auto over the rest): each pod runs
-    the loss on its share of the batch over the mesh without "pod", and
-    each gradient's local shard is then averaged over the pod subgroup,
-    through the ring with ``plan`` for ``grad_sync="seqbalance"``, in one
-    all-reduce for "xla" (the JAX package's "xla" mode leaves the pod axis
-    to GSPMD, which makes that all-reduce; the pods' means are its global
-    mean where every pod holds as many tokens, but an MoE unit routes each
-    pod's tokens alone where GSPMD routes the global batch)."""
+    On a mesh with a "pod" axis each pod runs the loss on its share of the
+    batch over the mesh without "pod", and each gradient's local shard is
+    then averaged over the pod subgroup: through the ring with ``plan``
+    for ``grad_sync="seqbalance"`` (the JAX package's partial-manual
+    ``shard_map``, manual over "pod": each pod's MoE units route its own
+    tokens), in one all-reduce for "xla".  The JAX package's "xla" mode
+    leaves the pod axis to GSPMD, which routes the global batch; so there
+    the MoE units route every pod's tokens as one batch
+    (``moe.routed_over`` the pod subgroup), and the pods' mean is the
+    global batch's gradient, every pod having as many tokens."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     pods = mesh.shape.get("pod", 1) > 1
@@ -224,8 +225,9 @@ def _sharded_train_step(cfg, opt_cfg, mesh, grad_sync, plan):
         for p in view.parameters():
             p.grad = None
         share = {k: _drop_pod(v, sub) for k, v in batch.items()}
-        loss, metrics = model.loss_fn(view, cfg, share)
-        loss.backward()
+        with moe.routed_over(axis.group if grad_sync == "xla" else None):
+            loss, metrics = model.loss_fn(view, cfg, share)
+            loss.backward()
         grads = weights.stacked(
             (name, i, torch.zeros_like(p.to_local()) if p.grad is None
              else p.grad.redistribute(sub, p.placements).to_local())
@@ -314,19 +316,23 @@ def _serving(params, batch: dict):
     a "pod" axis (pure data parallelism: serving's pods are replicas), the
     params' views over the mesh without "pod" (``_pod_view``) and this pod's share of the batch (laid out by
     ``batch_specs`` first, unless made of DTensors); else both as they
-    are.  Returns (params, batch, the mesh they run on, to_pod, lift):
-    ``to_pod`` takes a DTensor of the whole mesh to the pod's, ``lift``
-    one of the pod's back (``_drop_pod``, ``_lift``)."""
+    are.  Returns (params, batch, the mesh they run on, to_pod, lift,
+    pods): ``to_pod`` takes a DTensor of the whole mesh to the pod's,
+    ``lift`` one of the pod's back (``_drop_pod``, ``_lift``); ``pods`` is
+    the pod subgroup where the pods split the rows (``moe.routed_over`` it:
+    the JAX package's serving steps leave the pod axis to GSPMD, which
+    routes the whole batch), else ``None``."""
     dm = params.embed.device_mesh
     if not common.is_dtensor(next(iter(batch.values()))):
         batch = sharding.shard_batch(batch, dm)
     names = tuple(dm.mesh_dim_names)
     if "pod" not in names or dm.size(names.index("pod")) == 1:
-        return params, batch, dm, (lambda t: t), (lambda t: t)
+        return params, batch, dm, (lambda t: t), (lambda t: t), None
     sub = mesh_mod.submesh(dm, tuple(a for a in names if a != "pod"))
     split = next(iter(batch.values())).placements[names.index("pod")].is_shard(0)
     return (_pod_view(params, sub), {k: _drop_pod(v, sub) for k, v in batch.items()}, sub,
-            lambda t: _drop_pod(t, sub), lambda t: _lift(t, dm, split))
+            lambda t: _drop_pod(t, sub), lambda t: _lift(t, dm, split),
+            dm.get_group("pod") if split else None)
 
 
 def _map_cache(fn, cache):
@@ -349,7 +355,7 @@ def serving_cache(params, cfg, batch: int, max_len: int):
     from torch.distributed.tensor.experimental import implicit_replication
 
     rows = torch.zeros((batch, 1), dtype=torch.int32, device=params.device)
-    params, share, mesh, _, lift = _serving(params, {"tokens": rows})
+    params, share, mesh, _, lift, _ = _serving(params, {"tokens": rows})
     B = share["tokens"].shape[0]
     with implicit_replication():
         cache = sharding.shard_cache(model.init_cache(params, cfg, B, max_len), cfg, mesh, B,
@@ -362,16 +368,17 @@ def make_prefill_step(cfg, max_len: int):
     params the inputs are laid out by ``batch_specs`` and the cache comes
     out laid out by ``cache_specs`` (the JAX dry run's ``out_shardings``);
     on a pod mesh each pod prefills its share of the rows (``_serving``)
-    into a cache laid out for its share (``serving_cache``)."""
+    into a cache laid out for its share (``serving_cache``), its MoE units
+    routing every pod's rows."""
 
     def prefill_step(params, batch):
         if not _sharded(params):
             return model.prefill(params, cfg, batch, max_len)
         from torch.distributed.tensor.experimental import implicit_replication
 
-        params, batch, mesh, _, lift = _serving(params, batch)
+        params, batch, mesh, _, lift, pods = _serving(params, batch)
         B = next(iter(batch.values())).shape[0]
-        with implicit_replication():
+        with implicit_replication(), moe.routed_over(pods):
             cache = sharding.shard_cache(model.init_cache(params, cfg, B, max_len), cfg, mesh,
                                          B, max_len)
             logits, cache = model.prefill(params, cfg, batch, max_len, cache=cache)
@@ -392,8 +399,8 @@ def make_serve_step(cfg):
         else:
             from torch.distributed.tensor.experimental import implicit_replication
 
-            params, batch, _, to_pod, lift = _serving(params, {"tokens": tokens})
-            with implicit_replication():
+            params, batch, _, to_pod, lift, pods = _serving(params, {"tokens": tokens})
+            with implicit_replication(), moe.routed_over(pods):
                 logits, cache = model.decode_step(params, cfg, batch["tokens"],
                                                   _map_cache(to_pod, cache))
             logits, cache = lift(logits), _map_cache(lift, cache)

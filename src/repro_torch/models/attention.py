@@ -55,14 +55,14 @@ def shapes(cfg) -> dict:
 
 def _proj(x, w):
     """x [B, S, D] @ w [D, H, hd] -> [B, S, H, hd]."""
-    y = x @ common.merge_ready(w, 1, -1).reshape(w.shape[0], -1)
+    y = common.matmul(x, common.merge_ready(w, 1, -1).reshape(w.shape[0], -1))
     return common.fenced(common.split_ready(y, -1, w.shape[1]).unflatten(-1, w.shape[1:]))
 
 
 def _out(x, out, wo):
     """The residual plus out [B, S, H, hd] @ wo [H, hd, D]."""
     wo2 = common.merge_ready(wo, 0, 1).reshape(-1, wo.shape[-1])
-    return x + common.fenced(common.merge_ready(out, -2, -1).flatten(-2)) @ wo2
+    return x + common.matmul(common.fenced(common.merge_ready(out, -2, -1).flatten(-2)), wo2)
 
 
 def _qkv(p: AttnParams, x, positions, cfg):

@@ -162,6 +162,54 @@ def split_ready(t, dim: int, first: int):
     return t if first % _shards_on(t, dim) == 0 else gathered_on(t, (dim,))
 
 
+def contract_ready(x, w, dim: int = -2):
+    """x laid out for the product ``x @ w`` (batched or not) whose
+    contraction is w's dim ``dim``: x's last dim split over each mesh dim
+    that splits w's contraction and holds x whole (under the production
+    rule, "model" where it lands on a weight's input dim), the rest of x's
+    layout kept.  The product is then a partial sum there, and its weight
+    gradient, x^T @ dy, comes out split as the weight is held: with x whole
+    there DTensor may compute that gradient whole on every device and
+    slice it (16 times the work on a "model" axis of 16).  Nothing moves:
+    a replicated dim is split by slicing.  Plain tensors as they are."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x
+    from torch.distributed.tensor import Shard
+
+    dim = dim % w.dim()
+    out = [Shard(x.dim() - 1) if wp.is_shard(dim) and xp.is_replicate() else xp
+           for xp, wp in zip(x.placements, w.placements)]
+    return x if out == list(x.placements) else x.redistribute(x.device_mesh, out)
+
+
+class _GradAsOutput(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient is laid out as the output
+    was (replicated where the output is a partial sum)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        from torch.distributed.tensor import Replicate
+
+        ctx.placements = [Replicate() if p.is_partial() else p for p in t.placements]
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g if list(g.placements) == ctx.placements else g.redistribute(
+            g.device_mesh, ctx.placements)
+
+
+def matmul(x, w):
+    """``x @ w`` with x laid out for w's sharding (``contract_ready``), and
+    the product's gradient laid out as the product (a partial sum's
+    replicated): DTensor would otherwise let a partial-sum gradient reach
+    the product, whose backward then gathers the weight and computes the
+    input's gradient whole.  So both gradients of the product are computed
+    split as the weight is held."""
+    y = contract_ready(x, w) @ w
+    return _GradAsOutput.apply(y) if is_dtensor(y) else y
+
+
 def on_whole(fn, *args):
     """``fn(*args)`` where some arguments (or the tensors of a NamedTuple
     among them) may be DTensors: each is gathered whole on every device

@@ -25,9 +25,9 @@ def shapes(cfg, d_ff: int | None = None) -> dict:
 def apply(p: MLPParams, x: torch.Tensor, cfg) -> torch.Tensor:
     h = common.rms_norm(x, p.ln)
     act = common.act_fn(cfg.mlp_kind)
-    up = h @ p.wi
+    up = common.matmul(h, p.wi)
     if p.wg.shape[-1]:
-        up = act(h @ p.wg) * up
+        up = act(common.matmul(h, p.wg)) * up
     else:
         up = act(up)
-    return x + up @ p.wo
+    return x + common.matmul(up, p.wo)

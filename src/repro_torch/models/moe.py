@@ -19,6 +19,7 @@ JAX package returns them, for ``forward_train``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -151,6 +152,82 @@ def _aux(r: Routing, m, E: int) -> dict:
             "z_loss": m.router_z_loss * torch.mean(torch.logsumexp(r.logits, -1) ** 2)}
 
 
+_PODS = []  # the pods' process group while ``routed_over`` is entered
+
+
+@contextlib.contextmanager
+def routed_over(group):
+    """Inside, a sharded unit routes the tokens of every member of the
+    process group ``group`` (the pods of a mesh, each running its own rows
+    of the global batch, pod-major, over the mesh without "pod") as one
+    batch: the router logits and the tokens gathered over the pods, the
+    capacity cut over all of them, each pod running its share of the
+    experts, and each pod given back its own rows of the combine.  This is
+    what GSPMD computes where the JAX package leaves the pod axis to it.
+    A step enters it around its forward and backward (remat recomputes
+    the forward there).  ``None`` or a group of one: nothing changes."""
+    _PODS.append(group)
+    try:
+        yield
+    finally:
+        _PODS.pop()
+
+
+def _pods():
+    """(group, size, rank) of the pods ``routed_over`` names, or ``None``."""
+    import torch.distributed as dist
+
+    group = _PODS[-1] if _PODS else None
+    if group is None or dist.get_world_size(group) == 1:
+        return None
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+class _PodRows(torch.autograd.Function):
+    """Every pod's rows (dim 0) of a tensor, pod-major; the gradient of a
+    pod's rows is the sum of every pod's gradient of them."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, rank):
+        import torch.distributed as dist
+
+        ctx.pods = group, n, rank
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        group, n, rank = ctx.pods
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=group)
+        return g.chunk(n)[rank], None, None, None
+
+
+def _all_pods(t, pods):
+    return t if pods is None else _PodRows.apply(t, *pods)
+
+
+def _routed(logits, flat, cfg, experts, pods):
+    """The dispatch of every pod's tokens (whole tensors): (Routing, xe,
+    the slots' weights)."""
+    r = _route_logits(_all_pods(logits, pods), cfg, experts)
+    return (r, *_dispatch(r, _all_pods(flat, pods)))
+
+
+def _combined(ye, w_of_slot, r, pods):
+    """Every pod's experts' slots ye [E * C / pods, D] weighted and combined
+    into the tokens, this pod's rows of them (whole tensors)."""
+    ye = _all_pods(ye, pods)
+    out = _combine(ye * w_of_slot[:r.sentinel, None].to(ye.dtype), r)
+    if pods is None:
+        return out
+    _, n, rank = pods
+    return out.chunk(n)[rank]
+
+
 def _over_experts(xe):
     """A DTensor xe [E, C, D] with its experts split over the mesh's
     data-parallel dims (a slice of the replicated whole: nothing moves),
@@ -180,19 +257,28 @@ def apply(p: MoEParams, x: torch.Tensor, cfg, with_aux: bool = True, routes=None
     routing (a global sort, a search and scatters, which have no DTensor
     rule), the dispatch and the combine run on the whole tensors gathered
     on every device (``common.on_whole``), as GSPMD gathers a sorted
-    dim; the expert products run with the experts split over the
-    data-parallel dims."""
+    dim, and inside ``routed_over`` over every pod's tokens; the expert
+    products run with the experts split over the data-parallel dims (and
+    over the pods), each product laid out as its weight
+    (``common.matmul``)."""
     m = cfg.moe
     B, S, D = x.shape
     E = m.n_experts
     dt = x.dtype
     flat = common.rms_norm(x, p.ln).reshape(-1, D)
     sharded = common.is_dtensor(x)
+    pods = _pods() if sharded else None
+    we = p.we_i, p.we_g, p.we_o
     with common.span("moe.dispatch"):
         if sharded:
             logits = flat.to(torch.float32) @ p.router.to(torch.float32)
-            r = common.on_whole(_route_logits, logits, cfg, experts)
-            xe, w_of_slot = common.on_whole(_dispatch, r, flat)
+            r, xe, w_of_slot = common.on_whole(_routed, logits, flat, cfg, experts, pods)
+            if pods is not None:  # each pod its share of the experts
+                if E % pods[1]:
+                    raise ValueError(f"{E} experts do not split over {pods[1]} pods")
+                n = E // pods[1]
+                xe = xe[pods[2] * n:(pods[2] + 1) * n]
+                we = tuple(w.narrow(0, pods[2] * n, n) for w in we)
             xe = _over_experts(xe)
         else:
             r = _route(p, flat, cfg, experts)
@@ -202,21 +288,22 @@ def apply(p: MoEParams, x: torch.Tensor, cfg, with_aux: bool = True, routes=None
         EC = r.sentinel
 
     with common.span("moe.experts"):
-        up = torch.bmm(xe, p.we_i)
-        gate = F.silu(torch.bmm(xe, p.we_g))
-        ye = torch.bmm(gate * up, p.we_o)
-        if sharded:  # the experts' dim whole where it does not split evenly (40 on 16)
-            ye = common.merge_ready(common.split_ready(ye, 0, E), 0, 1)
-        ye = ye.view(EC, D) * w_of_slot[:EC, None].to(dt)
+        up = common.matmul(xe, we[0])
+        gate = F.silu(common.matmul(xe, we[1]))
+        ye = common.matmul(gate * up, we[2])
 
     with common.span("moe.combine"):  # each token's kept slots in ascending (expert) order
-        out = common.on_whole(_combine, ye, r) if sharded else _combine(ye, r)
+        if sharded:  # the experts' dim whole where it does not split evenly (40 on 16)
+            ye = common.merge_ready(common.split_ready(ye, 0, ye.shape[0]), 0, 1)
+            out = common.on_whole(_combined, ye.reshape(-1, D), w_of_slot, r, pods)
+        else:
+            out = _combine(ye.view(EC, D) * w_of_slot[:EC, None].to(dt), r)
 
     # ---- shared experts (dense)
     if p.ws_i.shape[-1]:
-        su = flat @ p.ws_i
-        sg = F.silu(flat @ p.ws_g)
-        out = out + (sg * su) @ p.ws_o
+        su = common.matmul(flat, p.ws_i)
+        sg = F.silu(common.matmul(flat, p.ws_g))
+        out = out + common.matmul(sg * su, p.ws_o)
 
     aux = {}
     if with_aux:

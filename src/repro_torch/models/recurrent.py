@@ -39,7 +39,7 @@ def _ones(shape) -> common.Field:
 
 def _proj(x, w):
     """x [B, S, P] @ w [P, H, hd] -> [B, S, H, hd]."""
-    y = x @ common.merge_ready(w, 1, -1).reshape(w.shape[0], -1)
+    y = common.matmul(x, common.merge_ready(w, 1, -1).reshape(w.shape[0], -1))
     return common.fenced(common.split_ready(y, -1, w.shape[1]).unflatten(-1, w.shape[1:]))
 
 
@@ -152,8 +152,8 @@ def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
     B, S, D = x.shape
     dt = x.dtype
     h_in = common.rms_norm(x, p.ln)
-    u = h_in @ p.w_up
-    z = h_in @ p.w_gate
+    u = common.matmul(h_in, p.w_up)
+    z = common.matmul(h_in, p.w_gate)
     uc, conv_new = causal_conv1d(u, p.conv_w, cache.conv if cache is not None else None)
     uc = F.silu(uc)
     H, hd = p.wq.shape[1], p.wq.shape[2]
@@ -187,7 +187,7 @@ def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
                                        (q, k, v, i, logf, C0, n0), ())
     h = common.rms_norm(h.to(dt), p.gn - 1.0)  # per-head group norm
     out = common.fenced(common.merge_ready(h, 2, 3).reshape(B, S, -1)) * F.silu(z)
-    return x + out @ p.w_down, MLSTMCache(C=C1, n=n1, conv=conv_new)
+    return x + common.matmul(out, p.w_down), MLSTMCache(C=C1, n=n1, conv=conv_new)
 
 
 # ------------------------------------------------------------------ sLSTM
@@ -263,7 +263,7 @@ def slstm_apply(p: SLSTMParams, x, cfg, cache: SLSTMCache | None = None,
     dt = x.dtype
     h_in = common.rms_norm(x, p.ln)
     H, hd = p.r.shape[0], p.r.shape[1]
-    gx = h_in @ common.merge_ready(p.w, 1, -1).reshape(D, -1)
+    gx = common.matmul(h_in, common.merge_ready(p.w, 1, -1).reshape(D, -1))
     gx = common.split_ready(gx.to(torch.float32), -1, H).view(B, S, *p.w.shape[1:])
     # the batch's layout before the bias (torch 2.11's DTensor cannot add a
     # sharded bias to a partial sum)
@@ -314,8 +314,8 @@ def rglru_cache_init(cfg, batch: int, dtype, device=None) -> RGLRUCache:
 
 def _rglru_coeffs(xc, p: RGLRUParams):
     """a_t, b_t of h_t = a_t h + b_t [B, S, R], float32."""
-    rg = torch.sigmoid((xc @ p.w_rg).to(torch.float32))
-    ig = torch.sigmoid((xc @ p.w_ig).to(torch.float32))
+    rg = torch.sigmoid(common.matmul(xc, p.w_rg).to(torch.float32))
+    ig = torch.sigmoid(common.matmul(xc, p.w_ig).to(torch.float32))
     log_a = -_RGLRU_C * rg * F.softplus(p.lam)  # <= 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * ig \
@@ -359,8 +359,8 @@ def rglru_apply(p: RGLRUParams, x, cfg, cache: RGLRUCache | None = None,
     B, S, D = x.shape
     dt = x.dtype
     hx = common.rms_norm(x, p.ln)
-    gate = F.gelu(hx @ p.w_gate, approximate="tanh")
-    xin = hx @ p.w_in
+    gate = F.gelu(common.matmul(hx, p.w_gate), approximate="tanh")
+    xin = common.matmul(hx, p.w_in)
     xc, conv_new = causal_conv1d(xin, p.conv_w, cache.conv if cache is not None else None)
     a, b = _rglru_coeffs(common.fenced(common.batch_layout(xc)), p)
     h0 = cache.h if cache is not None else a.new_zeros((B, a.shape[-1]))
@@ -371,4 +371,4 @@ def rglru_apply(p: RGLRUParams, x, cfg, cache: RGLRUCache | None = None,
     # the stream's layout before the product (its rows would otherwise merge
     # a split sequence with the batch into a strided shard)
     out = common.batch_layout(common.fenced(hs.to(dt) * gate))
-    return x + out @ p.w_out, RGLRUCache(h=hs[:, -1].clone(), conv=conv_new)
+    return x + common.matmul(out, p.w_out), RGLRUCache(h=hs[:, -1].clone(), conv=conv_new)

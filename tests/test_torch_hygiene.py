@@ -41,7 +41,9 @@ def test_importing_the_sweep_leaves_jax_out():
             "repro_torch.data.pipeline, repro_torch.train.optimizer, "
             "repro_torch.train.checkpoint, repro_torch.launch.steps, "
             "repro_torch.launch.train, repro_torch.dist.sharding, repro_torch.launch.mesh, "
-            "repro_torch.launch.dryrun; "
+            "repro_torch.launch.dryrun, repro_torch.examples.simulate_datacenter, "
+            "repro_torch.examples.serve_decode, repro_torch.examples.quickstart, "
+            "repro_torch.obs.report; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro' "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -130,6 +132,11 @@ def test_entry_points_default_to_cuda():
         mesh.make_pod_mesh(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         collectives.seqbalance_all_reduce(np.ones((2, 8), np.float32), collectives.LocalAxis(2))
+    from repro_torch.examples import quickstart, serve_decode, simulate_datacenter
+
+    for example in (quickstart, serve_decode, simulate_datacenter):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            example.main([])
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -7,21 +7,25 @@ DTensors by ``repro_torch.dist.sharding`` (``shard_params``,
 ``cache_specs``) over a "process" mesh of 4 gloo ranks (data 2 x model 2)
 and of 8 (pod 2 x data 2 x model 2, the grad sync "xla" and
 "seqbalance"), at REDUCED size: gemma2-2b and deepseek-moe-16b 2 train
-steps, recurrentgemma-9b a prefill and one decode step.  Each is held,
+steps, recurrentgemma-9b (and deepseek-moe-16b on the pod mesh) a
+prefill and one decode step.  Each is held,
 in float32, within ``chip_smoke.TRAIN_TOL`` (loss, nll, grad norm, lr,
 each leaf's update) or ``compare.SERVE_TOL`` (the logits against each
 row's RMS) against
 
   * the port's single-device step on the same weights and batches (on a
-    pod mesh, the "local" pod step of ``launch.steps``: the JAX package's
-    pod step averages the pods' own losses and routes each pod's tokens
-    alone), and
+    pod mesh under "seqbalance", the "local" pod step of
+    ``launch.steps``: the JAX package's pod step averages the pods' own
+    losses and routes each pod's tokens alone), and
   * the JAX package's step jitted with the production rule's
     ``in_shardings`` on as many forced host devices (one subprocess runs
-    every JAX case).
+    every JAX case): under "xla" GSPMD's, which routes an MoE unit's
+    tokens over the global batch, as the port's step does on a pod mesh
+    (``moe.routed_over``).
 
-A planted fault, every rank taking the gradient of model shard 0 for one
-leaf, must fail the check.  All cases of a mesh size run in one set of
+Planted faults must fail the check: every rank taking the gradient of
+model shard 0 for one leaf; deepseek-moe-16b on the pod mesh under "xla"
+routing each pod's tokens alone.  All cases of a mesh size run in one set of
 rank processes, started together with the JAX subprocess.
 """
 import json
@@ -58,12 +62,18 @@ CASES = {
     "gemma2-2b-2x2x2-xla": ("gemma2-2b", "train", (2, 2, 2), "xla"),
     "gemma2-2b-2x2x2-seqbalance": ("gemma2-2b", "train", (2, 2, 2), "seqbalance"),
     "deepseek-moe-16b-2x2x2-xla": ("deepseek-moe-16b", "train", (2, 2, 2), "xla"),
+    "deepseek-moe-16b-2x2x2-pod-planted": ("deepseek-moe-16b", "train", (2, 2, 2), "xla"),
     "deepseek-moe-16b-2x2x2-seqbalance": ("deepseek-moe-16b", "train", (2, 2, 2), "seqbalance"),
     "recurrentgemma-9b-2x2x2-serve": ("recurrentgemma-9b", "serve", (2, 2, 2), "xla"),
+    "deepseek-moe-16b-2x2x2-serve": ("deepseek-moe-16b", "serve", (2, 2, 2), "xla"),
 }
 STEPS, BATCH, SEQ, SEED, CHUNKS, MAX_LEN = 2, 8, 16, 0, 2, 32
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
 PLANTED_LEAF = "main.0.wq"  # its gradient's model shard 0 on every rank
+# the planted cases -> their fault: every rank given model shard 0 of
+# PLANTED_LEAF's gradient; each pod's MoE tokens routed alone
+PLANTED = {"gemma2-2b-2x2-planted": "model_shard",
+           "deepseek-moe-16b-2x2x2-pod-planted": "pod_routing"}
 TRAIN_KEYS = ("loss", "grad_norm", "lr_ulps", "update_norm", "update_diff")
 
 
@@ -113,11 +123,15 @@ def full_params(params) -> dict:
         for n, i, t in weights.leaves(params))
 
 
-def port_train(arch: str, mesh=None, grad_sync: str = "xla", planted: bool = False) -> dict:
+def port_train(arch: str, mesh=None, grad_sync: str = "xla", planted: str | None = None) -> dict:
     """STEPS steps of the port's train step from ``numpy_params``: sharded
     over ``mesh`` (a "process" mesh of this gloo group), on one device
     (``mesh`` None), or over a "local" pod mesh; the metrics and the
-    params after the last."""
+    params after the last.  ``planted``: a fault of ``PLANTED``'s."""
+    import contextlib
+
+    from repro_torch.models import moe
+
     _, tcfg = configs(arch)
     params = weights.from_jax_params(weights.numpy_params(tcfg, SEED), tcfg, "cpu",
                                      trainable=True)
@@ -127,9 +141,11 @@ def port_train(arch: str, mesh=None, grad_sync: str = "xla", planted: bool = Fal
         state["opt"] = sharding.shard_opt_state(state["opt"], tcfg, mesh)
     step = tsteps.make_train_step(tcfg, topt.AdamWConfig(**OPT), mesh, grad_sync,
                                   coll.PathPlan(n_chunks=CHUNKS))
-    orig = topt._grad
-    if planted:
+    orig, routed_over = topt._grad, moe.routed_over
+    if planted == "model_shard":
         topt._grad = drop_model_shard(orig)
+    elif planted == "pod_routing":
+        moe.routed_over = lambda group: contextlib.nullcontext()
     rows = []
     try:
         for i in range(STEPS):
@@ -137,7 +153,7 @@ def port_train(arch: str, mesh=None, grad_sync: str = "xla", planted: bool = Fal
             state, m = step(state, batch)
             rows.append({k: float(v) for k, v in m.items()})
     finally:
-        topt._grad = orig
+        topt._grad, moe.routed_over = orig, routed_over
     return {"rows": rows, "params": full_params(state["params"])}
 
 
@@ -190,7 +206,7 @@ def rank_runs(world: int) -> dict:
         mesh = tmesh.make_mesh_like(shape)
         assert mesh.transport == "process"
         if kind == "train":
-            run = port_train(arch, mesh, grad_sync, planted=name.endswith("planted"))
+            run = port_train(arch, mesh, grad_sync, planted=PLANTED.get(name))
             out[f"{name}/rows"] = np.array(json.dumps(run["rows"]))
             out.update({f"{name}/p/{k}": v for k, v in run["params"].items()})
         elif kind == "grads":
@@ -212,12 +228,10 @@ RANKS = """
 
 def pod_routed(arch: str, shape, grad_sync: str) -> bool:
     """Whether the case's step is the JAX package's pod step (manual over
-    "pod"): "seqbalance" on a pod mesh, and "xla" on one for an MoE model,
-    whose units the port's step routes pod by pod (``launch.steps``) where
-    GSPMD routes the global batch."""
-    if "pod" not in axes(shape):
-        return False
-    return grad_sync == "seqbalance" or configs(arch)[1].family == "moe"
+    "pod"): "seqbalance" on a pod mesh.  Under "xla" the JAX package
+    leaves the pod axis to GSPMD, which routes an MoE unit's tokens over
+    the global batch, and so does the port's step."""
+    return "pod" in axes(shape) and grad_sync == "seqbalance"
 
 
 # ----------------------------------------------------------- the JAX package
@@ -328,7 +342,7 @@ JAX_RUNS = textwrap.dedent("""
 
     out, rows, t0 = {}, {}, time.time()
     for name, (arch, kind, shape, grad_sync) in t.CASES.items():
-        if name.endswith("planted") or kind == "grads":
+        if name in t.PLANTED or kind == "grads":
             continue
         if kind == "train":
             run = t.jax_train(arch, shape, grad_sync)
@@ -467,19 +481,20 @@ def p0_of(arch: str) -> dict:
 
 
 def single_device(name: str) -> dict:
-    """The port's one-device reference of a case: the single-device step,
-    or on a pod mesh the "local" pod step (each pod's loss and routing its
-    own, the means through the ring on the float32 wire)."""
+    """The port's one-device reference of a case: the single-device step
+    over the global batch, or on a pod mesh under "seqbalance" the "local"
+    pod step (each pod's loss and routing its own, the means through the
+    ring on the float32 wire)."""
     arch, kind, shape, grad_sync = CASES[name]
     if kind == "serve":
         return port_serve(arch)
-    if "pod" in axes(shape):
+    if pod_routed(arch, shape, grad_sync):
         return port_train(arch, tmesh.make_pod_mesh(shape[0], device="cpu"), "seqbalance")
     return port_train(arch)
 
 
 @pytest.mark.parametrize("name", [n for n, c in CASES.items()
-                                  if not n.endswith("planted") and c[1] != "grads"])
+                                  if n not in PLANTED and c[1] != "grads"])
 def test_sharded_step_matches_one_device_and_the_jax_sharded_step(runs, name):
     arch, kind, shape, grad_sync = CASES[name]
     got, ref, want = runs["port"][name], single_device(name), runs["jax"][name]
@@ -518,6 +533,20 @@ def test_planted_model_shard_fault_fails_the_check(runs):
     print(err)
     assert not train_within(err), err
     clean = agreement(runs["port"]["gemma2-2b-2x2-xla"], runs["jax"]["gemma2-2b-2x2-xla"], p0)
+    assert train_within(clean), clean
+
+
+def test_planted_pod_by_pod_routing_fails_the_check(runs):
+    """deepseek-moe-16b on the (2, 2, 2) mesh under "xla" with each pod's
+    tokens routed alone (the capacity cut over a pod's 64 tokens, the aux
+    losses of a pod's routing): off the JAX package's GSPMD step, which the
+    step routing every pod's tokens as one batch holds."""
+    name = "deepseek-moe-16b-2x2x2-xla"
+    p0, want = p0_of("deepseek-moe-16b"), runs["jax"][name]
+    err = agreement(runs["port"]["deepseek-moe-16b-2x2x2-pod-planted"], want, p0)
+    print(err)
+    assert not train_within(err), err
+    clean = agreement(runs["port"][name], want, p0)
     assert train_within(clean), clean
 
 
