@@ -262,9 +262,12 @@ Phases, each printed as JSON lines:
               every cell's FLOPs (less the flash kernel's) within
               DRYRUN_FLOPS_LIMIT of the JAX package's, an MoE train
               cell's within DRYRUN_MOE_RECKONING_LIMIT of the model's own
-              count (train_flops) a device, printed for every train cell;
-              peak and collective bytes printed beside the JAX package's,
-              not gated (the partitioners differ); each trace's wall printed;
+              count (train_flops) a device, printed for every train cell,
+              and its collective bytes within DRYRUN_MOE_COLL_LIMIT of
+              the JAX package's coll_x; every cell's collective ratio,
+              and its peak beside the card's memory, printed; peak and
+              collective bytes by kind printed beside the JAX package's;
+              each trace's wall printed;
  23. shard_rank one rank of gemma2-2b train_4k as published at the 16 x 16
               sharding (the FSDP + TP step of launch.steps on DTensors
               over a fake group of 256: real tensors on the card, the
@@ -273,7 +276,12 @@ Phases, each printed as JSON lines:
               torch.cuda.max_memory_allocated of the steps beside phase
               22's peak_bytes of that cell and the card's memory (it must
               fit), the launches by kernel; its loss is not checked (the
-              fake collectives leave garbage in it).
+              fake collectives leave garbage in it).  Then the same for
+              each deepseek-moe-16b train_4k cell (16 x 16, 2 x 16 x 16)
+              whose phase-22 peak leaves SHARD_RANK_MARGIN of the card
+              free (a line with the excess for one that does not), the
+              rank's masters built leaf by leaf (rank_params: the whole
+              float32 masters are 66 GB).
  24. examples the examples' twins as their CLIs run on the card
               (EXAMPLES_REFERENCE, written from the JAX examples' own code
               path on the CPU): repro_torch.examples.simulate_datacenter,
@@ -3482,7 +3490,14 @@ DRYRUN_FLOPS_LIMIT = 20.0
 # gradients DTensor left unsplit over "model" until the products were laid
 # out as their weights (``common.matmul``)
 DRYRUN_MOE_RECKONING_LIMIT = 2.0
-DRYRUN_FLOPS_LIMIT = 20.0
+# an MoE train cell's collective bytes a device over the JAX package's
+# (coll_x, each collective's result on one device): within this factor.
+# The dispatch and combine gathered every token and every expert's slots
+# whole on each device until they were sharded as the JAX package's
+# expert-parallel layer (40.1x and 28.7x the JAX package's on the card);
+# the dense cells' ratios are printed, not gated (ROADMAP §3 lists those
+# above 2)
+DRYRUN_MOE_COLL_LIMIT = 10.0
 
 
 def ring_plan(mod, name: str, wire: str):
@@ -3796,9 +3811,12 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
     package's to the same count in its own layout; a cell's FLOPs (less
     the flash kernel's) within a factor DRYRUN_FLOPS_LIMIT of the JAX
     package's (where its cell is OK), and an MoE train cell's within
-    DRYRUN_MOE_RECKONING_LIMIT of ``train_flops`` a device; nothing
-    allocated on the card; no kernel launched.  Returns the launch counts
-    and each cell's peak bytes (phase 23 reads gemma2-2b train_4k's)."""
+    DRYRUN_MOE_RECKONING_LIMIT of ``train_flops`` a device, and its
+    collective bytes within DRYRUN_MOE_COLL_LIMIT of the JAX package's;
+    nothing allocated on the card; no kernel launched.  Every cell's
+    collective ratio, and its peak beside the card's memory, printed.
+    Returns the launch counts and each cell's peak bytes (phase 23 reads
+    gemma2-2b's and deepseek-moe-16b's train_4k)."""
     import torch
 
     from repro_torch.configs import registry
@@ -3807,6 +3825,7 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
     ref = json.loads(DRYRUN_REFERENCE.read_text())
     check([tuple(c) for c in ref["cells"]] == list(DRYRUN_CELLS),
           f"dryrun_reference.json holds other cells: {ref['cells']}")
+    card = torch.cuda.get_device_properties(0).total_memory
     reset_counts()
     allocated = torch.cuda.memory_allocated()
     failures, peaks = [], {}
@@ -3840,7 +3859,9 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
                        jax_temp_size_bytes=want.get("temp_size_bytes"),
                        collectives=rec["collectives"], jax_collectives=want.get("collectives"),
                        bytes_accessed=rec["bytes_accessed"],
-                       jax_bytes_accessed=want.get("bytes_accessed"))
+                       jax_bytes_accessed=want.get("bytes_accessed"),
+                       card_memory_bytes=card, peak_over_card=rec["peak_bytes"] / card,
+                       coll_x=rec["coll_x"], jax_coll_x=want.get("coll_x"))
             if rec["argument_size_bytes"] != expected:
                 failures.append(f"{key}: {rec['argument_size_bytes']} argument bytes, "
                                 f"not {expected}")
@@ -3853,6 +3874,11 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
             if want.get("status") == "OK":
                 ratio = (rec["flops"] - rec["flash_flops"]) / want["flops"]
                 row["flops_ratio"] = ratio
+                row["coll_ratio"] = rec["coll_x"] / want["coll_x"]
+                if (cell.kind == "train" and cfg.family == "moe"
+                        and row["coll_ratio"] > DRYRUN_MOE_COLL_LIMIT):
+                    failures.append(f"{key}: collectives {row['coll_ratio']:.4g} x the JAX "
+                                    f"package's, over {DRYRUN_MOE_COLL_LIMIT}")
                 if want["argument_size_bytes"] != expected_jax:
                     failures.append(f"{key}: the JAX package's {want['argument_size_bytes']} "
                                     f"argument bytes, not its layout's {expected_jax}")
@@ -3872,36 +3898,72 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
 
 
 SHARD_RANK_STEPS = 3  # phase 23
+# phase 23 runs rank 0 of a deepseek-moe-16b train_4k cell where phase 22's
+# peak for it leaves this much of the card's memory free
+SHARD_RANK_MARGIN = 4e9
+SHARD_RANK_MOE = "deepseek-moe-16b"
 
 
-def phase_shard_rank(predicted_peak: float) -> dict:
-    """Phase 23: rank 0 of gemma2-2b train_4k at the 16 x 16 sharding (a fake
-    group of 256), real tensors on the card: the state built whole and
-    sharded (``shard_params``; the moments made from the sharded masters),
-    then SHARD_RANK_STEPS steps of ``launch.steps.make_train_step`` on
-    this rank's share of the global batch, remat "dots".  Prints each
-    step's wall (this rank's compute: the fake collectives move nothing)
-    and the steps' peak memory beside ``predicted_peak`` (phase 22's
-    peak_bytes of the cell) and the card's memory; fails if it does not
-    fit.  The loss is garbage (the fake collectives) and is not checked.
-    Returns the launch counts."""
+def rank_params(cfg, mesh, seed: int = 0):
+    """Rank 0's float32 masters of ``cfg`` sharded over ``mesh`` (a fake
+    group), built leaf by leaf: each leaf drawn whole on the card (random,
+    from ``seed``: ``common.dense_init`` over its next-to-last dim, norm
+    scales zero), its block kept, the whole freed.  The masters of a
+    published MoE model (deepseek-moe-16b's 66 GB) are never whole on the
+    card at once."""
+    import torch
+    from torch import nn
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import common, model, weights
+
+    dense = common.dense_init
+    # the tree's structure on the meta device; norm scales and the like on the CPU
+    common.dense_init = lambda shape, generator, fan_in=None, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device="meta")
+    try:
+        params = model.init_params(cfg, seed, device="cpu", trainable=True)
+    finally:
+        common.dense_init = dense
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    specs = sharding.param_specs(cfg, mesh)
+    for name, _, module, attr in weights.slots(params):
+        p = module._parameters[attr]
+        whole = (dense(tuple(p.shape), g, p.shape[-2] if p.dim() > 1 else 1) if p.is_meta
+                 else p.detach().to(DEVICE))
+        module._parameters[attr] = nn.Parameter(
+            sharding.distribute(whole, mesh, sharding.port_spec(name, specs[name])))
+        del whole
+    return params
+
+
+def phase_shard_rank(predicted_peak: float, arch: str = "gemma2-2b",
+                     label: str = "single_pod_16x16", name: str = "shard_rank") -> dict:
+    """Phase 23: rank 0 of ``arch`` train_4k at ``label``'s sharding (16 x 16
+    or 2 x 16 x 16, a fake group of 256 or 512), real tensors on the card:
+    the state built leaf by leaf (``rank_params``; the moments made from
+    the sharded masters), then SHARD_RANK_STEPS steps of
+    ``launch.steps.make_train_step`` on this rank's share of the global
+    batch, remat "dots".  Prints each step's wall (this rank's compute:
+    the fake collectives move nothing) and the steps' peak memory beside
+    ``predicted_peak`` (phase 22's peak_bytes of the cell) and the card's
+    memory; fails if it does not fit.  The loss is garbage (the fake
+    collectives) and is not checked.  Returns the launch counts."""
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.data import pipeline
     from repro_torch.dist import sharding
-    from repro_torch.launch import mesh as tmesh, steps
-    from repro_torch.models import model
+    from repro_torch.launch import dryrun, mesh as tmesh, steps
     from repro_torch.train import optimizer
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    mesh = tmesh.fake_production_mesh()
-    cfg = registry.get_config("gemma2-2b").replace(remat="dots")
+    mesh = tmesh.fake_production_mesh(multi_pod=dryrun.MESHES[label])
+    cfg = registry.get_config(arch).replace(remat="dots")
     cell = registry.get_shape("train_4k")
     t0 = time.time()
-    params = sharding.shard_params(model.init_params(cfg, 0, device=DEVICE, trainable=True),
-                                   cfg, mesh)
+    params = rank_params(cfg, mesh)
     state = {"params": params, "opt": optimizer.init(params)}
     torch.cuda.synchronize()
     build_s, build_peak = time.time() - t0, torch.cuda.max_memory_allocated()
@@ -3924,8 +3986,8 @@ def phase_shard_rank(predicted_peak: float) -> dict:
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     local = batch["tokens"].to_local().shape
-    emit({"phase": "shard_rank", "nvidia_smi": card_name(), "arch": cfg.name,
-          "mesh": "16x16 (rank 0 of a fake group of 256)", "remat": cfg.remat,
+    emit({"phase": name, "nvidia_smi": card_name(), "arch": cfg.name,
+          "mesh": f"{label} (rank 0 of a fake group of {mesh.size})", "remat": cfg.remat,
           "local_batch": list(local), "build_s": build_s, "build_peak_gb": build_peak / 1e9,
           "state_gb": held / 1e9, "step_walls_s": walls,
           "steady_step_s": statistics.mean(walls[1:]),
@@ -3933,10 +3995,37 @@ def phase_shard_rank(predicted_peak: float) -> dict:
           "peak_memory_gb": peak / 1e9, "predicted_peak_gb": predicted_peak / 1e9,
           "card_memory_gb": total / 1e9, "losses_unchecked": losses,
           "kernel_launches": counts})
+    del state, params, step
     torch.distributed.destroy_process_group()
-    check(peak < total, f"shard_rank: {peak / 1e9} GB at the peak, over the card's "
+    check(peak < total, f"{name}: {peak / 1e9} GB at the peak, over the card's "
                         f"{total / 1e9}")
-    check(not any(counts.values()), f"shard_rank: kernels launched: {counts}")
+    check(not any(counts.values()), f"{name}: kernels launched: {counts}")
+    return counts
+
+
+def phase_shard_rank_moe(predicted: dict) -> dict:
+    """Phase 23 for SHARD_RANK_MOE: ``phase_shard_rank`` of each of its
+    train_4k cells whose phase-22 peak (``predicted``: "label/arch/shape"
+    -> bytes) leaves SHARD_RANK_MARGIN of the card's memory free; for a
+    cell that does not, a line saying by how much it is over.  Returns
+    the launch counts, summed over the cells run."""
+    import gc
+
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    counts: dict = {}
+    for key, peak in sorted(predicted.items()):
+        label, arch, _ = key.split("/")
+        if peak > total - SHARD_RANK_MARGIN:
+            emit({"phase": "shard_rank_moe", "cell": key, "run": False,
+                  "predicted_peak_gb": peak / 1e9, "card_memory_gb": total / 1e9,
+                  "over_by_gb": (peak - (total - SHARD_RANK_MARGIN)) / 1e9})
+            continue
+        got = phase_shard_rank(peak, arch, label, "shard_rank_moe")
+        counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -4209,8 +4298,9 @@ def worker_dryrun_train() -> dict:
 
 def worker_train_sync() -> dict:
     """Phase 21, given phase 18's step-0 loss (the argument after its
-    name), then phase 23, given phase 22's peak bytes of its cell (the
-    next), once phase 21's model is gone."""
+    name), then phase 23, given phase 22's peak bytes of gemma2-2b's cell
+    (the next) and of SHARD_RANK_MOE's cells (a JSON object, the next),
+    each once the model before it is gone."""
     import gc
 
     import torch
@@ -4218,7 +4308,11 @@ def worker_train_sync() -> dict:
     out = {"train_sync": timed("train_sync", phase_train_sync, float(sys.argv[3]))}
     gc.collect()
     torch.cuda.empty_cache()
-    return {**out, "shard_rank": timed("shard_rank", phase_shard_rank, float(sys.argv[4]))}
+    out["shard_rank"] = timed("shard_rank", phase_shard_rank, float(sys.argv[4]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**out, "shard_rank_moe": timed("shard_rank_moe", phase_shard_rank_moe,
+                                           json.loads(sys.argv[5]))}
 
 
 # the processes that run phases 3-20 but 6 at once, each its phases in
@@ -4344,7 +4438,10 @@ def main() -> int:
         counts = {k: v for c in by_worker.values() for k, v in c.items()}
         emit({"phase_wall": "workers", "s": time.time() - t0})
         peak = phases["dryrun"]["peak_bytes"]["single_pod_16x16/gemma2-2b/train_4k"]
-        last, _ = run_workers(LAST_WORKERS, (repr(phases["train"]["losses"][0]), repr(peak)))
+        moe_peaks = {k: v for k, v in phases["dryrun_train"]["peak_bytes"].items()
+                     if k.endswith(f"/{SHARD_RANK_MOE}/train_4k")}
+        last, _ = run_workers(LAST_WORKERS, (repr(phases["train"]["losses"][0]), repr(peak),
+                                             json.dumps(moe_peaks)))
         train_sync_launches = last["train_sync"]["train_sync"]
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
@@ -4362,6 +4459,7 @@ def main() -> int:
     # phases 22-23 (the dry run's fake tensors, one rank's training): none
     dryrun_launches = {k: counts["dryrun"][k] + counts["dryrun_train"][k] for k in counts["dryrun"]}
     shard_rank_launches = last["train_sync"]["shard_rank"]
+    shard_rank_moe_launches = last["train_sync"]["shard_rank_moe"]
     for lib, row in rows.items():
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
@@ -4389,6 +4487,7 @@ def main() -> int:
                             "train": 0, "train_sync": 0,
                             "dryrun": dryrun_launches[name],
                             "shard_rank": shard_rank_launches[name],
+                            "shard_rank_moe": shard_rank_moe_launches.get(name, 0),
                             "examples": examples_launches["simt"] if route == "simt" else 0})
             launches = sum(by_path[k] for k in ("serve_ref", "serve", "serve_families_ref",
                                                 "serve_families", "examples"))

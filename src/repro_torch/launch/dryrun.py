@@ -46,6 +46,8 @@ sync>.json``; a cell already there as OK or SKIP is not traced again.
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both [--grad-sync seqbalance]
+  python -m repro_torch.launch.dryrun --arch xlstm-1.3b --shape prefill_32k --sites
+    (each collective's bytes by the line of the port that made it)
 """
 from __future__ import annotations
 
@@ -120,7 +122,7 @@ class Counter(TorchDispatchMode):
     which runs the operation on global shapes, is not counted), which
     then runs the local operations that this mode sees."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
@@ -133,6 +135,8 @@ class Counter(TorchDispatchMode):
         self.live = self.peak = 0
         self._sizes: dict = {}
         self._propagating = 0
+        # (kind, the innermost frame of the port that made it) -> result bytes
+        self.sites = {} if sites else None
 
     def readings(self) -> dict:
         """The counts that grow with each operation (FLOPs, bytes accessed,
@@ -210,6 +214,9 @@ class Counter(TorchDispatchMode):
             self.collectives[kind] += sum(t.nbytes for t in res)
             self.collectives["count"] += 1
             self.counts[kind] += 1
+            if self.sites is not None:
+                key = (kind, _site())
+                self.sites[key] = self.sites.get(key, 0) + sum(t.nbytes for t in res)
         if name in _SKIPPED or kind is not None:
             for t in outs:
                 self.track(t)
@@ -227,6 +234,18 @@ class Counter(TorchDispatchMode):
         for t in outs:
             self.track(t)
         return out
+
+
+def _site() -> str:
+    """"file:line function" of the innermost frame of the port (outside
+    this module) on the stack, or "autograd" for a backward that DTensor
+    runs from the engine."""
+    import traceback
+
+    for f in reversed(traceback.extract_stack()):
+        if "repro_torch" in f.filename and not f.filename.endswith("dryrun.py"):
+            return f"{f.filename.split('repro_torch/')[-1]}:{f.lineno} {f.name}"
+    return "autograd"
 
 
 def _nbytes(t) -> int:
@@ -337,14 +356,16 @@ def _build(cfg, shape, mesh, grad_sync: str, device):
 
 
 def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
-               loop_count: bool = True) -> dict:
+               loop_count: bool = True, sites: bool = False) -> dict:
     """Trace one step of ``cfg`` at ``shape`` over ``mesh`` (a "process"
     mesh of a fake group) on fake tensors on ``device`` (``None``: "cuda"
     where a card is present, else "cpu"); the record's counts.  With
     ``loop_count`` a serving step's recurrent loops (the sLSTM's time
     steps, the mLSTM's chunks) are traced one step and counted for all
     (``_loops_counted``: the same counts, number for number); else every
-    step is traced."""
+    step is traced.  With ``sites`` the record also holds
+    ``collective_sites``: each collective's result bytes by kind and the
+    line of the port that made it (``_site``), largest first."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.models import recurrent
@@ -354,7 +375,7 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True):
         step, args = _build(cfg, shape, mesh, grad_sync, device)
-        counter = Counter()
+        counter = Counter(sites)
         arguments = local_tensors(args)
         for t in arguments:
             counter.track(t)
@@ -376,6 +397,10 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
     coll["collective-permute"] += collectives.permute_bytes - sent
     coll["count"] += permutes
     coll["total"] = sum(coll[k] for k in COLLECTIVE_OPS)
+    extra = {}
+    if sites:
+        extra["collective_sites"] = {f"{kind} {where}": float(n) for (kind, where), n in
+                                     sorted(counter.sites.items(), key=lambda kv: -kv[1])}
     return {
         "n_devices": mesh.size,
         "flops": float(counter.flops),
@@ -392,11 +417,12 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
                               "collective-permute": counter.counts["collective-permute"]
                               + permutes},
         "trace_s": round(time.time() - t0, 1),
+        **extra,
     }
 
 
 def run_cell(arch: str, shape_name: str, mesh_label: str, grad_sync: str = "xla",
-             remat: str = "dots", device=None, mesh=None) -> dict:
+             remat: str = "dots", device=None, mesh=None, sites: bool = False) -> dict:
     """The record of one cell, as ``repro.launch.dryrun.run_cell`` writes
     it (``trace_s`` for ``lower_s``/``compile_s``); ``mesh``: the
     production mesh of ``mesh_label`` over a fake group, unless given."""
@@ -408,7 +434,7 @@ def run_cell(arch: str, shape_name: str, mesh_label: str, grad_sync: str = "xla"
                 "reason": why}
     if mesh is None:
         mesh = mesh_mod.fake_production_mesh(multi_pod=MESHES[mesh_label])
-    rec = trace_cell(cfg, shape, mesh, grad_sync, device)
+    rec = trace_cell(cfg, shape, mesh, grad_sync, device, sites=sites)
     return {"arch": arch, "shape": shape_name, "mesh": mesh_label, "status": "OK",
             "grad_sync": grad_sync, "remat": remat, **rec,
             # each superblock runs as code of its own: the counts are whole
@@ -526,6 +552,8 @@ def main(argv=None):
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--device", default=None, help="the fake tensors' device (default: "
                                                    "cuda where a card is present, else cpu)")
+    ap.add_argument("--sites", action="store_true",
+                    help="record each collective's bytes by the line of the port that made it")
     args = ap.parse_args(argv)
 
     labels = [label for label, multi in MESHES.items()
@@ -551,7 +579,7 @@ def main(argv=None):
             print(f"[dryrun] {label} {arch} {shape_name} ...", flush=True)
             try:
                 rec = run_cell(arch, shape_name, label, args.grad_sync, args.remat,
-                               args.device)
+                               args.device, sites=args.sites)
             except Exception as e:
                 rec = {"arch": arch, "shape": shape_name, "mesh": label, "status": "FAIL",
                        "error": f"{type(e).__name__}: {e}",
@@ -563,6 +591,8 @@ def main(argv=None):
             if rec["status"] == "OK":
                 extra = (f" flops={rec['flops']:.3e} coll={rec['collectives']['total']:.3e}B"
                          f" peak={rec['peak_bytes']:.3e}B trace={rec['trace_s']}s")
+                for where, n in list(rec.get("collective_sites", {}).items())[:8]:
+                    extra += f"\n    {n:.3e} B {where}"
             print(f"[{rec['status']}] {label} {arch} {shape_name}{extra}", flush=True)
         records[label] = existing
     return records

@@ -129,8 +129,10 @@ def fake_group(world: int, rank: int = 0) -> None:
                 and dist.get_rank() == rank):
             return
         dist.destroy_process_group()
-        _DEVICE_MESHES.clear()
-        _SUBMESHES.clear()
+    # meshes of an earlier group hold its destroyed subgroups, and the new
+    # world group may reuse the old one's id, which keys the cache
+    _DEVICE_MESHES.clear()
+    _SUBMESHES.clear()
     _register_fake_backend()
 
     class FakeStore(dist.Store):

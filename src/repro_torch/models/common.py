@@ -210,38 +210,6 @@ def matmul(x, w):
     return _GradAsOutput.apply(y) if is_dtensor(y) else y
 
 
-def on_whole(fn, *args):
-    """``fn(*args)`` where some arguments (or the tensors of a NamedTuple
-    among them) may be DTensors: each is gathered whole on every device
-    (replicated over its mesh) and ``fn`` runs on the whole tensors; the
-    tensors ``fn`` returns come back as DTensors replicated over that mesh.
-    For a step of a sharded unit whose ops have no DTensor rule (a sort, a
-    search, a scatter), the redistribution at its boundary that GSPMD
-    would make.  Without DTensors, ``fn(*args)``."""
-    from torch.distributed.tensor import DTensor, Replicate
-    from torch.utils import _pytree as pytree
-
-    meshes = []
-
-    def whole(a):
-        if not isinstance(a, DTensor):
-            return a
-        meshes.append(a.device_mesh)
-        return a.redistribute(a.device_mesh, [Replicate()] * a.device_mesh.ndim).to_local()
-
-    out = fn(*pytree.tree_map(whole, args))
-    if not meshes:
-        return out
-    mesh = meshes[0]
-
-    def back(o):
-        if not isinstance(o, torch.Tensor):
-            return o
-        return DTensor.from_local(o, mesh, [Replicate()] * mesh.ndim, run_check=False)
-
-    return pytree.tree_map(back, out)
-
-
 def on_rows(fn, rows: tuple, whole: tuple):
     """``fn(*rows, *whole)`` on each device's own rows of the batch where
     some arguments are DTensors: each of ``rows`` (dim 0 the batch; a

@@ -24,10 +24,16 @@ package's (``repro.launch.dryrun``), on the CPU.
     (``dryrun._loops_counted``: the sLSTM's time steps, the mLSTM's
     chunks) give a REDUCED xlstm-1.3b prefill's whole trace, number for
     number.
+  * The expert-parallel MoE layer: on the (2, 2) and (2, 2, 2) fake
+    meshes no collective inside a REDUCED deepseek-moe-16b MoE unit
+    returns more than the tokens' bytes, where the whole-slot path
+    (planted) gathers every expert's slots.
   * The committed reference: every cell OK, its FLOPs within
     ``DRYRUN_FLOPS_LIMIT`` of the JAX package's, the MoE cells too, and
     their FLOPs within ``DRYRUN_MOE_RECKONING_LIMIT`` of the model's own
-    count a device.
+    count a device; each cell's collective bytes over the JAX package's
+    (``coll_ratio``), the MoE train cells' within
+    ``DRYRUN_MOE_COLL_LIMIT``.
 
 Run as a script, it writes ``src/repro_torch/launch/dryrun_reference.json``
 (chip_smoke.py phase 22's cells, ``chip_smoke.DRYRUN_CELLS``, through the
@@ -378,12 +384,149 @@ def test_loop_count_equals_the_whole_trace():
     assert whole["flops"] > 0 and whole["bytes_accessed"] > 0
 
 
+class _Enter(torch.autograd.Function):
+    """The identity on an MoE unit's output; its gradient enters the unit's
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        MOE_UNIT["inside"] += 1
+        return g
+
+
+class _Leave(torch.autograd.Function):
+    """The identity on an MoE unit's input; its gradient leaves the unit's
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        MOE_UNIT["inside"] -= 1
+        return g
+
+
+MOE_UNIT = {"inside": 0, "largest": 0}
+
+
+class MoECounter(dryrun.Counter):
+    """The dry run's counter, which also keeps the largest result of a
+    collective made while an MoE unit's forward or backward runs."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = sum(self.collectives[k] for k in dryrun.COLLECTIVE_OPS)
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if MOE_UNIT["inside"] and out is not NotImplemented:
+            grown = sum(self.collectives[k] for k in dryrun.COLLECTIVE_OPS) - before
+            MOE_UNIT["largest"] = max(MOE_UNIT["largest"], grown)
+        return out
+
+
+def whole_slot_apply(p, x, cfg, with_aux=True, routes=None, experts=None):
+    """Planted: the sharded MoE unit as it was before the expert-parallel
+    layer, for its collectives: the router logits and the tokens gathered
+    whole on every device (and over the pods), the routing and the
+    dispatch into every expert's slots [E, C, D] run whole, the products
+    over the experts split over "data", and the slots' outputs gathered
+    whole again for the combine."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models import common, moe
+
+    mesh, (B, S, D) = x.device_mesh, x.shape
+    whole = [Replicate()] * mesh.ndim
+    flat = common.rms_norm(x, p.ln).reshape(-1, D)
+    logits = (flat.to(torch.float32) @ p.router.to(torch.float32)).redistribute(mesh, whole)
+    logits, tokens = logits.to_local(), flat.redistribute(mesh, whole).to_local()
+    pods = moe._pods()
+    if pods is not None:
+        logits, tokens = (moe._Gathered.apply(t, (pods,)) for t in (logits, tokens))
+    r = moe._route_logits(logits, cfg)
+    xe, w_of_slot = moe._dispatch(r, tokens)
+    we = p.we_i, p.we_g, p.we_o
+    if pods is not None:
+        n = xe.shape[0] // pods[1]
+        xe = xe[pods[2] * n:(pods[2] + 1) * n]
+        we = tuple(w.narrow(0, pods[2] * n, n) for w in we)
+    xe = DTensor.from_local(xe, mesh, whole, run_check=False).redistribute(
+        mesh, [Replicate() if name == "model" else Shard(0) for name in mesh.mesh_dim_names])
+    ye = common.matmul(F.silu(common.matmul(xe, we[1])) * common.matmul(xe, we[0]), we[2])
+    ye = ye.redistribute(mesh, whole).to_local().reshape(-1, D)
+    if pods is not None:
+        ye = moe._Gathered.apply(ye, (pods,))
+    out = moe._combine(ye * w_of_slot[:r.sentinel, None].to(ye.dtype), r)
+    if pods is not None:
+        out = out.chunk(pods[1])[pods[2]]
+    out = DTensor.from_local(out, mesh, whole, run_check=False)
+    aux = {k: DTensor.from_local(v, mesh, whole, run_check=False)
+           for k, v in moe._aux(r, cfg.moe, cfg.moe.n_experts).items()} if with_aux else {}
+    return x + out.view(B, S, D), aux
+
+
+def moe_unit_largest(mesh_shape, apply=None) -> tuple[int, int]:
+    """(the largest result of a collective inside an MoE unit's forward or
+    backward, on a device; the tokens' bytes T x D x itemsize) of the
+    REDUCED deepseek-moe-16b train cell on a fake mesh, traced with remat
+    "none" (a recomputed superblock would run its attention's collectives
+    inside the MoE unit's backward); ``apply`` in place of the sharded
+    ``moe.apply`` (a planted fault)."""
+    from repro_torch.models import moe
+
+    cfg, shape = small_cfg("deepseek-moe-16b", treg).replace(remat="none"), SMALL_SHAPES["train"]
+    orig, counter = moe.apply, dryrun.Counter
+    inner = apply or orig
+
+    def tagged(p, x, cfg, *args, **kw):
+        x = _Leave.apply(x)
+        MOE_UNIT["inside"] += 1
+        try:
+            out, aux = inner(p, x, cfg, *args, **kw)
+        finally:
+            MOE_UNIT["inside"] -= 1
+        return _Enter.apply(out), aux
+
+    MOE_UNIT.update(inside=0, largest=0)
+    moe.apply, dryrun.Counter = tagged, MoECounter
+    mesh = tmesh.fake_mesh(mesh_shape)
+    try:
+        dryrun.trace_cell(cfg, shape, mesh, "xla", "cpu")
+    finally:
+        moe.apply, dryrun.Counter = orig, counter
+        torch.distributed.destroy_process_group()
+    assert MOE_UNIT["inside"] == 0, MOE_UNIT
+    tokens = shape.global_batch * shape.seq_len * cfg.d_model * getattr(torch, cfg.dtype).itemsize
+    return MOE_UNIT["largest"], tokens
+
+
+@pytest.mark.parametrize("mesh_shape", SMALL_MESHES, ids=str)
+def test_no_moe_collective_returns_more_than_the_tokens(mesh_shape):
+    """REDUCED deepseek-moe-16b train on the fake (2, 2) and (2, 2, 2)
+    meshes: no collective inside an MoE unit (its forward and backward)
+    returns more than the tokens' bytes on a device (at these widths an
+    expert weight's FSDP gather, E x D / 2 x Fe bfloat16, equals them),
+    where the whole-slot path (``whole_slot_apply``, planted) gathers every
+    expert's slots."""
+    largest, tokens = moe_unit_largest(mesh_shape)
+    planted, _ = moe_unit_largest(mesh_shape, whole_slot_apply)
+    print(mesh_shape, {"largest": largest, "tokens": tokens, "planted": planted})
+    assert 0 < largest <= tokens < planted
+
+
 def test_reference_holds_every_cell_within_the_limits():
     """dryrun_reference.json: phase 22's cells, each OK in both packages on
     both meshes, the port's argument bytes the count from specs, every
-    cell's FLOPs ratio within DRYRUN_FLOPS_LIMIT (the MoE cells too), and
-    an MoE train cell within DRYRUN_MOE_RECKONING_LIMIT of the model's own
-    count a device."""
+    cell's FLOPs ratio within DRYRUN_FLOPS_LIMIT (the MoE cells too), an
+    MoE train cell within DRYRUN_MOE_RECKONING_LIMIT of the model's own
+    count a device, every cell's collective bytes over the JAX package's
+    recorded in ``coll_ratio``, and an MoE train cell's within
+    DRYRUN_MOE_COLL_LIMIT."""
     ref = json.loads(REFERENCE.read_text())
     assert [tuple(c) for c in ref["cells"]] == list(chip_smoke.DRYRUN_CELLS)
     limit = chip_smoke.DRYRUN_FLOPS_LIMIT
@@ -397,11 +540,14 @@ def test_reference_holds_every_cell_within_the_limits():
             assert want["argument_size_bytes"] == port["expected_jax"], key
             ratio = (port["flops"] - port["flash_flops"]) / want["flops"]
             assert ratio == ref["flops_ratio"][key] and 1 / limit <= ratio <= limit, (key, ratio)
+            coll = port["coll_x"] / want["coll_x"]
+            assert coll == ref["coll_ratio"][key], (key, coll)
             cfg, cell = treg.get_config(arch), treg.get_shape(shape)
             if cell.kind == "train" and cfg.family == "moe":
                 reckoned = chip_smoke.train_flops(cfg, cell.global_batch, cell.seq_len)
                 over = port["flops"] / (reckoned / port["n_devices"])
                 assert over <= chip_smoke.DRYRUN_MOE_RECKONING_LIMIT, (key, over)
+                assert coll <= chip_smoke.DRYRUN_MOE_COLL_LIMIT, (key, coll)
 
 
 # ------------------------------------------------------ phase 22's reference
@@ -474,15 +620,17 @@ def write_reference() -> None:
            "as their weights (common.matmul); the train cells' FLOPs over the model's own "
            "count a device (chip_smoke.train_flops): "
            + ", ".join(f"{k} {v:.3g}" for k, v in sorted(reckoned.items())))
+    coll = {k: port[k]["coll_x"] / r["coll_x"]
+            for k, r in jax_records.items() if r.get("status") == "OK" and r.get("coll_x")}
     ref = {"cells": [list(c) for c in chip_smoke.DRYRUN_CELLS], "jax": jax_records,
            "port_cpu": port, "flops_ratio": ratios, "flops_over_reckoning": reckoned,
-           "flops_limit": {"value": limit, "why": why},
+           "flops_limit": {"value": limit, "why": why}, "coll_ratio": coll,
            "jax_wall_s": jax_wall, "wall_s": time.time() - t0,
            "max_rss_gb": max(resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss,
                              resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) / 1e6}
     REFERENCE.write_text(json.dumps(ref, indent=1) + "\n")
-    print(json.dumps({k: ref[k] for k in ("flops_ratio", "flops_over_reckoning", "jax_wall_s",
-                                           "wall_s", "max_rss_gb")}, indent=1))
+    print(json.dumps({k: ref[k] for k in ("flops_ratio", "flops_over_reckoning", "coll_ratio",
+                                           "jax_wall_s", "wall_s", "max_rss_gb")}, indent=1))
 
 
 if __name__ == "__main__":

@@ -392,6 +392,137 @@ def test_moe_matches_reference(arch, cf, dtype):
     assert dropped > 0 or cf > 1.0
 
 
+def ranks_routing(logits, tcfg, n: int, rank_capacity: bool = False) -> list:
+    """``moe.route_rank`` on each of n simulated ranks' rows of ``logits``
+    [T, E] (equal shares, in order), each given the replicas of every
+    expert on the ranks before it, as the sharded layer's gather of the
+    counts gives them.  ``rank_capacity``: the planted fault, each rank
+    cutting the capacity over its own rows (``_route_logits`` of its
+    share)."""
+    rows = logits.chunk(n)
+    if rank_capacity:
+        return [tmoe._route_logits(part, tcfg) for part in rows]
+    T, E = logits.shape
+    counts = torch.stack([tmoe.expert_counts(tmoe.route_rank(part, None, T, tcfg).gate_idx, E)
+                          for part in rows])
+    return [tmoe.route_rank(part, counts[:i].sum(0), T, tcfg) for i, part in enumerate(rows)]
+
+
+def ranks_apply(tp, x, tcfg, n: int, rank_capacity: bool = False):
+    """The expert-parallel layer of ``moe.apply`` over n simulated ranks in
+    one process: each rank's routing (``ranks_routing``), every rank's
+    slots and weights gathered, each owner's share of the experts (the
+    experts padded with empty ones to a multiple of n) filled
+    (``owned_slots``, ``dispatch_owned``), run and combined
+    (``combine_owned``), the owners' shares summed.  Returns (x + the mixer's output, the ranks' routings)."""
+    B, S, D = x.shape
+    E = tcfg.moe.n_experts
+    flat = tcommon.rms_norm(x, tp.ln).reshape(-1, D)
+    routes = ranks_routing(flat @ tp.router, tcfg, n, rank_capacity)
+    slot = torch.cat([r.slot for r in routes])
+    gate_vals = torch.cat([r.gate_vals for r in routes])
+    m, C = -(-E // n), routes[0].capacity
+    out = 0
+    for owner in range(n):
+        tok_of_slot, dest = tmoe.owned_slots(slot, owner * m, m, C, E, C)
+        xe = tmoe.dispatch_owned(flat, tok_of_slot, dest).view(m, C, D)
+        we = [torch.cat([w, w.new_zeros((n * m - E, *w.shape[1:]))])[owner * m:(owner + 1) * m]
+              for w in (tp.we_i, tp.we_g, tp.we_o)]
+        ye = (torch.nn.functional.silu(xe @ we[1]) * (xe @ we[0])) @ we[2]
+        w = tmoe.owned_weights(dest, gate_vals, m * C)
+        out = out + tmoe.combine_owned(ye.reshape(m * C, D) * w[:, None], dest, tok_of_slot)
+    if tp.ws_i.shape[-1]:
+        out = out + (torch.nn.functional.silu(flat @ tp.ws_g) * (flat @ tp.ws_i)) @ tp.ws_o
+    return x + out.view(B, S, D), routes
+
+
+def drops_by_expert(gate_idx, slot, E: int, C: int) -> np.ndarray:
+    """[E]: each expert's dropped replicas."""
+    gate_idx, slot = np.asarray(gate_idx), np.asarray(slot)
+    return np.bincount(gate_idx[slot == E * C], minlength=E)
+
+
+# (arch, capacity factor, router): "random" as drawn; "skewed" with experts
+# 0 and 1 raised (the tokens given a common direction, the router's row of
+# it raised), so that they overflow their capacity across the ranks'
+# boundaries; "tied" with experts 2 and 3 given one column, raised far
+# above the rest, so that every token takes both with equal probabilities
+# (the order of torch.topk and of the JAX package's top_k between them may
+# differ, the set may not), and two tokens equal across a boundary
+RANK_ROUTING_CASES = (("deepseek-moe-16b", 1.25, "random"), ("deepseek-moe-16b", 0.25, "skewed"),
+                      ("deepseek-moe-16b", 0.25, "tied"), ("granite-moe-3b-a800m", 0.25, "skewed"))
+
+
+def rank_routing_case(arch, cf, router):
+    """The JAX package's and the port's MoE unit of a RANK_ROUTING_CASES
+    case (float32) and its input x [2, 48, D] (numpy)."""
+    jcfg, tcfg = configs(arch)
+    jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, capacity_factor=cf))
+    tcfg = tcfg.replace(moe=dataclasses.replace(tcfg.moe, capacity_factor=cf))
+    fields = {k: v[0] for k, v in weights.numpy_params(tcfg, 4)["main"][1].items()}
+    r = fields["router"].copy()
+    x = np.random.default_rng(5).standard_normal((2, 48, tcfg.d_model), dtype=np.float32)
+    if router != "random":  # every normed token about 7 along dim 0, which raises
+        x[..., 0] += 20.0
+    if router == "skewed":
+        r[0, :2] += 0.3
+    elif router == "tied":
+        r[:, 3] = r[:, 2]
+        r[0, 2:4] += 2.0
+    fields["router"] = r
+    x[1, 0] = x[0, -1]  # equal tokens either side of the middle
+    return (jcfg, tcfg, unit_tuple(tt.Unit("moe"), fields),
+            tt.unit_params(tcfg, tt.Unit("moe"), fields, torch.float32), x)
+
+
+def rank_routing_errors(case, n: int, rank_capacity: bool = False) -> dict:
+    """The readings of the sharded layer's routing over n simulated ranks:
+    the replicas whose slot differs from ``_route_logits``' on the whole
+    batch, the experts whose drops differ from the JAX package's dispatch,
+    and the largest output error against the JAX package's apply over
+    float32's TOL (at most 1 where within it)."""
+    jcfg, tcfg, jp, tp, x = case
+    got, routes = ranks_apply(tp, torch.as_tensor(x), tcfg, n, rank_capacity)
+    whole = tmoe._route(tp, tcommon.rms_norm(torch.as_tensor(x), tp.ln).reshape(-1, x.shape[-1]),
+                        tcfg)
+    slot = torch.cat([r.slot for r in routes])
+    gate_idx, jslot, C = jax_dispatch(jp, jnp.asarray(x), jcfg)
+    E = tcfg.moe.n_experts
+    want, _ = jmoe.apply(jp, jnp.asarray(x), jcfg)
+    tol = TOL["float32"]
+    err = np.abs(f32(got) - f32(want)) / (tol["atol"] + tol["rtol"] * np.abs(f32(want)))
+    return {"slots_moved": int((slot != whole.slot).sum()),
+            "drops_moved": int((drops_by_expert(torch.cat([r.gate_idx for r in routes]), slot,
+                                                E, routes[0].capacity)
+                                != drops_by_expert(gate_idx, jslot, E, C)).sum()),
+            "dropped": int((slot == E * routes[0].capacity).sum()),
+            "out_over_tol": float(err.max())}
+
+
+@pytest.mark.parametrize("case", RANK_ROUTING_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_rank_routing_equals_the_whole_batch_routing(case):
+    """The sharded layer's rank-local routing (``moe.route_rank``) over 2, 3
+    and 4 simulated ranks, concatenated, equals ``_route_logits`` on the
+    whole batch slot for slot, drops the JAX package's replicas of each
+    expert, and its dispatch and combine (``owned_slots``,
+    ``combine_owned``; 8 experts over 3 owners padded to 9) give the JAX
+    package's ``moe.apply`` within float32's TOL.  The planted "rank-local
+    capacity" (each rank cutting the capacity over its own rows) fails it
+    where the case drops replicas."""
+    c = rank_routing_case(*case)
+    for n in (2, 3, 4):
+        err = rank_routing_errors(c, n)
+        print(case, n, err)
+        assert err["slots_moved"] == 0 and err["drops_moved"] == 0, err
+        assert err["out_over_tol"] <= 1.0, err
+        assert err["dropped"] > 0 or case[1] > 1.0, err
+        if err["dropped"]:
+            planted = rank_routing_errors(c, n, rank_capacity=True)
+            print("planted", planted)
+            assert (planted["slots_moved"] and planted["drops_moved"]
+                    and planted["out_over_tol"] > 1.0), planted
+
+
 # ------------------------------------------------------------------ model
 @contextlib.contextmanager
 def planted(fault: str):

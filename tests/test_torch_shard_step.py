@@ -7,7 +7,9 @@ DTensors by ``repro_torch.dist.sharding`` (``shard_params``,
 ``cache_specs``) over a "process" mesh of 4 gloo ranks (data 2 x model 2)
 and of 8 (pod 2 x data 2 x model 2, the grad sync "xla" and
 "seqbalance"), at REDUCED size: gemma2-2b and deepseek-moe-16b 2 train
-steps, recurrentgemma-9b (and deepseek-moe-16b on the pod mesh) a
+steps (and at capacity factor 0.25, where each rank's rows drop
+replicas), recurrentgemma-9b, deepseek-moe-16b on the pod mesh and
+granite-moe-3b-a800m with 6 experts over 4 owners (padded to 8) a
 prefill and one decode step.  Each is held,
 in float32, within ``chip_smoke.TRAIN_TOL`` (loss, nll, grad norm, lr,
 each leaf's update) or ``compare.SERVE_TOL`` (the logits against each
@@ -25,8 +27,10 @@ row's RMS) against
 
 Planted faults must fail the check: every rank taking the gradient of
 model shard 0 for one leaf; deepseek-moe-16b on the pod mesh under "xla"
-routing each pod's tokens alone.  All cases of a mesh size run in one set of
-rank processes, started together with the JAX subprocess.
+routing each pod's tokens alone; deepseek-moe-16b at capacity factor 0.25
+with each rank cutting the capacity over its own rows.  All cases of a
+mesh size run in one set of rank processes, started together with the JAX
+subprocess.
 """
 import json
 import math
@@ -66,15 +70,42 @@ CASES = {
     "deepseek-moe-16b-2x2x2-seqbalance": ("deepseek-moe-16b", "train", (2, 2, 2), "seqbalance"),
     "recurrentgemma-9b-2x2x2-serve": ("recurrentgemma-9b", "serve", (2, 2, 2), "xla"),
     "deepseek-moe-16b-2x2x2-serve": ("deepseek-moe-16b", "serve", (2, 2, 2), "xla"),
+    "deepseek-moe-16b@cf0.25-2x2-xla": ("deepseek-moe-16b@cf0.25", "train", (2, 2), "xla"),
+    "deepseek-moe-16b@cf0.25-2x2-rank-capacity": ("deepseek-moe-16b@cf0.25", "train", (2, 2),
+                                                  "xla"),
+    "granite-moe-3b-a800m@6-experts-2x2x2-serve": ("granite-moe-3b-a800m@6-experts", "serve",
+                                                   (2, 2, 2), "xla"),
+    "deepseek-moe-16b-2x2-unit": ("deepseek-moe-16b", "unit", (2, 2), "xla"),
 }
+# the REDUCED configurations changed for a case ("arch@variant" -> the moe
+# fields replaced): a capacity factor at which the batch drops replicas on
+# each rank; experts that do not split over the 4 owners of a (2, 2, 2)
+# mesh (pod x data: 6 padded to 8)
+VARIANTS = {"deepseek-moe-16b@cf0.25": {"capacity_factor": 0.25},
+            "granite-moe-3b-a800m@6-experts": {"n_experts": 6}}
 STEPS, BATCH, SEQ, SEED, CHUNKS, MAX_LEN = 2, 8, 16, 0, 2, 32
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
 PLANTED_LEAF = "main.0.wq"  # its gradient's model shard 0 on every rank
 # the planted cases -> their fault: every rank given model shard 0 of
-# PLANTED_LEAF's gradient; each pod's MoE tokens routed alone
+# PLANTED_LEAF's gradient; each pod's MoE tokens routed alone; each rank
+# cutting the MoE capacity over its own rows
 PLANTED = {"gemma2-2b-2x2-planted": "model_shard",
-           "deepseek-moe-16b-2x2x2-pod-planted": "pod_routing"}
+           "deepseek-moe-16b-2x2x2-pod-planted": "pod_routing",
+           "deepseek-moe-16b@cf0.25-2x2-rank-capacity": "rank_capacity"}
 TRAIN_KEYS = ("loss", "grad_norm", "lr_ulps", "update_norm", "update_diff")
+
+
+def case_configs(arch: str):
+    """The JAX package's and the port's REDUCED config of a case's arch (an
+    entry of VARIANTS: the arch's with its moe fields replaced)."""
+    import dataclasses
+
+    name, _, _ = arch.partition("@")
+    jcfg, tcfg = configs(name)
+    if arch in VARIANTS:
+        jcfg, tcfg = (c.replace(moe=dataclasses.replace(c.moe, **VARIANTS[arch]))
+                      for c in (jcfg, tcfg))
+    return jcfg, tcfg
 
 
 def axes(shape) -> tuple:
@@ -132,7 +163,7 @@ def port_train(arch: str, mesh=None, grad_sync: str = "xla", planted: str | None
 
     from repro_torch.models import moe
 
-    _, tcfg = configs(arch)
+    _, tcfg = case_configs(arch)
     params = weights.from_jax_params(weights.numpy_params(tcfg, SEED), tcfg, "cpu",
                                      trainable=True)
     state = {"params": params, "opt": topt.init(params)}
@@ -141,11 +172,14 @@ def port_train(arch: str, mesh=None, grad_sync: str = "xla", planted: str | None
         state["opt"] = sharding.shard_opt_state(state["opt"], tcfg, mesh)
     step = tsteps.make_train_step(tcfg, topt.AdamWConfig(**OPT), mesh, grad_sync,
                                   coll.PathPlan(n_chunks=CHUNKS))
-    orig, routed_over = topt._grad, moe.routed_over
+    orig, routed_over, route_rank = topt._grad, moe.routed_over, moe.route_rank
     if planted == "model_shard":
         topt._grad = drop_model_shard(orig)
     elif planted == "pod_routing":
         moe.routed_over = lambda group: contextlib.nullcontext()
+    elif planted == "rank_capacity":  # each rank cuts the capacity over its own rows
+        moe.route_rank = lambda logits, before, T, cfg, experts=None: route_rank(
+            logits, None, logits.shape[0], cfg, experts)
     rows = []
     try:
         for i in range(STEPS):
@@ -153,14 +187,14 @@ def port_train(arch: str, mesh=None, grad_sync: str = "xla", planted: str | None
             state, m = step(state, batch)
             rows.append({k: float(v) for k, v in m.items()})
     finally:
-        topt._grad, moe.routed_over = orig, routed_over
+        topt._grad, moe.routed_over, moe.route_rank = orig, routed_over, route_rank
     return {"rows": rows, "params": full_params(state["params"])}
 
 
 def port_serve(arch: str, mesh=None) -> dict:
     """The prefill's last logits and one decode step's, from the frozen
     ``numpy_params`` (sharded over ``mesh`` if given)."""
-    _, tcfg = configs(arch)
+    _, tcfg = case_configs(arch)
     params = weights.from_jax_params(weights.numpy_params(tcfg, SEED), tcfg, "cpu")
     if mesh is not None:
         sharding.shard_params(params, tcfg, mesh)
@@ -180,7 +214,7 @@ def port_grads(arch: str, mesh=None) -> dict:
     over ``mesh`` if given): each leaf's whole gradient (stacked)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    _, tcfg = configs(arch)
+    _, tcfg = case_configs(arch)
     params = weights.from_jax_params(weights.numpy_params(tcfg, SEED), tcfg, "cpu",
                                      trainable=True)
     batch = tpipe.batch_at(data_cfg(tpipe, tcfg.vocab), 0, device="cpu")
@@ -193,6 +227,48 @@ def port_grads(arch: str, mesh=None) -> dict:
     return weights.stacked(
         (n, i, (t.grad.full_tensor() if hasattr(t.grad, "full_tensor") else t.grad).numpy())
         for n, i, t in weights.leaves(params))
+
+
+def port_unit(arch: str, mesh=None) -> dict:
+    """The MoE unit of ``numpy_params``' first superblock alone (float32
+    masters) on x [3, 5, D]: 15 tokens, which do not split over the 2 data
+    ranks of a (2, 2) mesh, so each rank routes them all and the combine
+    is summed over the experts' owners.  Its output, its aux losses, and
+    the gradients of x and of each weight of sum(out * g) plus the aux
+    losses (sharded over ``mesh`` if given)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import common, moe, transformer
+
+    _, tcfg = case_configs(arch)
+    fields = {k: v[0] for k, v in weights.numpy_params(tcfg, SEED)["main"][1].items()}
+    p = transformer.unit_params(tcfg, transformer.Unit("moe"), fields, torch.float32,
+                                master=torch.float32)
+    rng = np.random.default_rng(SEED)
+    x, g = (torch.as_tensor(rng.standard_normal((3, 5, tcfg.d_model), dtype=np.float32))
+            for _ in range(2))
+    x.requires_grad_(True)
+    xs = x
+    if mesh is not None:
+        specs = sharding.param_specs(tcfg, mesh)
+        for f in moe.MoEParams.FIELDS:
+            spec = sharding.port_spec(f"main.1.{f}", specs[f"main.1.{f}"])
+            p._parameters[f] = torch.nn.Parameter(sharding.distribute(p._parameters[f], mesh,
+                                                                      spec))
+        dm = mesh.to_device_mesh()
+        xs = common.batch_layout(DTensor.from_local(x, dm, [Replicate()] * dm.ndim,
+                                                    run_check=False))
+    with implicit_replication():
+        out, aux = moe.apply(p, xs, tcfg)
+        (torch.sum(out * g) + aux["lb_loss"] + aux["z_loss"]).backward()
+
+    def whole(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().numpy()
+
+    return {"out": whole(out), "lb_loss": whole(aux["lb_loss"]),
+            "z_loss": whole(aux["z_loss"]), "grad_x": x.grad.numpy(),
+            **{f"grad_{f}": whole(p._parameters[f].grad) for f in moe.MoEParams.FIELDS}}
 
 
 def rank_runs(world: int) -> dict:
@@ -211,6 +287,8 @@ def rank_runs(world: int) -> dict:
             out.update({f"{name}/p/{k}": v for k, v in run["params"].items()})
         elif kind == "grads":
             out.update({f"{name}/p/{k}": v for k, v in port_grads(arch, mesh).items()})
+        elif kind == "unit":
+            out.update({f"{name}/{k}": v for k, v in port_unit(arch, mesh).items()})
         else:
             out.update({f"{name}/{k}": v for k, v in port_serve(arch, mesh).items()})
         out[f"{name}/wall"] = np.array(time.time() - t0)
@@ -269,7 +347,7 @@ def jax_train(arch: str, shape, grad_sync: str) -> dict:
     from test_torch_models import to_jax
     from test_torch_train import leaf_dict
 
-    jcfg, tcfg = configs(arch)
+    jcfg, tcfg = case_configs(arch)
     jp = to_jax(weights.numpy_params(tcfg, SEED), jcfg)
     state = {"params": jp, "opt": jopt.init(jp)}
     if pod_routed(arch, shape, grad_sync):
@@ -312,7 +390,7 @@ def jax_serve(arch: str, shape) -> dict:
     from repro.launch import steps as jsteps
     from test_torch_models import to_jax
 
-    jcfg, tcfg = configs(arch)
+    jcfg, tcfg = case_configs(arch)
     jp = to_jax(weights.numpy_params(tcfg, SEED), jcfg)
     mesh = jax_mesh(shape)
     batch, tok = serve_inputs(tcfg)
@@ -342,7 +420,7 @@ JAX_RUNS = textwrap.dedent("""
 
     out, rows, t0 = {}, {}, time.time()
     for name, (arch, kind, shape, grad_sync) in t.CASES.items():
-        if name in t.PLANTED or kind == "grads":
+        if name in t.PLANTED or kind in ("grads", "unit"):
             continue
         if kind == "train":
             run = t.jax_train(arch, shape, grad_sync)
@@ -475,7 +553,7 @@ def serve_error(got: dict, want: dict) -> float:
 
 
 def p0_of(arch: str) -> dict:
-    _, tcfg = configs(arch)
+    _, tcfg = case_configs(arch)
     return {k: np.asarray(v) for k, v in full_params(weights.from_jax_params(
         weights.numpy_params(tcfg, SEED), tcfg, "cpu")).items()}
 
@@ -494,7 +572,7 @@ def single_device(name: str) -> dict:
 
 
 @pytest.mark.parametrize("name", [n for n, c in CASES.items()
-                                  if n not in PLANTED and c[1] != "grads"])
+                                  if n not in PLANTED and c[1] in ("train", "serve")])
 def test_sharded_step_matches_one_device_and_the_jax_sharded_step(runs, name):
     arch, kind, shape, grad_sync = CASES[name]
     got, ref, want = runs["port"][name], single_device(name), runs["jax"][name]
@@ -524,6 +602,20 @@ def test_slstm_rows_give_the_one_device_gradients(runs):
     assert err[worst] <= chip_smoke.TRAIN_TOL["leaf_grad_norm"], (worst, err[worst])
 
 
+def test_moe_unit_on_rows_that_do_not_split_gives_the_one_device_unit(runs):
+    """deepseek-moe-16b's MoE unit alone on 15 tokens over the (2, 2) mesh
+    (``port_unit``: the rows replicated over "data", each data rank
+    owning half the experts and the combine summed over them): the
+    output, the aux losses and every gradient within TRAIN_TOL's
+    leaf-norm limit of the one-device unit."""
+    got, want = runs["port"]["deepseek-moe-16b-2x2-unit"], port_unit("deepseek-moe-16b")
+    assert set(got) - {"wall"} == set(want)
+    err = {k: float(np.linalg.norm(got[k] - want[k]) / max(np.linalg.norm(want[k]), 1e-30))
+           for k in want}
+    print(err)
+    assert max(err.values()) <= chip_smoke.TRAIN_TOL["leaf_grad_norm"], err
+
+
 def test_planted_model_shard_fault_fails_the_check(runs):
     """Every rank taking model shard 0's block of one leaf's gradient moves
     that leaf off both references."""
@@ -544,6 +636,29 @@ def test_planted_pod_by_pod_routing_fails_the_check(runs):
     name = "deepseek-moe-16b-2x2x2-xla"
     p0, want = p0_of("deepseek-moe-16b"), runs["jax"][name]
     err = agreement(runs["port"]["deepseek-moe-16b-2x2x2-pod-planted"], want, p0)
+    print(err)
+    assert not train_within(err), err
+    clean = agreement(runs["port"][name], want, p0)
+    assert train_within(clean), clean
+
+
+def test_planted_rank_local_capacity_fails_the_check(runs):
+    """deepseek-moe-16b at capacity factor 0.25 on the (2, 2) mesh, whose
+    batch drops replicas in every MoE layer on each data rank's rows: with
+    each rank cutting the capacity over its own rows (``moe.route_rank``
+    given no replicas before it and its own T), off the JAX package's
+    GSPMD step, which the clean case holds."""
+    arch, name = "deepseek-moe-16b@cf0.25", "deepseek-moe-16b@cf0.25-2x2-xla"
+    _, tcfg = case_configs(arch)
+    params = weights.from_jax_params(weights.numpy_params(tcfg, SEED), tcfg, "cpu")
+    routes = []
+    with torch.no_grad():
+        model.forward_train(params, tcfg, tpipe.batch_at(data_cfg(tpipe, tcfg.vocab), 0,
+                                                         device="cpu"), routes=routes)
+    for r in routes:  # each data rank's rows drop replicas
+        assert all(bool((rows == r.sentinel).any()) for rows in r.slot.chunk(2)), r.dropped
+    p0, want = p0_of(arch), runs["jax"][name]
+    err = agreement(runs["port"]["deepseek-moe-16b@cf0.25-2x2-rank-capacity"], want, p0)
     print(err)
     assert not train_within(err), err
     clean = agreement(runs["port"][name], want, p0)
