@@ -321,22 +321,156 @@ def _cache_leaves(cache: dict):
                     yield f"main.{j}.{f}", i, j, f
 
 
-def shard_cache(cache: dict, cfg, mesh, batch: int, max_len: int) -> dict:
+def _block(shape, places, sizes, coord) -> tuple:
+    """A device's block of a tensor of ``shape`` under ``places`` (Shard or
+    Replicate on each mesh dim of ``sizes``), at mesh coordinate
+    ``coord``: (lo, hi) a dim.  A dim split over several mesh dims is
+    split in their order, the first major, as DTensor splits it."""
+    lo, n = [0] * len(shape), [1] * len(shape)
+    for p, size, c in zip(places, sizes, coord):
+        if p.is_shard():
+            lo[p.dim] = lo[p.dim] * size + c
+            n[p.dim] *= size
+    return tuple((i * (d // k), (i + 1) * (d // k)) for i, d, k in zip(lo, shape, n))
+
+
+def _meet(a: tuple, b: tuple):
+    """The intersection of two blocks, or ``None``."""
+    out = tuple((max(x[0], y[0]), min(x[1], y[1])) for x, y in zip(a, b))
+    return out if all(lo < hi for lo, hi in out) else None
+
+
+_PLANS: dict = {}  # (mesh, this device, shape, placements before and after) -> _plan's
+
+
+def _plan(mesh, shape, src, dst) -> dict:
+    """``relayout``'s exchange, the same on every rank: each device's block
+    under ``dst`` cut where the blocks under ``src`` meet it; a piece that
+    the device holds itself is copied, any other comes from one holder,
+    the holders of a block taken in turn by the devices that need it (a
+    transposition of two mesh dims is then a permutation).  Returns, for
+    this rank: its blocks before and after, the pieces it keeps, those it
+    receives and sends (each by global rank, in the order both ends list
+    them), and whether any rank sends at all."""
+    import itertools
+
+    sizes, mine = tuple(mesh.shape), tuple(mesh.get_coordinate())
+    with common.real_tensors():
+        ranks = mesh.mesh.flatten().tolist()
+    key = (sizes, tuple(ranks), mine, tuple(shape), src, dst)
+    if key in _PLANS:
+        return _PLANS[key]
+    coords = list(itertools.product(*map(range, sizes)))
+    rank_of = dict(zip(coords, ranks))
+    held = {c: _block(shape, src, sizes, c) for c in coords}
+    holders: dict = {}
+    for c in coords:
+        holders.setdefault(held[c], []).append(c)
+    turn = dict.fromkeys(holders, 0)
+    keep, recv, send, anyone = [], [], [], False
+    for c in coords:
+        block = _block(shape, dst, sizes, c)
+        for b, who in holders.items():
+            piece = _meet(block, b)
+            if piece is None:
+                continue
+            if held[c] == b:
+                if c == mine:
+                    keep.append(piece)
+                continue
+            giver = who[turn[b] % len(who)]
+            turn[b] += 1
+            anyone = True
+            if c == mine:
+                recv.append((rank_of[giver], piece))
+            if giver == mine:
+                send.append((rank_of[c], piece))
+    plan = {"held": held[mine], "block": _block(shape, dst, sizes, mine), "keep": keep,
+            "recv": sorted(recv), "send": sorted(send), "any": anyone}
+    _PLANS[key] = plan
+    return plan
+
+
+def relayout(t, places):
+    """The DTensor ``t`` laid out as ``places``, where its layout and
+    ``places`` split dims only (no partial sums) and evenly: each device
+    keeps what it already holds of its new block and gets the rest in one
+    all-to-all over the default group (every rank runs it; a device of
+    another pod's mesh exchanges nothing with this one), each piece from
+    one device that holds it.  So a device receives at most its own block.
+    DTensor's own redistribution from a batch split over "data" to one
+    split over "model" (a filled cache moved to ``cache_specs``, the
+    mLSTM's and the RG-LRU's states with it) gathers the whole batch on
+    every device and slices it again: 16 times the device's share at 16 x
+    16.  Else (a partial sum, an uneven split) DTensor's redistribution.
+    For caches: no gradient."""
+    import torch.distributed as dist
+
+    mesh, src, dst = t.device_mesh, tuple(t.placements), tuple(places)
+    if src == dst:
+        return t
+    sizes = tuple(mesh.shape)
+    counts = [[1] * t.dim() for _ in range(2)]
+    for side, pl in zip(counts, (src, dst)):
+        for p, n in zip(pl, sizes):
+            if p.is_shard():
+                side[p.dim] *= n
+    if (any(not (p.is_shard() or p.is_replicate()) for p in src + dst)
+            or any(d % k for side in counts for d, k in zip(t.shape, side))):
+        return t.redistribute(mesh, dst)
+    plan = _plan(mesh, t.shape, src, dst)
+
+    def at(piece, block):
+        return tuple(slice(lo - b0, hi - b0) for (lo, hi), (b0, _) in zip(piece, block))
+
+    local = t.to_local()
+    out = local.new_empty([hi - lo for lo, hi in plan["block"]])
+    for piece in plan["keep"]:
+        out[at(piece, plan["block"])] = local[at(piece, plan["held"])]
+    if plan["any"]:
+        world = dist.get_world_size()
+        ins, outs = [0] * world, [0] * world
+        parts = []
+        for rank, piece in plan["send"]:
+            parts.append(local[at(piece, plan["held"])].reshape(-1))
+            ins[rank] += parts[-1].numel()
+        for rank, piece in plan["recv"]:
+            outs[rank] += math.prod(hi - lo for lo, hi in piece)
+        ops = torch.ops._c10d_functional
+        got = ops.wait_tensor(ops.all_to_all_single(
+            torch.cat(parts) if parts else local.new_empty(0), outs, ins,
+            dist.group.WORLD.group_name))
+        at_ = 0
+        for _, piece in plan["recv"]:
+            n = math.prod(hi - lo for lo, hi in piece)
+            out[at(piece, plan["block"])] = got[at_:at_ + n].view(
+                [hi - lo for lo, hi in piece])
+            at_ += n
+    return common.from_local(out, mesh, dst, t.shape)
+
+
+def shard_cache(cache: dict, cfg, mesh, batch: int, max_len: int, rows: bool = False) -> dict:
     """A cache of ``model.init_cache(params, cfg, batch, max_len)`` with each
     tensor a DTensor with its ``cache_specs`` placements (less the stacked
-    dim, ``port_spec``): a plain tensor distributed, a DTensor
-    redistributed; the structure and the ints (a KV cache's ``pos``)
-    kept."""
+    dim, ``port_spec``), or with ``rows`` laid out as the batch
+    (``common.batch_placements``: the prefill's working cache, which its
+    units fill where their rows lie): a plain tensor distributed, a DTensor
+    moved by ``relayout``; the structure and the ints (a KV cache's
+    ``pos``) kept."""
+    from torch.distributed.tensor import distribute_tensor
+
     specs = cache_specs(cfg, mesh, batch, max_len)
+    dm = device_mesh(mesh)
 
     def unit(c, group: str, j: int):
         def put(f, leaf):
             if not isinstance(leaf, torch.Tensor):
                 return leaf
-            spec = port_spec(f"{group}.{j}.{f}", specs[f"{group}.{j}.{f}"])
+            to = (common.batch_placements(dm, leaf.shape[0]) if rows else
+                  placements(port_spec(f"{group}.{j}.{f}", specs[f"{group}.{j}.{f}"]), mesh))
             if common.is_dtensor(leaf):
-                return leaf.redistribute(leaf.device_mesh, placements(spec, mesh))
-            return distribute(leaf, mesh, spec)
+                return relayout(leaf, to)
+            return distribute_tensor(leaf.detach(), dm, to, **common.no_source())
         if hasattr(c, "_asdict"):
             return type(c)(**{f: put(f, v) for f, v in c._asdict().items()})
         return tuple(put(f, v) for f, v in enumerate(c))

@@ -369,7 +369,10 @@ def make_prefill_step(cfg, max_len: int):
     out laid out by ``cache_specs`` (the JAX dry run's ``out_shardings``);
     on a pod mesh each pod prefills its share of the rows (``_serving``)
     into a cache laid out for its share (``serving_cache``), its MoE units
-    routing every pod's rows."""
+    routing every pod's rows.  The units fill a cache laid out as their
+    rows (the recurrent states start there, and nothing moves to write
+    it), which ``dist.sharding.relayout`` then moves once to
+    ``cache_specs``."""
 
     def prefill_step(params, batch):
         if not _sharded(params):
@@ -380,7 +383,7 @@ def make_prefill_step(cfg, max_len: int):
         B = next(iter(batch.values())).shape[0]
         with implicit_replication(), moe.routed_over(pods):
             cache = sharding.shard_cache(model.init_cache(params, cfg, B, max_len), cfg, mesh,
-                                         B, max_len)
+                                         B, max_len, rows=True)
             logits, cache = model.prefill(params, cfg, batch, max_len, cache=cache)
         cache = sharding.shard_cache(cache, cfg, mesh, B, max_len)
         return lift(logits), _map_cache(lift, cache)

@@ -107,14 +107,39 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+def _cache_aligned(q, k, mask):
+    """(q's, k's and v's, the mask's placements) for one query row against a
+    cache k [B, K, S, hd] that DTensor holds split over its batch or its KV
+    heads (or replicated) on each mesh dim: the cache's own placements, q
+    and the mask laid out to match (the batch as the cache's, the query
+    heads as its KV heads: head h reads KV head h // G, so a contiguous
+    share of the KV heads is one of the query heads).  Else (a query of
+    more than one row, or a cache split over its positions or head dim,
+    whose softmax would need a combine across devices) ``None``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    kp = list(k.placements)
+    if q.shape[1] != 1 or any(not (p.is_replicate() or p.is_shard(0) or p.is_shard(1))
+                              for p in kp):
+        return None
+    qp = [Shard(2) if p.is_shard(1) else p for p in kp]
+    mp = [Shard(0) if p.is_shard(0) and mask.shape[0] == q.shape[0] else Replicate()
+          for p in kp]
+    return qp, kp, mp
+
+
 def _attend(q, k, v, mask, cfg):
     """``_sdpa``; on DTensors, ``_sdpa`` on each device's block (``local_map``,
-    the inputs laid out first): the batch over the mesh's data-parallel
-    dims; over "model" the heads where both the query and the KV heads
-    split over it, else the query rows where they split (k and v whole,
-    the mask's rows as the queries'), else nothing.  So the score matrix
-    is never held whole on a device where the heads do not split (gemma2-2b's
-    8 and 4 heads on 16), and no reshape of ``_sdpa`` splits a DTensor."""
+    the inputs laid out first).  Decode (one query row against the cache)
+    attends where the cache lies (``_cache_aligned``): the cache stays,
+    and the query and the mask move to it.  Else the batch over the
+    mesh's data-parallel dims; over "model" the heads where both the query
+    and the KV heads split over it, else the query rows where they split
+    (k and v whole, the mask's rows as the queries'), else nothing.  So the
+    score matrix is never held whole on a device where the heads do not
+    split (gemma2-2b's 8 and 4 heads on 16), and no reshape of ``_sdpa``
+    splits a DTensor.  The rules choose by divisibility and by the
+    cache's placements alone."""
     if not common.is_dtensor(q):
         return _sdpa(q, k, v, mask, cfg)
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -135,6 +160,8 @@ def _attend(q, k, v, mask, cfg):
             mp.append(Shard(0) if mask.shape[0] == B else Replicate())
         else:
             qp.append(Replicate()), kp.append(Replicate()), mp.append(Replicate())
+    if common.is_dtensor(k):
+        qp, kp, mp = _cache_aligned(q, k, mask) or (qp, kp, mp)
     if common.is_dtensor(mask):
         mask = mask.redistribute(mesh, mp)
     else:
@@ -221,11 +248,6 @@ def _sdpa_chunked(q, k, v, cfg, window: int):
     return torch.cat(outs, dim=1)
 
 
-def _records(*tensors) -> bool:
-    """Whether autograd records an operation on ``tensors``."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 def apply_full(p: AttnParams, x, cfg, *, window: int = 0, is_causal: bool = True,
                kv_override=None):
     """Train/encoder path over the full sequence.  ``kv_override`` supplies
@@ -239,7 +261,7 @@ def apply_full(p: AttnParams, x, cfg, *, window: int = 0, is_causal: bool = True
     h = common.rms_norm(x, p.ln)
     if kv_override is None:
         q, k, v = _qkv(p, h, positions, cfg)
-        if _records(q, k, v):
+        if common.records(q, k, v):
             k, v = k.transpose(1, 2), v.transpose(1, 2)  # head-major
             if is_causal and S > Q_CHUNK:
                 out = _sdpa_chunked(q, k, v, cfg, window)
@@ -283,6 +305,8 @@ def apply_prefill(p: AttnParams, x, cfg, cache: KVCache, *, window: int = 0,
     positions = torch.arange(S, device=x.device)[None, :]
     h = common.rms_norm(x, p.ln)
     q, k, v = _qkv(p, h, positions, cfg)
+    if common.is_dtensor(q):  # the cache keeps k and v as the kernel takes them: reduced once
+        q, k, v = _flash_layout(q, k, v)
     out = _self_attention(q, k, v, cfg, window, True, plain)
     y = _out(x, out, p.wo)
     Sc = cache.k.shape[2]

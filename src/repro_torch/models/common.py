@@ -34,6 +34,21 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def records(*tensors) -> bool:
+    """Whether autograd records an operation on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def from_local(t, mesh, placements, shape):
+    """The DTensor of contiguous global ``shape`` over ``mesh`` laid out as
+    ``placements`` whose block on this device is ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(t, mesh, placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def no_source() -> dict:
     """``distribute_tensor``'s keyword for a tensor that every rank already
     holds whole (each keeps its block, nothing is sent), where the
@@ -96,25 +111,33 @@ def roll(t, shift: int, dim: int):
                               stride=t.stride())
 
 
+def batch_placements(mesh, rows: int) -> list:
+    """The placements over ``mesh`` of a tensor whose dim 0 is a batch of
+    ``rows``, laid out as the residual stream: the batch over the mesh's
+    data-parallel dims (those it divides, major first), replicated over
+    "model".  Nothing is moved."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dp, out = 1, []
+    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
+        if name != "model" and rows % (dp * n) == 0:
+            dp *= n
+            out.append(Shard(0))
+        else:
+            out.append(Replicate())
+    return out
+
+
 def batch_layout(x):
-    """The residual stream's layout on a DTensor x [B, ...]: the batch over
-    the mesh's data-parallel dims (those it divides, major first),
-    replicated over "model", as a sharding constraint on the stream would
+    """The residual stream's layout on a DTensor x [B, ...]
+    (``batch_placements``), as a sharding constraint on the stream would
     hold it under GSPMD (DTensor left alone lets it drift: its embedding
     gather shards the model dim and the sequence instead).  A plain tensor
     as it is."""
     if not is_dtensor(x):
         return x
-    from torch.distributed.tensor import Replicate, Shard
-
-    mesh, dp, out = x.device_mesh, 1, []
-    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
-        if name != "model" and x.shape[0] % (dp * n) == 0:
-            dp *= n
-            out.append(Shard(0))
-        else:
-            out.append(Replicate())
-    return x if list(x.placements) == out else x.redistribute(mesh, out)
+    out = batch_placements(x.device_mesh, x.shape[0])
+    return x if list(x.placements) == out else x.redistribute(x.device_mesh, out)
 
 
 class _Fence(torch.autograd.Function):
@@ -210,6 +233,17 @@ def matmul(x, w):
     return _GradAsOutput.apply(y) if is_dtensor(y) else y
 
 
+def laid_out(t, mesh, placements):
+    """``t`` as a DTensor laid out as ``placements`` over ``mesh``: a
+    DTensor redistributed, a plain tensor (the whole, the same on every
+    device) distributed, each device keeping its block."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    if not is_dtensor(t):
+        t = distribute_tensor(t, mesh, [Replicate()] * mesh.ndim, **no_source())
+    return t.redistribute(mesh, placements)
+
+
 def on_rows(fn, rows: tuple, whole: tuple):
     """``fn(*rows, *whole)`` on each device's own rows of the batch where
     some arguments are DTensors: each of ``rows`` (dim 0 the batch; a
@@ -217,11 +251,13 @@ def on_rows(fn, rows: tuple, whole: tuple):
     laid out as ``batch_layout`` lays the residual stream, each of
     ``whole`` (weights) gathered whole, and ``fn`` run on the local
     tensors; its tensor outputs (dim 0 the batch) come back as DTensors
-    laid out so.  A whole argument's gradient is a partial sum over the
+    laid out so.  Each argument is redistributed once, straight to its
+    layout (``batch_placements`` reads the rows' layout without moving
+    anything).  A whole argument's gradient is a partial sum over the
     devices that split the rows.  For a loop over time that DTensor would
     dispatch op by op (the sLSTM).  Without DTensors, ``fn(*rows,
     *whole)``."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
+    from torch.distributed.tensor import Partial, Replicate
     from torch.utils import _pytree as pytree
 
     ref = next((t for t in rows + whole if is_dtensor(t)), None)
@@ -229,25 +265,17 @@ def on_rows(fn, rows: tuple, whole: tuple):
         return fn(*rows, *whole)
     mesh = ref.device_mesh
     lead = next(t for t in rows if is_dtensor(t))
-    layout = batch_layout(lead).placements
+    layout = batch_placements(mesh, lead.shape[0])
     grads = [Partial() if p.is_shard() else Replicate() for p in layout]
 
-    def local(t, placements):
-        if not is_dtensor(t):
-            t = distribute_tensor(t, mesh, [Replicate()] * mesh.ndim, **no_source())
-        return t.redistribute(mesh, placements)
-
-    args = [local(t, layout).to_local() for t in rows]
-    args += [local(t, [Replicate()] * mesh.ndim).to_local(grad_placements=grads) for t in whole]
+    args = [laid_out(t, mesh, layout).to_local() for t in rows]
+    args += [laid_out(t, mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grads)
+             for t in whole]
     out = fn(*args)
     B = lead.shape[0]
 
     def back(o):
-        if not isinstance(o, torch.Tensor):
-            return o
-        shape = (B, *o.shape[1:])
-        return DTensor.from_local(o, mesh, layout, run_check=False, shape=torch.Size(shape),
-                                  stride=torch.empty(shape, device="meta").stride())
+        return from_local(o, mesh, layout, (B, *o.shape[1:])) if isinstance(o, torch.Tensor) else o
 
     return pytree.tree_map(back, out)
 

@@ -97,22 +97,36 @@ def mlstm_cache_init(cfg, batch: int, dtype, device=None) -> MLSTMCache:
                                        device=device))
 
 
-def _mlstm_gates(uc, p: MLSTMParams):
-    """i (clamped exp) and log-f (log-sigmoid) gates [B, S, H], float32.
-    On DTensors the product runs on each device's rows with the whole
-    weight (``common.on_rows``): its 2H columns do not split over "model",
-    and DTensor would split the rows there, merged with the batch into a
-    strided shard by the next product."""
-    g = common.on_rows(torch.matmul, (uc,), (p.w_if,)).to(torch.float32)
+def _gate_values(g):
+    """i (clamped exp) and log-f (log-sigmoid) gates [B, S, H] of the
+    pre-activations g [B, S, 2H], float32."""
     H = g.shape[-1] // 2
     return torch.exp(torch.clamp(g[..., :H], max=8.0)), common.log_sigmoid(g[..., H:])
+
+
+def _mlstm_gates(uc, p: MLSTMParams):
+    """``_gate_values`` of uc @ w_if.  On DTensors the product runs on each
+    device's rows with the whole weight (``common.on_rows``): its 2H
+    columns do not split over "model", and DTensor would split the rows
+    there, merged with the batch into a strided shard by the next
+    product."""
+    return _gate_values(common.on_rows(torch.matmul, (uc,), (p.w_if,)).to(torch.float32))
+
+
+def _chunk_end(C0, n0, k, v, i, b):
+    """The state (C1, n1) at the end of a chunk from (C0, n0), b its
+    cumulative log-decay [B, L, H]."""
+    bL = b[:, -1]  # [B, H]
+    kdec = torch.exp(bL[:, None] - b)[..., None] * (i[..., None] * k)  # [B, L, H, hd]
+    C1 = torch.exp(bL)[..., None, None] * C0 + torch.einsum("blhk,blhv->bhkv", kdec, v)
+    n1 = torch.exp(bL)[..., None] * n0 + kdec.sum(1)
+    return C1, n1
 
 
 def _mlstm_chunk(C0, n0, q, k, v, i, logf, scale: float):
     """One chunk: (C1, n1, h).  C0 [B, H, k, v], n0 [B, H, k]; q, k, v
     [B, L, H, hd] and i, logf [B, L, H], float32."""
     b = torch.cumsum(logf, dim=1)  # [B, L, H] cumulative log-decay
-    bL = b[:, -1]  # [B, H]
     L = q.shape[1]
     # decay matrix D[t, s] = exp(b_t - b_s) * i_s for s <= t
     tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()[None, :, :, None]
@@ -125,11 +139,7 @@ def _mlstm_chunk(C0, n0, q, k, v, i, logf, scale: float):
     n_t = eb * n0[:, None] + torch.einsum("btsh,bshd->bthd", dmat, k)
     denom = torch.clamp(torch.abs(torch.einsum("bthd,bthd->bth", q, n_t)), min=1.0)
     h = (intra + inter) / denom[..., None]  # [B, L, H, hd]
-    # the state at the end of the chunk
-    kdec = torch.exp(bL[:, None] - b)[..., None] * (i[..., None] * k)  # [B, L, H, hd]
-    C1 = torch.exp(bL)[..., None, None] * C0 + torch.einsum("blhk,blhv->bhkv", kdec, v)
-    n1 = torch.exp(bL)[..., None] * n0 + kdec.sum(1)
-    return C1, n1, h
+    return (*_chunk_end(C0, n0, k, v, i, b), h)
 
 
 def _mlstm_scan(q, k, v, i, logf, C0, n0, scale: float):
@@ -144,11 +154,123 @@ def _mlstm_scan(q, k, v, i, logf, C0, n0, scale: float):
     return torch.cat(hs, dim=1), C1, n1
 
 
+def mlstm_run_end(k, v, i, logf):
+    """A run of whole chunks from the zero state: its end state (C, n) and
+    its total log-decay F [B, H] (the sum of its chunks' last cumulative
+    log-decays), the same chunk by chunk as ``_mlstm_scan``.  The state at
+    the run's end from any (C0, n0) is then (e^F C0 + C, e^F n0 + n)."""
+    S = k.shape[1]
+    L = min(MLSTM_CHUNK, S)
+    B, _, H, hd = k.shape
+    C = k.new_zeros((B, H, hd, hd))
+    n, F = k.new_zeros((B, H, hd)), k.new_zeros((B, H))
+    for c in range(0, S, L):
+        b = torch.cumsum(logf[:, c:c + L], dim=1)
+        C, n = _chunk_end(C, n, k[:, c:c + L], v[:, c:c + L], i[:, c:c + L], b)
+        F = F + b[:, -1]
+    return C, n, F
+
+
+def mlstm_carry(C0, n0, runs):
+    """The state entering the run after ``runs`` (each ``mlstm_run_end``'s
+    (C, n, F), in sequence order) from the state (C0, n0) before them: the
+    carry is linear in the state, so each run's own end state is added to
+    the decayed carry, exact up to summation order."""
+    C, n = C0, n0
+    for Cj, nj, Fj in runs:
+        e = torch.exp(Fj)
+        C = e[..., None, None] * C + Cj
+        n = e[..., None] * n + nj
+    return C, n
+
+
+def _sequence_split(t, S: int):
+    """The index of the "model" mesh dim over which a DTensor prefill's
+    mLSTM splits its sequence, or ``None`` (a plain tensor; no "model" dim
+    of more than one member; or S / its size not a whole number of
+    256-token chunks).  Chunks start at multiples of 256 from position 0,
+    and the reference's scale quirk makes a chunk's output depend on where
+    it starts, so a split that would cut a chunk between ranks is never
+    taken: the rows path runs instead."""
+    if not common.is_dtensor(t):
+        return None
+    names = t.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    n = t.device_mesh.size(m)
+    return m if n > 1 and S % (n * MLSTM_CHUNK) == 0 else None
+
+
+def _mlstm_on_sequence(p: MLSTMParams, x, u, uc, z, C0, n0, m: int, scale: float):
+    """The mLSTM's prefill on DTensors split over the sequence on "model"
+    (mesh dim ``m``, of M members).  u, uc and z (split over "model" on
+    their features) come to each rank for its own contiguous run of S / M
+    tokens (whole chunks) by an all-to-all each, and q, k, v and the gates are
+    products of them with the whole weights (gathered over "model"): each
+    token's products are then whole dot products, as on one device, where
+    partial sums over "model" would move the mLSTM's inputs by a rounding
+    each (its gates and denominators turn a relative 1e-7 there into 1e-4
+    of the logits at 512 tokens), and fewer bytes move than a
+    reduce-scatter of q, k and v in float32.  Each rank runs its chunks
+    from the zero state (``mlstm_run_end``); the runs' end states are
+    gathered over "model", and each rank's carry in is their exclusive
+    prefix from (C0, n0) (``mlstm_carry``), from which it runs
+    ``_mlstm_scan``.  The group norm, the gate and ``w_down`` (whole) run
+    on the rank's tokens, and the residual returns through
+    ``batch_layout``.  Returns (x + out, the state after the last token,
+    on every rank, laid out as the rows)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    M, r = mesh.size(m), mesh.get_local_rank(m)
+    rows = common.batch_placements(mesh, B)
+    seq, features = list(rows), list(rows)
+    seq[m], features[m] = Shard(1), Shard(2)
+    group = mesh.get_group(m).group_name
+    ops = torch.ops._c10d_functional
+    def mine(t):  # [Bl, S, P / M] -> this rank's tokens [Bl, S / M, P]
+        t = t.redistribute(mesh, features).to_local()
+        Bl, _, Pm = t.shape
+        t = ops.wait_tensor(ops.all_to_all_single(
+            t.view(Bl, M, S // M, Pm).transpose(0, 1).contiguous(), [1] * M, [1] * M, group))
+        return t.permute(1, 2, 0, 3).reshape(Bl, S // M, M * Pm)  # from rank j: features j
+
+    u, uc, z = (mine(t) for t in (u, uc, z))
+    Bl = u.shape[0]
+
+    def whole(w):
+        return w.full_tensor() if common.is_dtensor(w) else w
+
+    wq, wk, wv = (whole(w) for w in (p.wq, p.wk, p.wv))
+    P, H, hd = wq.shape
+    q, k, v = ((t @ w.reshape(P, -1)).view(Bl, S // M, H, hd).to(torch.float32)
+               for t, w in ((uc, wq), (uc, wk), (u, wv)))
+    i, logf = _gate_values(torch.matmul(uc, whole(p.w_if)).to(torch.float32))
+    C0, n0 = (common.laid_out(t, mesh, rows).to_local() for t in (C0, n0))
+    run = torch.cat([t.reshape(Bl, -1) for t in mlstm_run_end(k, v, i, logf)], dim=1)
+    every = ops.wait_tensor(ops.all_gather_into_tensor(run, M, group)).view(M, Bl, -1)
+    runs = [tuple(a.view(Bl, H, *([hd] * dims)) for a, dims in
+                  zip(every[j].split((H * hd * hd, H * hd, H), dim=1), (2, 1, 0)))
+            for j in range(M)]
+    Cr, nr = mlstm_carry(C0, n0, runs[:r])
+    h, _, _ = _mlstm_scan(q, k, v, i, logf, Cr, nr, scale=scale)
+    C1, n1 = mlstm_carry(C0, n0, runs)
+    h = common.rms_norm(h.to(x.dtype), whole(p.gn) - 1.0)  # per-head group norm
+    y = (h.reshape(Bl, S // M, -1) * F.silu(z)) @ whole(p.w_down)
+    y = common.batch_layout(common.from_local(y, mesh, seq, x.shape))
+    return x + y, *(common.from_local(t, mesh, rows, (B, *t.shape[1:])) for t in (C1, n1))
+
+
 def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
                 decode: bool = False):
     """Full-sequence (chunkwise) or single-step (decode) mLSTM block;
     returns (x + out, new cache).  A full sequence of S tokens needs S <
-    256 or S % 256 == 0 (``ValueError`` otherwise)."""
+    256 or S % 256 == 0 (``ValueError`` otherwise).  A DTensor prefill
+    whose S splits into whole chunks over "model" (``_sequence_split``),
+    where autograd does not record, runs ``_mlstm_on_sequence``; else each
+    device runs its own rows' chunks (``common.on_rows``)."""
     B, S, D = x.shape
     dt = x.dtype
     h_in = common.rms_norm(x, p.ln)
@@ -157,16 +279,21 @@ def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
     uc, conv_new = causal_conv1d(u, p.conv_w, cache.conv if cache is not None else None)
     uc = F.silu(uc)
     H, hd = p.wq.shape[1], p.wq.shape[2]
-    q = _proj(uc, p.wq).to(torch.float32)
-    k = _proj(uc, p.wk).to(torch.float32)
-    v = _proj(u, p.wv).to(torch.float32)
-    i, logf = _mlstm_gates(uc, p)
     scale = hd ** -0.5
     if cache is not None:
         C0, n0 = cache.C, cache.n
     else:
         C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
         n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+    m = None if decode or common.records(x, *p.parameters()) else _sequence_split(x, S)
+    if m is not None:
+        with common.span("recurrent.mlstm"):
+            y, C1, n1 = _mlstm_on_sequence(p, x, u, uc, z, C0, n0, m, scale)
+        return y, MLSTMCache(C=C1, n=n1, conv=conv_new)
+    q = _proj(uc, p.wq).to(torch.float32)
+    k = _proj(uc, p.wk).to(torch.float32)
+    v = _proj(u, p.wv).to(torch.float32)
+    i, logf = _mlstm_gates(uc, p)
 
     with common.span("recurrent.mlstm"):
         if decode:  # S == 1

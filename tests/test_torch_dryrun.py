@@ -28,12 +28,23 @@ package's (``repro.launch.dryrun``), on the CPU.
     meshes no collective inside a REDUCED deepseek-moe-16b MoE unit
     returns more than the tokens' bytes, where the whole-slot path
     (planted) gathers every expert's slots.
+  * The dense cells' guards, under the production condition of gemma2-2b
+    (its KV heads do not split over "model", nor a cache's stacked dim
+    over "data"; REDUCED with one KV head) on the (2, 2) and (2, 2, 2)
+    fake meshes, each beside a planted fault that fails it: decode
+    attends where the cache lies (no collective inside an attention unit
+    returns more than its q and output bytes); the filled cache moves by
+    ``sharding.relayout`` (no collective inside ``shard_cache`` returns
+    more than the device's share); xlstm-1.3b's mLSTM prefill at S = 512
+    splits over the sequence (no collective inside an mLSTM unit returns
+    a whole [B_local, S, H, hd]); ``common.on_rows`` moves each argument
+    once.
   * The committed reference: every cell OK, its FLOPs within
     ``DRYRUN_FLOPS_LIMIT`` of the JAX package's, the MoE cells too, and
     their FLOPs within ``DRYRUN_MOE_RECKONING_LIMIT`` of the model's own
     count a device; each cell's collective bytes over the JAX package's
-    (``coll_ratio``), the MoE train cells' within
-    ``DRYRUN_MOE_COLL_LIMIT``.
+    (``coll_ratio``) within ``DRYRUN_COLL_LIMIT``, or its own limit of
+    ``DRYRUN_COLL_LIMITS``.
 
 Run as a script, it writes ``src/repro_torch/launch/dryrun_reference.json``
 (chip_smoke.py phase 22's cells, ``chip_smoke.DRYRUN_CELLS``, through the
@@ -394,7 +405,7 @@ class _Enter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        MOE_UNIT["inside"] += 1
+        INSIDE["inside"] += 1
         return g
 
 
@@ -408,23 +419,25 @@ class _Leave(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        MOE_UNIT["inside"] -= 1
+        INSIDE["inside"] -= 1
         return g
 
 
-MOE_UNIT = {"inside": 0, "largest": 0}
+INSIDE = {"inside": 0, "largest": 0}
 
 
-class MoECounter(dryrun.Counter):
+class ScopeCounter(dryrun.Counter):
     """The dry run's counter, which also keeps the largest result of a
-    collective made while an MoE unit's forward or backward runs."""
+    collective made while the code a test watches runs (an MoE unit's
+    forward or backward, an attention unit's decode, the cache's move, an
+    mLSTM unit): ``INSIDE["inside"]`` is set there."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         before = sum(self.collectives[k] for k in dryrun.COLLECTIVE_OPS)
         out = super().__torch_dispatch__(func, types, args, kwargs)
-        if MOE_UNIT["inside"] and out is not NotImplemented:
+        if INSIDE["inside"] and out is not NotImplemented:
             grown = sum(self.collectives[k] for k in dryrun.COLLECTIVE_OPS) - before
-            MOE_UNIT["largest"] = max(MOE_UNIT["largest"], grown)
+            INSIDE["largest"] = max(INSIDE["largest"], grown)
         return out
 
 
@@ -485,24 +498,24 @@ def moe_unit_largest(mesh_shape, apply=None) -> tuple[int, int]:
 
     def tagged(p, x, cfg, *args, **kw):
         x = _Leave.apply(x)
-        MOE_UNIT["inside"] += 1
+        INSIDE["inside"] += 1
         try:
             out, aux = inner(p, x, cfg, *args, **kw)
         finally:
-            MOE_UNIT["inside"] -= 1
+            INSIDE["inside"] -= 1
         return _Enter.apply(out), aux
 
-    MOE_UNIT.update(inside=0, largest=0)
-    moe.apply, dryrun.Counter = tagged, MoECounter
+    INSIDE.update(inside=0, largest=0)
+    moe.apply, dryrun.Counter = tagged, ScopeCounter
     mesh = tmesh.fake_mesh(mesh_shape)
     try:
         dryrun.trace_cell(cfg, shape, mesh, "xla", "cpu")
     finally:
         moe.apply, dryrun.Counter = orig, counter
         torch.distributed.destroy_process_group()
-    assert MOE_UNIT["inside"] == 0, MOE_UNIT
+    assert INSIDE["inside"] == 0, INSIDE
     tokens = shape.global_batch * shape.seq_len * cfg.d_model * getattr(torch, cfg.dtype).itemsize
-    return MOE_UNIT["largest"], tokens
+    return INSIDE["largest"], tokens
 
 
 @pytest.mark.parametrize("mesh_shape", SMALL_MESHES, ids=str)
@@ -519,14 +532,212 @@ def test_no_moe_collective_returns_more_than_the_tokens(mesh_shape):
     assert 0 < largest <= tokens < planted
 
 
+# ------------------------------------------------- the dense cells' guards
+GUARD_SHAPES = {"decode": ShapeCell("decode_guard", 32, 64, "decode"),
+                "prefill": ShapeCell("prefill_guard", 32, 8, "prefill"),
+                "xlstm": ShapeCell("prefill_guard", 512, 4, "prefill")}
+
+
+def kv1_cfg():
+    """REDUCED gemma2-2b with one KV head: as gemma2-2b's 4 on 16, its KV
+    heads do not split over "model" on the small meshes."""
+    return small_cfg("gemma2-2b", treg).replace(n_kv_heads=1)
+
+
+def production_condition(cfg, mesh_shape) -> None:
+    """The condition of gemma2-2b's cells at 16 x 16: the KV heads do not
+    split over "model", and the stacked leading dim [n_super] of a cache
+    leaf does not split over the data-parallel dims, so ``cache_specs``
+    puts "model" on the cache's batch."""
+    from repro_torch.models import transformer
+
+    sizes = dict(zip(tmesh.AXES[-len(mesh_shape):], mesh_shape))
+    n_super = transformer.block_program(cfg)[2]
+    assert cfg.n_kv_heads % sizes["model"], cfg.n_kv_heads
+    assert n_super % (sizes["data"] * sizes.get("pod", 1)), n_super
+
+
+def largest_inside(where, name: str, cfg, shape, mesh_shape, rank: int = 0,
+                   plant=None) -> dict:
+    """The largest result of a collective on device ``rank`` while the
+    function ``where.name`` (``where[name]`` of a dict) runs in a traced
+    step of ``cfg`` at ``shape`` on a fake mesh (``INSIDE["largest"]``),
+    and the largest local tensor that its last call returned
+    (``INSIDE["out"]``); ``plant``: (module, name, value) set for the trace
+    (a planted fault)."""
+    table = where if isinstance(where, dict) else vars(where)
+    orig, counter = table[name], dryrun.Counter
+    planted = plant and getattr(plant[0], plant[1])
+
+    def tagged(*args, **kw):
+        INSIDE["inside"] += 1
+        try:
+            out = orig(*args, **kw)
+        finally:
+            INSIDE["inside"] -= 1
+        INSIDE["out"] = max((t.to_local().nbytes for t in dryrun._tensors(out)
+                             if hasattr(t, "to_local")), default=0)
+        return out
+
+    INSIDE.update(inside=0, largest=0, out=0)
+    if rank:
+        forget_meshes()
+    table[name] = tagged
+    if plant:
+        setattr(plant[0], plant[1], plant[2])
+    dryrun.Counter = ScopeCounter
+    mesh = tmesh.fake_mesh(mesh_shape, rank)
+    try:
+        dryrun.trace_cell(cfg, shape, mesh, "xla", "cpu")
+    finally:
+        table[name] = orig
+        if plant:
+            setattr(plant[0], plant[1], planted)
+        dryrun.Counter = counter
+        torch.distributed.destroy_process_group()
+        if rank:
+            forget_meshes()
+    return dict(INSIDE)
+
+
+def forget_meshes() -> None:
+    """DTensor's caches of sharding propagation and redistribution plans
+    emptied: they key a mesh by its shape and ranks, so a fake group of
+    another rank in this process would be given the earlier group's
+    meshes (their process groups destroyed)."""
+    from torch.distributed.tensor import DTensor, _redistribute
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for fn in (prop.propagate_op_sharding, getattr(prop, "_propagate_tensor_meta_cached", None),
+               getattr(_redistribute, "_gen_transform_infos", None)):
+        if hasattr(fn, "cache_clear"):
+            fn.cache_clear()
+    if hasattr(_redistribute, "clear_redistribute_planner_cache"):
+        _redistribute.clear_redistribute_planner_cache()
+    if hasattr(torch._C, "_clear_DTensor_sharding_propagator_cache"):  # its C++ fast path's
+        torch._C._clear_DTensor_sharding_propagator_cache()
+
+
+@pytest.mark.parametrize("mesh_shape", SMALL_MESHES, ids=str)
+def test_decode_attends_where_the_cache_lies(mesh_shape):
+    """A decode step of REDUCED gemma2-2b with one KV head (B 64, a cache of
+    32 positions) under the production condition: no collective inside an
+    attention unit returns more than the unit's q [B, 1, H, hd] and output
+    [B, 1, D] bytes, where the query-rows layout of ``_attend`` (planted:
+    ``_cache_aligned`` finding no layout) gathers the cache whole over
+    "model"."""
+    from repro_torch.models import attention
+
+    cfg, shape = kv1_cfg(), GUARD_SHAPES["decode"]
+    production_condition(cfg, mesh_shape)
+    item = getattr(torch, cfg.dtype).itemsize
+    bound = shape.global_batch * (cfg.n_heads * cfg.hd + cfg.d_model) * item
+    clean = largest_inside(attention, "apply_decode", cfg, shape, mesh_shape)
+    planted = largest_inside(attention, "apply_decode", cfg, shape, mesh_shape,
+                             plant=(attention, "_cache_aligned", lambda q, k, mask: None))
+    print(mesh_shape, {"largest": clean["largest"], "bound": bound,
+                       "planted": planted["largest"]})
+    assert 0 < clean["largest"] <= bound < planted["largest"]
+
+
+@pytest.mark.parametrize("mesh_shape", SMALL_MESHES, ids=str)
+def test_the_filled_cache_moves_a_share_at_most(mesh_shape):
+    """A prefill step of REDUCED gemma2-2b with one KV head under the
+    production condition, seen from rank 1 (off the diagonal of the
+    transposition, so that its block comes from another device): no
+    collective inside ``shard_cache`` returns more than the device's
+    largest cache leaf (its share: stricter than twice it, since on these
+    meshes the whole batch is twice a share), where DTensor's own
+    redistribution (planted in place of ``relayout``) gathers the whole
+    batch."""
+    cfg, shape = kv1_cfg(), GUARD_SHAPES["prefill"]
+    production_condition(cfg, mesh_shape)
+
+    def gathered(t, places):
+        return t.redistribute(t.device_mesh, places)
+
+    clean = largest_inside(sharding, "shard_cache", cfg, shape, mesh_shape, rank=1)
+    planted = largest_inside(sharding, "shard_cache", cfg, shape, mesh_shape, rank=1,
+                             plant=(sharding, "relayout", gathered))
+    print(mesh_shape, {k: clean[k] for k in ("largest", "out")}, planted["largest"])
+    assert 0 < clean["largest"] <= clean["out"] < planted["largest"]
+
+
+@pytest.mark.parametrize("mesh_shape", SMALL_MESHES, ids=str)
+def test_mlstm_prefill_gathers_no_whole_activation(mesh_shape):
+    """A prefill of REDUCED xlstm-1.3b at S = 512, a whole number of
+    256-token chunks on each "model" rank: no collective inside an mLSTM
+    unit returns a whole [B_local, S, H, hd] in the compute dtype, where
+    the rows path (planted: ``_sequence_split`` finding no split) makes q,
+    k and v whole on every "model" rank."""
+    from repro_torch.models import recurrent, transformer
+
+    cfg, shape = small_cfg("xlstm-1.3b", treg), GUARD_SHAPES["xlstm"]
+    sizes = dict(zip(tmesh.AXES[-len(mesh_shape):], mesh_shape))
+    assert shape.seq_len // sizes["model"] % recurrent.MLSTM_CHUNK == 0
+    P, H, hd = recurrent._mlstm_dims(cfg)
+    rows = shape.global_batch // (sizes["data"] * sizes.get("pod", 1))
+    whole = rows * shape.seq_len * H * hd * getattr(torch, cfg.dtype).itemsize
+    clean = largest_inside(transformer._RECURRENT, "mlstm", cfg, shape, mesh_shape)
+    planted = largest_inside(transformer._RECURRENT, "mlstm", cfg, shape, mesh_shape,
+                             plant=(recurrent, "_sequence_split", lambda t, S: None))
+    print(mesh_shape, {"largest": clean["largest"], "whole": whole,
+                       "planted": planted["largest"]})
+    assert 0 < clean["largest"] < whole <= planted["largest"]
+
+
+def test_on_rows_moves_each_argument_once():
+    """REDUCED xlstm-1.3b prefill at S = 16 (its mLSTM on the rows path, its
+    sLSTM and the gates through ``common.on_rows``) on a fake (2, 2) mesh:
+    each call of ``on_rows`` redistributes each argument once at most,
+    where reading the rows' layout off a redistributed copy of the first
+    (planted: ``batch_layout`` of it first) moves it twice."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import common
+
+    cfg, shape = small_cfg("xlstm-1.3b", treg), SMALL_SHAPES["prefill"]
+    calls, moves = [], [0]
+    orig, move = common.on_rows, DTensor.redistribute
+
+    def counted(t, *a, **kw):
+        moves[0] += 1
+        return move(t, *a, **kw)
+
+    def watched(planted):
+        def on_rows(fn, rows, whole):
+            before = moves[0]
+            if planted:
+                common.batch_layout(next(t for t in rows if common.is_dtensor(t)))
+            out = orig(fn, rows, whole)
+            calls.append((moves[0] - before, len(rows) + len(whole)))
+            return out
+        return on_rows
+
+    found = {}
+    for planted in (False, True):
+        calls.clear()
+        common.on_rows, DTensor.redistribute = watched(planted), counted
+        mesh = tmesh.fake_mesh((2, 2))
+        try:
+            dryrun.trace_cell(cfg, shape, mesh, "xla", "cpu")
+        finally:
+            common.on_rows, DTensor.redistribute = orig, move
+            torch.distributed.destroy_process_group()
+        found[planted] = list(calls)
+    print(found)
+    assert found[False] and all(n <= args for n, args in found[False])
+    assert any(n > args for n, args in found[True])
+
+
 def test_reference_holds_every_cell_within_the_limits():
     """dryrun_reference.json: phase 22's cells, each OK in both packages on
     both meshes, the port's argument bytes the count from specs, every
     cell's FLOPs ratio within DRYRUN_FLOPS_LIMIT (the MoE cells too), an
     MoE train cell within DRYRUN_MOE_RECKONING_LIMIT of the model's own
-    count a device, every cell's collective bytes over the JAX package's
-    recorded in ``coll_ratio``, and an MoE train cell's within
-    DRYRUN_MOE_COLL_LIMIT."""
+    count a device, and every cell's collective bytes over the JAX
+    package's, recorded in ``coll_ratio``, within DRYRUN_COLL_LIMIT (or
+    the cell's own limit of DRYRUN_COLL_LIMITS)."""
     ref = json.loads(REFERENCE.read_text())
     assert [tuple(c) for c in ref["cells"]] == list(chip_smoke.DRYRUN_CELLS)
     limit = chip_smoke.DRYRUN_FLOPS_LIMIT
@@ -542,12 +753,13 @@ def test_reference_holds_every_cell_within_the_limits():
             assert ratio == ref["flops_ratio"][key] and 1 / limit <= ratio <= limit, (key, ratio)
             coll = port["coll_x"] / want["coll_x"]
             assert coll == ref["coll_ratio"][key], (key, coll)
+            held = chip_smoke.DRYRUN_COLL_LIMITS.get((arch, shape), chip_smoke.DRYRUN_COLL_LIMIT)
+            assert coll <= held, (key, coll, held)
             cfg, cell = treg.get_config(arch), treg.get_shape(shape)
             if cell.kind == "train" and cfg.family == "moe":
                 reckoned = chip_smoke.train_flops(cfg, cell.global_batch, cell.seq_len)
                 over = port["flops"] / (reckoned / port["n_devices"])
                 assert over <= chip_smoke.DRYRUN_MOE_RECKONING_LIMIT, (key, over)
-                assert coll <= chip_smoke.DRYRUN_MOE_COLL_LIMIT, (key, coll)
 
 
 # ------------------------------------------------------ phase 22's reference

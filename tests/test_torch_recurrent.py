@@ -1,9 +1,12 @@
 """The port's recurrent units against the JAX package's, on the CPU:
 ``causal_conv1d`` with its carry, the mLSTM (chunkwise prefill over two
-chunks, from a carried state, then decode), the sLSTM and the RG-LRU
-(from a carried h), each in float32 and bfloat16, weights drawn by
+chunks, from a carried state, then decode; and split over the sequence
+on simulated ranks, as a sharded prefill runs it), the sLSTM and the
+RG-LRU (from a carried h), each in float32 and bfloat16, weights drawn by
 ``repro_torch.models.weights.numpy_params`` for both packages.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -146,6 +149,78 @@ def test_mlstm_length_rule():
     _, tcfg, _, tp = unit_pair("xlstm-1.3b", "mlstm", "float32")
     with pytest.raises(ValueError, match="chunks of 256"):
         trec.mlstm_apply(tp, torch.zeros((1, 300, tcfg.d_model)), tcfg)
+
+
+def split_scan(bounds, whole=trec._mlstm_scan):
+    """``recurrent._mlstm_scan`` (``whole``) as a prefill split over the
+    sequence runs it, ranks simulated in one process: rank r holds tokens
+    bounds[r] to bounds[r + 1], runs them from the zero state
+    (``mlstm_run_end``), and scans them from the exclusive prefix of the
+    runs before it (``mlstm_carry``); the state after the last token is
+    the prefix of every run."""
+
+    def scan(q, k, v, i, logf, C0, n0, scale):
+        parts = [slice(a, b) for a, b in zip(bounds[:-1], bounds[1:])]
+        runs = [trec.mlstm_run_end(*(t[:, s] for t in (k, v, i, logf))) for s in parts]
+        hs = [whole(*(t[:, s] for t in (q, k, v, i, logf)), *trec.mlstm_carry(C0, n0, runs[:r]),
+                    scale)[0] for r, s in enumerate(parts)]
+        return (torch.cat(hs, dim=1), *trec.mlstm_carry(C0, n0, runs))
+
+    return scan
+
+
+SPLIT_S = 1024  # four chunks: whole ones on 2 and 4 ranks
+
+
+@functools.cache
+def split_case():
+    """The REDUCED mLSTM unit in float32 (the port's params), x [2, SPLIT_S,
+    D] and a carried (C, n, conv) for the port, and the JAX package's
+    ``mlstm_apply`` output and cache on the same numpy inputs."""
+    jcfg, tcfg, jp, tp = unit_pair("xlstm-1.3b", "mlstm", "float32")
+    rng = np.random.default_rng(4)
+    jc, tc = carried(rng, jrec.mlstm_cache_init(jcfg, 2, jnp.float32), "float32", 0.5)
+    x = rng.standard_normal((2, SPLIT_S, tcfg.d_model), dtype=np.float32)
+    jy, jc = jax.jit(lambda p, x, c: jrec.mlstm_apply(p, x, jcfg, c))(jp, jnp.asarray(x), jc)
+    return tcfg, tp, x, tc, jy, jc
+
+
+def split_vs_reference(monkeypatch, bounds):
+    """``split_case``'s unit with its scan split at ``bounds``
+    (``split_scan``): the scan's h and state against ``_mlstm_scan`` whole,
+    the unit's output and cache against the JAX package's ``mlstm_apply``,
+    each at TOL."""
+    tcfg, tp, x, tc, jy, jc = split_case()
+    seen, whole = {}, trec._mlstm_scan
+
+    def scan(*args, scale):
+        seen["split"] = split_scan(bounds, whole)(*args, scale)
+        seen["whole"] = whole(*args, scale)
+        return seen["split"]
+
+    monkeypatch.setattr(trec, "_mlstm_scan", scan)
+    ty, tc = trec.mlstm_apply(tp, torch.as_tensor(x), tcfg, trec.MLSTMCache(**tc))
+    for got, want, what in zip(seen["split"], seen["whole"], ("h", "C", "n")):
+        close(got, want, "float32", f"{what} against the whole scan")
+    close(ty, jy, "float32", "unit against the JAX package")
+    close_cache(tc, jc, "float32", "cache against the JAX package")
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_mlstm_split_over_the_sequence_equals_the_whole_scan(monkeypatch, ranks):
+    """1,024 tokens (four chunks) over 2 and 4 simulated ranks, each a run
+    of whole chunks: the split scan with its prefix of states is the whole
+    scan and the JAX package's unit (``split_vs_reference``)."""
+    split_vs_reference(monkeypatch, [r * SPLIT_S // ranks for r in range(ranks + 1)])
+
+
+def test_mlstm_split_that_cuts_a_chunk_fails(monkeypatch):
+    """Planted: the split at token 640, inside the third chunk, so that
+    rank 1's chunks start 128 tokens off the multiples of 256: the
+    reference's scale quirk (hd ** -0.5 on the intra-chunk scores only)
+    moves the output off the whole scan's, and the check fails."""
+    with pytest.raises(AssertionError, match="against the whole scan"):
+        split_vs_reference(monkeypatch, [0, 640, SPLIT_S])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -10,7 +10,12 @@ and of 8 (pod 2 x data 2 x model 2, the grad sync "xla" and
 steps (and at capacity factor 0.25, where each rank's rows drop
 replicas), recurrentgemma-9b, deepseek-moe-16b on the pod mesh and
 granite-moe-3b-a800m with 6 experts over 4 owners (padded to 8) a
-prefill and one decode step.  Each is held,
+prefill and one decode step, and so gemma2-2b with one KV head on both
+meshes (the production condition: the KV heads do not split over
+"model", so the cache's batch does, and decode attends there; the filled
+cache moved by ``sharding.relayout``) and xlstm-1.3b at S = 512 on (2, 2)
+(its mLSTM prefill split over the sequence, a 256-token chunk a "model"
+rank).  Each is held,
 in float32, within ``chip_smoke.TRAIN_TOL`` (loss, nll, grad norm, lr,
 each leaf's update) or ``compare.SERVE_TOL`` (the logits against each
 row's RMS) against
@@ -76,14 +81,23 @@ CASES = {
     "granite-moe-3b-a800m@6-experts-2x2x2-serve": ("granite-moe-3b-a800m@6-experts", "serve",
                                                    (2, 2, 2), "xla"),
     "deepseek-moe-16b-2x2-unit": ("deepseek-moe-16b", "unit", (2, 2), "xla"),
+    "gemma2-2b@kv1-2x2-serve": ("gemma2-2b@kv1", "serve", (2, 2), "xla"),
+    "gemma2-2b@kv1-2x2x2-serve": ("gemma2-2b@kv1", "serve", (2, 2, 2), "xla"),
+    "xlstm-1.3b-2x2-serve512": ("xlstm-1.3b", "serve", (2, 2), "xla"),
 }
-# the REDUCED configurations changed for a case ("arch@variant" -> the moe
-# fields replaced): a capacity factor at which the batch drops replicas on
-# each rank; experts that do not split over the 4 owners of a (2, 2, 2)
-# mesh (pod x data: 6 padded to 8)
-VARIANTS = {"deepseek-moe-16b@cf0.25": {"capacity_factor": 0.25},
-            "granite-moe-3b-a800m@6-experts": {"n_experts": 6}}
+# the REDUCED configurations changed for a case ("arch@variant" -> the
+# fields replaced, "moe" the moe fields): a capacity factor at which the
+# batch drops replicas on each rank; experts that do not split over the 4
+# owners of a (2, 2, 2) mesh (pod x data: 6 padded to 8); one KV head, which
+# does not split over "model", as gemma2-2b's 4 do not over 16 (the cache's
+# batch then lies over "model", and decode attends there)
+VARIANTS = {"deepseek-moe-16b@cf0.25": {"moe": {"capacity_factor": 0.25}},
+            "granite-moe-3b-a800m@6-experts": {"moe": {"n_experts": 6}},
+            "gemma2-2b@kv1": {"n_kv_heads": 1}}
 STEPS, BATCH, SEQ, SEED, CHUNKS, MAX_LEN = 2, 8, 16, 0, 2, 32
+# a serve case's prompt length where it is not SEQ: xlstm-1.3b's mLSTM
+# split over the sequence needs whole 256-token chunks on each "model" rank
+SERVE_SEQ = {"xlstm-1.3b-2x2-serve512": 512}
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
 PLANTED_LEAF = "main.0.wq"  # its gradient's model shard 0 on every rank
 # the planted cases -> their fault: every rank given model shard 0 of
@@ -103,7 +117,8 @@ def case_configs(arch: str):
     name, _, _ = arch.partition("@")
     jcfg, tcfg = configs(name)
     if arch in VARIANTS:
-        jcfg, tcfg = (c.replace(moe=dataclasses.replace(c.moe, **VARIANTS[arch]))
+        jcfg, tcfg = (c.replace(**{k: dataclasses.replace(c.moe, **v) if k == "moe" else v
+                                   for k, v in VARIANTS[arch].items()})
                       for c in (jcfg, tcfg))
     return jcfg, tcfg
 
@@ -116,10 +131,10 @@ def data_cfg(mod, vocab: int):
     return mod.DataConfig(vocab=vocab, global_batch=BATCH, seq_len=SEQ, seed=SEED)
 
 
-def serve_inputs(cfg) -> tuple:
-    """The prompt batch and the decode step's tokens."""
+def serve_inputs(cfg, seq: int = SEQ) -> tuple:
+    """The prompt batch of ``seq`` tokens and the decode step's tokens."""
     rng = np.random.default_rng(SEED)
-    tokens = rng.integers(0, cfg.vocab, (BATCH, SEQ)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab, (BATCH, seq)).astype(np.int32)
     return {"tokens": tokens}, rng.integers(0, cfg.vocab, (BATCH, 1)).astype(np.int32)
 
 
@@ -191,15 +206,15 @@ def port_train(arch: str, mesh=None, grad_sync: str = "xla", planted: str | None
     return {"rows": rows, "params": full_params(state["params"])}
 
 
-def port_serve(arch: str, mesh=None) -> dict:
-    """The prefill's last logits and one decode step's, from the frozen
-    ``numpy_params`` (sharded over ``mesh`` if given)."""
+def port_serve(arch: str, mesh=None, seq: int = SEQ) -> dict:
+    """The prefill's last logits of ``seq`` tokens and one decode step's,
+    from the frozen ``numpy_params`` (sharded over ``mesh`` if given)."""
     _, tcfg = case_configs(arch)
     params = weights.from_jax_params(weights.numpy_params(tcfg, SEED), tcfg, "cpu")
     if mesh is not None:
         sharding.shard_params(params, tcfg, mesh)
-    batch, tok = serve_inputs(tcfg)
-    logits, cache = tsteps.make_prefill_step(tcfg, MAX_LEN)(
+    batch, tok = serve_inputs(tcfg, seq)
+    logits, cache = tsteps.make_prefill_step(tcfg, max(MAX_LEN, seq + 1))(
         params, {k: torch.from_numpy(v) for k, v in batch.items()})
     _, dlogits, _ = tsteps.make_serve_step(tcfg)(params, torch.from_numpy(tok), cache)
 
@@ -290,7 +305,8 @@ def rank_runs(world: int) -> dict:
         elif kind == "unit":
             out.update({f"{name}/{k}": v for k, v in port_unit(arch, mesh).items()})
         else:
-            out.update({f"{name}/{k}": v for k, v in port_serve(arch, mesh).items()})
+            out.update({f"{name}/{k}": v
+                        for k, v in port_serve(arch, mesh, SERVE_SEQ.get(name, SEQ)).items()})
         out[f"{name}/wall"] = np.array(time.time() - t0)
     return out
 
@@ -381,9 +397,9 @@ def jax_train(arch: str, shape, grad_sync: str) -> dict:
     return {"rows": rows, "params": leaf_dict(state["params"])}
 
 
-def jax_serve(arch: str, shape) -> dict:
-    """The JAX package's prefill and serve steps jitted with the production
-    rule's shardings (the dry run's)."""
+def jax_serve(arch: str, shape, seq: int = SEQ) -> dict:
+    """The JAX package's prefill of ``seq`` tokens and serve step jitted with
+    the production rule's shardings (the dry run's)."""
     import jax.numpy as jnp
 
     from repro.dist import sharding as jshard
@@ -393,9 +409,9 @@ def jax_serve(arch: str, shape) -> dict:
     jcfg, tcfg = case_configs(arch)
     jp = to_jax(weights.numpy_params(tcfg, SEED), jcfg)
     mesh = jax_mesh(shape)
-    batch, tok = serve_inputs(tcfg)
+    batch, tok = serve_inputs(tcfg, seq)
     batch = {k: jnp.asarray(v) for k, v in batch.items()}
-    pf = jsteps.make_prefill_step(jcfg, MAX_LEN)
+    pf = jsteps.make_prefill_step(jcfg, max(MAX_LEN, seq + 1))
     c_specs = jshard.cache_specs(jax.eval_shape(pf, jp, batch)[1], mesh)
     pspecs = jax_named(jshard.param_specs(jp, mesh), mesh)
     prefill = jax.jit(pf, in_shardings=(pspecs, jax_named(jshard.batch_specs(batch, mesh),
@@ -427,7 +443,8 @@ JAX_RUNS = textwrap.dedent("""
             rows[name] = run["rows"]
             out.update({f"{name}/p/{k}": v for k, v in run["params"].items()})
         else:
-            out.update({f"{name}/{k}": v for k, v in t.jax_serve(arch, shape).items()})
+            out.update({f"{name}/{k}": v for k, v in
+                        t.jax_serve(arch, shape, t.SERVE_SEQ.get(name, t.SEQ)).items()})
     np.savez(sys.argv[1], **out)
     print(json.dumps({"devices": jax.device_count(), "rows": rows, "wall": time.time() - t0}))
 """)
@@ -564,8 +581,13 @@ def single_device(name: str) -> dict:
     pod step (each pod's loss and routing its own, the means through the
     ring on the float32 wire)."""
     arch, kind, shape, grad_sync = CASES[name]
-    if kind == "serve":
-        return port_serve(arch)
+    if kind == "serve":  # one thread: the recurrences' small steps gain nothing from more
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return port_serve(arch, seq=SERVE_SEQ.get(name, SEQ))
+        finally:
+            torch.set_num_threads(threads)
     if pod_routed(arch, shape, grad_sync):
         return port_train(arch, tmesh.make_pod_mesh(shape[0], device="cpu"), "seqbalance")
     return port_train(arch)
