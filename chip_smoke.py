@@ -267,7 +267,8 @@ Phases, each printed as JSON lines:
               the JAX package's coll_x (xlstm-1.3b prefill_32k within
               its own limit, DRYRUN_COLL_LIMITS); every cell's collective
               ratio beside its FLOPs ratio, and its peak beside the
-              card's memory, printed; peak and
+              card's memory, printed; every train cell's peak within the
+              card's memory less SHARD_RANK_MARGIN; peak and
               collective bytes by kind printed beside the JAX package's;
               each trace's wall printed;
  23. shard_rank one rank of gemma2-2b train_4k as published at the 16 x 16
@@ -279,10 +280,11 @@ Phases, each printed as JSON lines:
               22's peak_bytes of that cell and the card's memory (it must
               fit), the launches by kernel; its loss is not checked (the
               fake collectives leave garbage in it).  Then the same for
-              each deepseek-moe-16b train_4k cell (16 x 16, 2 x 16 x 16)
-              whose phase-22 peak leaves SHARD_RANK_MARGIN of the card
-              free (a line with the excess for one that does not), the
-              rank's masters built leaf by leaf (rank_params: the whole
+              each train_4k cell of SHARD_RANK_ARCHS (deepseek-moe-16b,
+              then recurrentgemma-9b; 16 x 16, 2 x 16 x 16) whose
+              phase-22 peak leaves SHARD_RANK_MARGIN of the card free (a
+              line with the excess for one that does not), the rank's
+              masters built leaf by leaf (rank_params: deepseek's whole
               float32 masters are 66 GB).
  24. examples the examples' twins as their CLIs run on the card
               (EXAMPLES_REFERENCE, written from the JAX examples' own code
@@ -3821,10 +3823,12 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
     DRYRUN_MOE_RECKONING_LIMIT of ``train_flops`` a device; every cell's
     collective bytes within DRYRUN_COLL_LIMIT of the JAX package's (or its
     own limit of DRYRUN_COLL_LIMITS); nothing allocated on the card; no
-    kernel launched.  Every cell's collective ratio beside its FLOPs
-    ratio, and its peak beside the card's memory, printed.
-    Returns the launch counts and each cell's peak bytes (phase 23 reads
-    gemma2-2b's and deepseek-moe-16b's train_4k)."""
+    kernel launched; every train cell's peak within the card's memory
+    less SHARD_RANK_MARGIN (phase 23 runs a rank of it).  Every cell's
+    collective ratio beside its FLOPs ratio, and its peak beside the
+    card's memory, printed.  Returns the launch counts and each cell's
+    peak bytes (phase 23 reads the train_4k cells of gemma2-2b and of
+    SHARD_RANK_ARCHS)."""
     import torch
 
     from repro_torch.configs import registry
@@ -3875,7 +3879,11 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
                                 f"not {expected}")
             if cell.kind == "train":
                 reckoned = train_flops(cfg, cell.global_batch, cell.seq_len) / mesh.size
-                row.update(reckoned_flops=reckoned, flops_over_reckoning=rec["flops"] / reckoned)
+                row.update(reckoned_flops=reckoned, flops_over_reckoning=rec["flops"] / reckoned,
+                           peak_limit=card - SHARD_RANK_MARGIN)
+                if rec["peak_bytes"] > card - SHARD_RANK_MARGIN:
+                    failures.append(f"{key}: {rec['peak_bytes'] / 1e9} GB at the peak, over "
+                                    f"the card's memory less {SHARD_RANK_MARGIN / 1e9} GB")
                 if cfg.family == "moe" and rec["flops"] > DRYRUN_MOE_RECKONING_LIMIT * reckoned:
                     failures.append(f"{key}: FLOPs {rec['flops']:.4g}, over "
                                     f"{DRYRUN_MOE_RECKONING_LIMIT} x {reckoned:.4g}")
@@ -3906,10 +3914,13 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
 
 
 SHARD_RANK_STEPS = 3  # phase 23
-# phase 23 runs rank 0 of a deepseek-moe-16b train_4k cell where phase 22's
-# peak for it leaves this much of the card's memory free
+# phase 23 runs rank 0 of a train_4k cell of SHARD_RANK_ARCHS where phase
+# 22's peak for it leaves this much of the card's memory free (and phase
+# 22 fails a train cell that does not)
 SHARD_RANK_MARGIN = 4e9
-SHARD_RANK_MOE = "deepseek-moe-16b"
+# (arch, the phase's name), run one after the other
+SHARD_RANK_ARCHS = (("deepseek-moe-16b", "shard_rank_moe"),
+                    ("recurrentgemma-9b", "shard_rank_recurrent"))
 
 
 def rank_params(cfg, mesh, seed: int = 0):
@@ -4011,12 +4022,13 @@ def phase_shard_rank(predicted_peak: float, arch: str = "gemma2-2b",
     return counts
 
 
-def phase_shard_rank_moe(predicted: dict) -> dict:
-    """Phase 23 for SHARD_RANK_MOE: ``phase_shard_rank`` of each of its
-    train_4k cells whose phase-22 peak (``predicted``: "label/arch/shape"
-    -> bytes) leaves SHARD_RANK_MARGIN of the card's memory free; for a
-    cell that does not, a line saying by how much it is over.  Returns
-    the launch counts, summed over the cells run."""
+def phase_shard_rank_cells(predicted: dict, name: str) -> dict:
+    """Phase 23 for an arch of SHARD_RANK_ARCHS (its lines named ``name``):
+    ``phase_shard_rank`` of each of its train_4k cells whose phase-22 peak
+    (``predicted``: "label/arch/shape" -> bytes) leaves SHARD_RANK_MARGIN
+    of the card's memory free; for a cell that does not, a line saying by
+    how much it is over.  Returns the launch counts, summed over the cells
+    run."""
     import gc
 
     import torch
@@ -4026,11 +4038,11 @@ def phase_shard_rank_moe(predicted: dict) -> dict:
     for key, peak in sorted(predicted.items()):
         label, arch, _ = key.split("/")
         if peak > total - SHARD_RANK_MARGIN:
-            emit({"phase": "shard_rank_moe", "cell": key, "run": False,
+            emit({"phase": name, "cell": key, "run": False,
                   "predicted_peak_gb": peak / 1e9, "card_memory_gb": total / 1e9,
                   "over_by_gb": (peak - (total - SHARD_RANK_MARGIN)) / 1e9})
             continue
-        got = phase_shard_rank(peak, arch, label, "shard_rank_moe")
+        got = phase_shard_rank(peak, arch, label, name)
         counts = {k: counts.get(k, 0) + v for k, v in got.items()}
         gc.collect()
         torch.cuda.empty_cache()
@@ -4307,8 +4319,8 @@ def worker_dryrun_train() -> dict:
 def worker_train_sync() -> dict:
     """Phase 21, given phase 18's step-0 loss (the argument after its
     name), then phase 23, given phase 22's peak bytes of gemma2-2b's cell
-    (the next) and of SHARD_RANK_MOE's cells (a JSON object, the next),
-    each once the model before it is gone."""
+    (the next) and of the cells of SHARD_RANK_ARCHS (a JSON object, the
+    next), each once the model before it is gone."""
     import gc
 
     import torch
@@ -4317,10 +4329,13 @@ def worker_train_sync() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["shard_rank"] = timed("shard_rank", phase_shard_rank, float(sys.argv[4]))
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {**out, "shard_rank_moe": timed("shard_rank_moe", phase_shard_rank_moe,
-                                           json.loads(sys.argv[5]))}
+    peaks = json.loads(sys.argv[5])
+    for arch, name in SHARD_RANK_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = timed(name, phase_shard_rank_cells,
+                          {k: v for k, v in peaks.items() if k.split("/")[1] == arch}, name)
+    return out
 
 
 # the processes that run phases 3-20 but 6 at once, each its phases in
@@ -4446,10 +4461,10 @@ def main() -> int:
         counts = {k: v for c in by_worker.values() for k, v in c.items()}
         emit({"phase_wall": "workers", "s": time.time() - t0})
         peak = phases["dryrun"]["peak_bytes"]["single_pod_16x16/gemma2-2b/train_4k"]
-        moe_peaks = {k: v for k, v in phases["dryrun_train"]["peak_bytes"].items()
-                     if k.endswith(f"/{SHARD_RANK_MOE}/train_4k")}
+        rank_peaks = {k: v for k, v in phases["dryrun_train"]["peak_bytes"].items()
+                      if k.split("/")[1] in dict(SHARD_RANK_ARCHS) and k.endswith("/train_4k")}
         last, _ = run_workers(LAST_WORKERS, (repr(phases["train"]["losses"][0]), repr(peak),
-                                             json.dumps(moe_peaks)))
+                                             json.dumps(rank_peaks)))
         train_sync_launches = last["train_sync"]["train_sync"]
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

@@ -48,6 +48,8 @@ Usage:
   python -m repro_torch.launch.dryrun --all --mesh both [--grad-sync seqbalance]
   python -m repro_torch.launch.dryrun --arch xlstm-1.3b --shape prefill_32k --sites
     (each collective's bytes by the line of the port that made it)
+  python -m repro_torch.launch.dryrun --arch recurrentgemma-9b --shape train_4k --peak-sites
+    (the live bytes at the peak by the line of the port that made each storage)
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ import argparse
 import json
 import math
 import os
+import sys
 import time
 import traceback
 import weakref
@@ -122,7 +125,7 @@ class Counter(TorchDispatchMode):
     which runs the operation on global shapes, is not counted), which
     then runs the local operations that this mode sees."""
 
-    def __init__(self, sites: bool = False):
+    def __init__(self, sites: bool = False, peak_sites: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
@@ -137,6 +140,11 @@ class Counter(TorchDispatchMode):
         self._propagating = 0
         # (kind, the innermost frame of the port that made it) -> result bytes
         self.sites = {} if sites else None
+        # the line of the port that made each live storage -> its bytes, now
+        # and at the peak
+        self.live_sites = {} if peak_sites else None
+        self.peak_sites: dict = {}
+        self._made_at: dict = {}
 
     def readings(self) -> dict:
         """The counts that grow with each operation (FLOPs, bytes accessed,
@@ -157,9 +165,11 @@ class Counter(TorchDispatchMode):
                 d[kind] += times * (now[k][kind] - since[k][kind])
 
     # ------------------------------------------------------------ memory
-    def track(self, t: torch.Tensor) -> int:
+    def track(self, t: torch.Tensor, site: str | None = None) -> int:
         """Count ``t``'s storage live until it is freed (once); returns its
-        bytes if it was new, else 0."""
+        bytes if it was new, else 0.  With ``peak_sites`` the storage is
+        keyed by ``site``, or by the line of the port that made it and the
+        line that called it (``_site``)."""
         st = t.untyped_storage()
         key = st._cdata
         if key in self._sizes:
@@ -167,12 +177,29 @@ class Counter(TorchDispatchMode):
         n = st.nbytes()
         self._sizes[key] = n
         self.live += n
-        self.peak = max(self.peak, self.live)
+        if self.live_sites is not None:
+            where = self._made_at[key] = site or _site(2)
+            self.live_sites[where] = self.live_sites.get(where, 0) + n
+        if self.live > self.peak:
+            self.peak = self.live
+            if self.live_sites is not None:
+                self.peak_sites = dict(self.live_sites)
         weakref.finalize(st, self._free, key)
         return n
 
+    def adjust(self, n: int) -> None:
+        """``n`` bytes more live (fewer where negative) that no storage of
+        the trace holds: the steps of a loop counted once
+        (``_loops_counted``)."""
+        self.live += n
+        if self.live_sites is not None:
+            self.live_sites[_COUNTED] = self.live_sites.get(_COUNTED, 0) + n
+
     def _free(self, key) -> None:
-        self.live -= self._sizes.pop(key, 0)
+        n = self._sizes.pop(key, 0)
+        self.live -= n
+        if self.live_sites is not None and key in self._made_at:
+            self.live_sites[self._made_at.pop(key)] -= n
 
     # ----------------------------------------------------------- dispatch
     def __enter__(self):
@@ -236,16 +263,21 @@ class Counter(TorchDispatchMode):
         return out
 
 
-def _site() -> str:
+_COUNTED = "the loop steps counted from one (dryrun._loops_counted)"
+
+
+def _site(depth: int = 1) -> str:
     """"file:line function" of the innermost frame of the port (outside
     this module) on the stack, or "autograd" for a backward that DTensor
-    runs from the engine."""
-    import traceback
-
-    for f in reversed(traceback.extract_stack()):
-        if "repro_torch" in f.filename and not f.filename.endswith("dryrun.py"):
-            return f"{f.filename.split('repro_torch/')[-1]}:{f.lineno} {f.name}"
-    return "autograd"
+    runs from the engine; with ``depth`` > 1, that many frames of the port
+    from the innermost out, joined by " <- "."""
+    f, found = sys._getframe(1), []
+    while f is not None and len(found) < depth:
+        name = f.f_code.co_filename
+        if "repro_torch" in name and not name.endswith("dryrun.py"):
+            found.append(f"{name.split('repro_torch/')[-1]}:{f.f_lineno} {f.f_code.co_name}")
+        f = f.f_back
+    return " <- ".join(found) or "autograd"
 
 
 def _nbytes(t) -> int:
@@ -272,13 +304,13 @@ def _loops_counted(counter):
         if S < 2 or torch.is_grad_enabled():
             return slstm(gx, c, n, h, m, r)
         held = _nbytes(h)  # each state tensor [B, H, hd]
-        counter.live += (S + 2) * held  # h_0 .. h_{S-2}; c, n, m before the last step
+        counter.adjust((S + 2) * held)  # h_0 .. h_{S-2}; c, n, m before the last step
         since = counter.readings()
         state = recurrent._slstm_cell(recurrent.SLSTMCache(c=c, n=n, h=h, m=m), gx[:, 0], r)
         counter.add(since, S - 1)
-        counter.live -= 3 * held  # the last step's predecessor state freed
+        counter.adjust(-3 * held)  # the last step's predecessor state freed
         hs = torch.stack([state.h] * S, dim=1)
-        counter.live -= (S - 1) * held  # the list of hidden states freed on return
+        counter.adjust(-(S - 1) * held)  # the list of hidden states freed on return
         return hs, state
 
     def mlstm_scan(q, k, v, i, logf, C0, n0, scale: float):
@@ -288,14 +320,14 @@ def _loops_counted(counter):
         if K < 2 or torch.is_grad_enabled():
             return mlstm(q, k, v, i, logf, C0, n0, scale)
         out, state = _nbytes(q) // K, _nbytes(C0) + _nbytes(n0)
-        counter.live += (K - 1) * out + state  # h of chunks 0 .. K-2; (C, n) before the last
+        counter.adjust((K - 1) * out + state)  # h of chunks 0 .. K-2; (C, n) before the last
         since = counter.readings()
         C1, n1, h = recurrent._mlstm_chunk(C0, n0, *(t[:, :L] for t in (q, k, v, i, logf)),
                                            scale)
         counter.add(since, K - 1)
-        counter.live -= state
+        counter.adjust(-state)
         h = torch.cat([h] * K, dim=1)
-        counter.live -= (K - 1) * out
+        counter.adjust(-(K - 1) * out)
         return h, C1, n1
 
     return slstm_scan, mlstm_scan
@@ -356,7 +388,8 @@ def _build(cfg, shape, mesh, grad_sync: str, device):
 
 
 def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
-               loop_count: bool = True, sites: bool = False) -> dict:
+               loop_count: bool = True, sites: bool = False,
+               peak_sites: bool = False) -> dict:
     """Trace one step of ``cfg`` at ``shape`` over ``mesh`` (a "process"
     mesh of a fake group) on fake tensors on ``device`` (``None``: "cuda"
     where a card is present, else "cpu"); the record's counts.  With
@@ -365,7 +398,11 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
     (``_loops_counted``: the same counts, number for number); else every
     step is traced.  With ``sites`` the record also holds
     ``collective_sites``: each collective's result bytes by kind and the
-    line of the port that made it (``_site``), largest first."""
+    line of the port that made it (``_site``), largest first; with
+    ``peak_sites``, ``peak_sites``: the live bytes at the peak by the line
+    of the port that made each storage and the line that called it
+    ("arguments" for the step's inputs), largest first, summing to
+    ``peak_bytes``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.models import recurrent
@@ -375,10 +412,10 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True):
         step, args = _build(cfg, shape, mesh, grad_sync, device)
-        counter = Counter(sites)
+        counter = Counter(sites, peak_sites)
         arguments = local_tensors(args)
         for t in arguments:
-            counter.track(t)
+            counter.track(t, "arguments")
         arg_bytes = counter.live
         rounds, sent = collectives.permute_rounds, collectives.permute_bytes
         whole = recurrent._slstm_scan, recurrent._mlstm_scan
@@ -401,6 +438,9 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
     if sites:
         extra["collective_sites"] = {f"{kind} {where}": float(n) for (kind, where), n in
                                      sorted(counter.sites.items(), key=lambda kv: -kv[1])}
+    if peak_sites:
+        extra["peak_sites"] = {where: float(n) for where, n in
+                               sorted(counter.peak_sites.items(), key=lambda kv: -kv[1]) if n}
     return {
         "n_devices": mesh.size,
         "flops": float(counter.flops),
@@ -422,7 +462,8 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
 
 
 def run_cell(arch: str, shape_name: str, mesh_label: str, grad_sync: str = "xla",
-             remat: str = "dots", device=None, mesh=None, sites: bool = False) -> dict:
+             remat: str = "dots", device=None, mesh=None, sites: bool = False,
+             peak_sites: bool = False) -> dict:
     """The record of one cell, as ``repro.launch.dryrun.run_cell`` writes
     it (``trace_s`` for ``lower_s``/``compile_s``); ``mesh``: the
     production mesh of ``mesh_label`` over a fake group, unless given."""
@@ -434,7 +475,7 @@ def run_cell(arch: str, shape_name: str, mesh_label: str, grad_sync: str = "xla"
                 "reason": why}
     if mesh is None:
         mesh = mesh_mod.fake_production_mesh(multi_pod=MESHES[mesh_label])
-    rec = trace_cell(cfg, shape, mesh, grad_sync, device, sites=sites)
+    rec = trace_cell(cfg, shape, mesh, grad_sync, device, sites=sites, peak_sites=peak_sites)
     return {"arch": arch, "shape": shape_name, "mesh": mesh_label, "status": "OK",
             "grad_sync": grad_sync, "remat": remat, **rec,
             # each superblock runs as code of its own: the counts are whole
@@ -554,6 +595,9 @@ def main(argv=None):
                                                    "cuda where a card is present, else cpu)")
     ap.add_argument("--sites", action="store_true",
                     help="record each collective's bytes by the line of the port that made it")
+    ap.add_argument("--peak-sites", action="store_true",
+                    help="record the live bytes at the peak by the line of the port that made "
+                         "each storage")
     args = ap.parse_args(argv)
 
     labels = [label for label, multi in MESHES.items()
@@ -579,7 +623,7 @@ def main(argv=None):
             print(f"[dryrun] {label} {arch} {shape_name} ...", flush=True)
             try:
                 rec = run_cell(arch, shape_name, label, args.grad_sync, args.remat,
-                               args.device, sites=args.sites)
+                               args.device, sites=args.sites, peak_sites=args.peak_sites)
             except Exception as e:
                 rec = {"arch": arch, "shape": shape_name, "mesh": label, "status": "FAIL",
                        "error": f"{type(e).__name__}: {e}",
@@ -593,6 +637,8 @@ def main(argv=None):
                          f" peak={rec['peak_bytes']:.3e}B trace={rec['trace_s']}s")
                 for where, n in list(rec.get("collective_sites", {}).items())[:8]:
                     extra += f"\n    {n:.3e} B {where}"
+                for where, n in list(rec.get("peak_sites", {}).items())[:12]:
+                    extra += f"\n    {n:.3e} B at the peak {where}"
             print(f"[{rec['status']}] {label} {arch} {shape_name}{extra}", flush=True)
         records[label] = existing
     return records

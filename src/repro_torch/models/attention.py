@@ -142,7 +142,7 @@ def _attend(q, k, v, mask, cfg):
     cache's placements alone."""
     if not common.is_dtensor(q):
         return _sdpa(q, k, v, mask, cfg)
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
@@ -171,7 +171,11 @@ def _attend(q, k, v, mask, cfg):
         q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
         return _sdpa(q, k, v, mask, cfg).contiguous()
 
-    fn = local_map(block, out_placements=qp, in_placements=(qp, kp, kp, mp))
+    # k's and v's gradient: a partial sum over a dim that splits the
+    # queries and not the keys (each device's queries read all of them)
+    gp = [Partial() if a.is_shard() and b.is_replicate() else b for a, b in zip(qp, kp)]
+    fn = local_map(block, out_placements=qp, in_placements=(qp, kp, kp, mp),
+                   in_grad_placements=(qp, gp, gp, mp))
     # the rows gathered back: the output projection's product would merge a
     # split sequence with the batch
     return common.batch_layout(fn(q, k, v, mask))

@@ -46,7 +46,19 @@ def from_local(t, mesh, placements, shape):
 
     shape = torch.Size(shape)
     return DTensor.from_local(t, mesh, placements, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, from the shape alone
+    (a tensor on the meta device made for them is, inside a
+    ``FakeTensorMode``, a fake tensor of the whole global shape that the
+    dry run's count of live bytes sees)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
 
 
 def no_source() -> dict:

@@ -135,7 +135,7 @@ def _run_decoder(params: Params, cfg, x, mode, cache=None, ctx=None):
                                             ctx)
     x, nc_main, a1 = transformer.apply_stack(params.main, x, cfg, sb, n_super, mode, c_main,
                                              ctx)
-    x, nc_trail, a2 = transformer.apply_units(params.trailing, x, cfg, trailing, mode,
+    x, nc_trail, a2 = transformer.apply_block(params.trailing, x, cfg, trailing, mode,
                                               c_trail, ctx)
     return x, {"prelude": nc_pre, "main": nc_main, "trailing": nc_trail}, a0 + a1 + a2
 

@@ -439,35 +439,30 @@ def rglru_cache_init(cfg, batch: int, dtype, device=None) -> RGLRUCache:
                                        device=device))
 
 
-def _rglru_coeffs(xc, p: RGLRUParams):
-    """a_t, b_t of h_t = a_t h + b_t [B, S, R], float32."""
-    rg = torch.sigmoid(common.matmul(xc, p.w_rg).to(torch.float32))
-    ig = torch.sigmoid(common.matmul(xc, p.w_ig).to(torch.float32))
-    log_a = -_RGLRU_C * rg * F.softplus(p.lam)  # <= 0
+def _gated(rg, ig, xc, lam):
+    """a_t, b_t of h_t = a_t h + b_t [B, S, R], float32, from the gates'
+    pre-activations rg, ig (xc @ w_rg, xc @ w_ig), xc and Lambda: channel
+    by channel."""
+    rg = torch.sigmoid(rg.to(torch.float32))
+    ig = torch.sigmoid(ig.to(torch.float32))
+    log_a = -_RGLRU_C * rg * F.softplus(lam)  # <= 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * ig \
         * xc.to(torch.float32)
     return a, b
 
 
-def linear_scan(a, b, h0):
-    """h_t = a_t h_{t-1} + b_t over axis 1, from h0 [B, R]: the carry as a
-    pseudo-step (a = 1, b = h0) ahead of the sequence, then Hillis-Steele
-    over the pairs, ceil(log2(S + 1)) passes of (a_l, b_l) . (a_r, b_r) =
-    (a_l a_r, a_r b_l + b_r), each one fused multiply-add into the other
-    of two buffers.  Returns h [B, S, R]."""
+def _rglru_coeffs(xc, p: RGLRUParams):
+    """a_t, b_t of h_t = a_t h + b_t [B, S, R], float32."""
+    return _gated(common.matmul(xc, p.w_rg), common.matmul(xc, p.w_ig), xc, p.lam)
+
+
+def _scan_passes(a, b, h0):
+    """The log-depth passes of ``linear_scan``, each one fused multiply-add
+    into the other of two buffers (no autograd).  Returns h [B, S, R]."""
     A = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
     Bv = torch.cat([h0[:, None], b], dim=1)
     n, d = A.shape[1], 1
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
-        # autograd records: the same passes into new tensors (an out= write
-        # is not differentiable)
-        while d < n:
-            Bv = torch.cat([Bv[:, :d], torch.addcmul(Bv[:, d:], A[:, d:], Bv[:, :-d])], 1)
-            if 2 * d < n:
-                A = torch.cat([A[:, :d], A[:, :-d] * A[:, d:]], 1)
-            d *= 2
-        return Bv[:, 1:]
     A2, B2 = torch.empty_like(A), torch.empty_like(Bv)
     while d < n:
         B2[:, :d] = Bv[:, :d]
@@ -481,11 +476,130 @@ def linear_scan(a, b, h0):
     return Bv[:, 1:]
 
 
+class _LinearScan(torch.autograd.Function):
+    """``_scan_passes`` with its gradient by the reverse recurrence: for
+    g_t = dL/dh_t through the whole sequence, g_t = dh_t + a_{t+1} g_{t+1}
+    (the same scan run backwards in time), db_t = g_t, da_t = g_t h_{t-1},
+    dh0 = a_1 g_1.  It keeps a and h (and h0) for the backward, where
+    autograd through the passes keeps two buffers a pass."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _scan_passes(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        g = _scan_passes(a_next.flip(1), dh.flip(1), torch.zeros_like(h0)).flip(1)
+        da = g * torch.cat([h0[:, None], h[:, :-1]], dim=1) if ctx.needs_input_grad[0] else None
+        dh0 = a[:, 0] * g[:, 0] if ctx.needs_input_grad[2] else None
+        return da, g, dh0
+
+
+def linear_scan(a, b, h0):
+    """h_t = a_t h_{t-1} + b_t over axis 1, from h0 [B, R]: the carry as a
+    pseudo-step (a = 1, b = h0) ahead of the sequence, then Hillis-Steele
+    over the pairs, ceil(log2(S + 1)) passes of (a_l, b_l) . (a_r, b_r) =
+    (a_l a_r, a_r b_l + b_r).  Where autograd records, the same passes
+    with the reverse recurrence as their gradient (``_LinearScan``).
+    Returns h [B, S, R]."""
+    if common.records(a, b, h0):
+        return _LinearScan.apply(a, b, h0)
+    return _scan_passes(a, b, h0)
+
+
+def _channel_split(t, R: int):
+    """The index of the "model" mesh dim over which a DTensor RG-LRU splits
+    its R channels, or ``None`` (a plain tensor; no "model" dim of more
+    than one member; or R not a multiple of its size): the rows path runs
+    instead."""
+    if not common.is_dtensor(t):
+        return None
+    names = t.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    n = t.device_mesh.size(m)
+    return m if n > 1 and R % n == 0 else None
+
+
+def _rglru_on_channels(p: RGLRUParams, x, hx, cache: RGLRUCache | None, m: int):
+    """The RG-LRU's full sequence on DTensors split over "model" (mesh dim
+    ``m``) on its R channels, each device on its own rows (the residual
+    stream's layout) and R / M channels.  The recurrence is diagonal in its
+    channels, so the conv, the gates and the scan send nothing.  The four
+    products that feed it take their weight's columns (w_in, w_gate, w_rg,
+    w_ig, each moved from "model" on its input dim to "model" on its
+    output dim: an all-to-all of the weight's block, its gradient moved
+    back so), so that each product is an R-split output computed once,
+    not a whole-width partial sum over "model"; w_rg and w_ig read xc
+    whole over "model" (one all-gather, its gradient a reduce-scatter).
+    The output returns through ``w_out`` the same way: gathered whole over
+    "model" against the weight's columns, a D-split product (a partial
+    sum over "model" would be saved at the whole width).  Returns (x +
+    out, the cache: h and conv laid out as the channels)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    R, W = p.w_in.shape[-1], p.conv_w.shape[0]
+    rows = common.batch_placements(mesh, B)
+
+    def split(dim, base=rows):  # ``base`` with "model" on ``dim``
+        out = list(base)
+        out[m] = Shard(dim)
+        return out
+
+    whole = [Replicate()] * mesh.ndim
+
+    def cols(w):
+        return common.laid_out(w, mesh, split(1, whole))
+
+    chans = split(2)
+    gate = F.gelu(common.matmul(hx, cols(p.w_gate)), approximate="tanh")
+    xin = common.matmul(hx, cols(p.w_in))
+    if cache is not None:
+        prev = common.laid_out(cache.conv, mesh, chans)
+    else:
+        local = xin.to_local()
+        prev = common.from_local(local.new_zeros((local.shape[0], W - 1, local.shape[2])),
+                                 mesh, chans, (B, W - 1, R))
+    xc, conv_new = causal_conv1d(xin, common.laid_out(p.conv_w, mesh, split(1, whole)), prev)
+    xw = common.gathered_on(xc, (2,))
+    rg, ig = common.matmul(xw, cols(p.w_rg)), common.matmul(xw, cols(p.w_ig))
+    # Lambda's gradient: a partial sum over the dims that split the rows
+    lam = common.laid_out(p.lam, mesh, split(0, whole)).to_local(
+        grad_placements=split(0, [Partial() if r.is_shard() else Replicate() for r in rows]))
+    local = [t.to_local() for t in (rg, ig, xc)]
+    if cache is not None:
+        h0 = common.laid_out(cache.h, mesh, split(1)).to_local()
+    else:
+        h0 = local[0].new_zeros((local[0].shape[0], local[0].shape[2]), dtype=torch.float32)
+    with common.span("recurrent.rglru"):
+        hs = linear_scan(*_gated(*local, lam), h0)
+    hs = common.from_local(hs, mesh, chans, (B, S, R))
+    out = common.gathered_on(hs.to(x.dtype) * gate, (2,))
+    y = common.batch_layout(common.matmul(out, cols(p.w_out)))
+    return x + y, RGLRUCache(h=hs[:, -1].clone(), conv=conv_new)
+
+
 def rglru_apply(p: RGLRUParams, x, cfg, cache: RGLRUCache | None = None,
                 decode: bool = False):
+    """Full-sequence (the log-depth scan) or single-step (decode) RG-LRU
+    block; returns (x + out, new cache).  A DTensor full sequence whose R
+    channels split over "model" (``_channel_split``) runs
+    ``_rglru_on_channels``; else, on DTensors, each device scans its own
+    rows at the whole R (``common.on_rows``)."""
     B, S, D = x.shape
     dt = x.dtype
     hx = common.rms_norm(x, p.ln)
+    m = None if decode else _channel_split(x, p.w_in.shape[-1])
+    if m is not None:
+        return _rglru_on_channels(p, x, hx, cache, m)
     gate = F.gelu(common.matmul(hx, p.w_gate), approximate="tanh")
     xin = common.matmul(hx, p.w_in)
     xc, conv_new = causal_conv1d(xin, p.conv_w, cache.conv if cache is not None else None)

@@ -232,18 +232,26 @@ def _remat(cfg, mode: str):
     raise ValueError(f"remat {cfg.remat!r} is not one of none, dots, full")
 
 
+def apply_block(params, x, cfg, units, mode: str, cache=None, ctx=None):
+    """``apply_units``, recomputed in the backward pass under ``cfg.remat``
+    (``_remat``): a superblock, or the trailing block (recurrentgemma-9b's
+    two RG-LRU and two MLP units after its superblocks, whose activations
+    would otherwise be held whole at the loss).  Returns (x, new caches,
+    aux)."""
+    remat = _remat(cfg, mode)
+    if remat is None or not units:
+        return apply_units(params, x, cfg, units, mode, cache, ctx)
+    return checkpoint.checkpoint(apply_units, params, x, cfg, units, mode, cache, ctx, **remat)
+
+
 def apply_stack(params, x, cfg, units, n, mode: str, cache=None, ctx=None):
     """The superblock n times, in order, each recomputed in the backward
-    pass under ``cfg.remat`` (``_remat``).  Returns (x, new caches, aux)."""
+    pass under ``cfg.remat`` (``apply_block``).  Returns (x, new caches,
+    aux)."""
     new_cache, aux = [], 0.0
-    remat = _remat(cfg, mode)
     for i in range(n):
         c = cache[i] if cache is not None else None
-        if remat is None:
-            x, nc, a = apply_units(params[i], x, cfg, units, mode, c, ctx)
-        else:
-            x, nc, a = checkpoint.checkpoint(apply_units, params[i], x, cfg, units, mode, c,
-                                             ctx, **remat)
+        x, nc, a = apply_block(params[i], x, cfg, units, mode, c, ctx)
         new_cache.append(nc)
         aux = aux + a
     return x, new_cache, aux

@@ -703,7 +703,7 @@ class _Recorder:
         self.recorder, self.spec, self.F_pad = recorder, spec, F_pad
         dev = topo.device
         self.uplink_flat = torch.as_tensor(topo.uplink_ids.ravel().astype(np.int64), device=dev)
-        self.ring = recorder.ring_init(spec, self.uplink_flat.numel(), B, dev)
+        self.ring = recorder.ring_init(spec, self.uplink_flat.numel(), B, device=dev)
         self.cap = topo.capacity if capacity is None else capacity
         self.seg = max(int(cap_seg_steps), 1)
 

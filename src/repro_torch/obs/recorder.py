@@ -56,7 +56,9 @@ class RingState(NamedTuple):
     count: torch.Tensor  # i64[B] chunks written so far (may exceed R)
 
 
-def ring_init(spec: RecordSpec, n_uplinks: int, B: int = 1, device="cpu") -> RingState:
+def ring_init(spec: RecordSpec, n_uplinks: int, B: int = 1, *, device) -> RingState:
+    """An empty ring of ``B`` simulations on ``device`` (named by the
+    caller: the port's entry points choose their device explicitly)."""
     R = int(spec.ring_chunks)
     return RingState(
         meta=torch.zeros((B, R, len(meta_fields(spec))), dtype=torch.float32, device=device),

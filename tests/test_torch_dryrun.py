@@ -376,6 +376,90 @@ def test_recurrentgemma_trains_on_the_pod_mesh():
     assert rec["flops"] > 0
 
 
+# an H100's 80 GB less chip_smoke.SHARD_RANK_MARGIN, the room phase 23
+# needs to run a rank (phase 22 gates at the card's own count)
+FITS_A_CARD = 80e9 - chip_smoke.SHARD_RANK_MARGIN
+GUARD_DEPTHS = (5, 8)  # one and two superblocks, each with the trailing pair
+
+
+def recurrentgemma_peaks(plant=None) -> dict:
+    """recurrentgemma-9b train_4k at its widths on a fake 16 x 16 group
+    (rank 0), cut to each depth of GUARD_DEPTHS: n_layers -> peak bytes a
+    device; ``plant``: (module, name, value) set for the traces."""
+    held = plant and getattr(plant[0], plant[1])
+    if plant:
+        setattr(plant[0], plant[1], plant[2])
+    out = {}
+    try:
+        for n in GUARD_DEPTHS:
+            cfg = treg.get_config("recurrentgemma-9b").replace(remat="dots", n_layers=n)
+            mesh = tmesh.fake_production_mesh(multi_pod=False)
+            try:
+                out[n] = dryrun.trace_cell(cfg, treg.get_shape("train_4k"), mesh, "xla",
+                                           "cpu")["peak_bytes"]
+            finally:
+                torch.distributed.destroy_process_group()
+    finally:
+        if plant:
+            setattr(plant[0], plant[1], held)
+    return out
+
+
+def whole_depth_peak(peaks: dict) -> float:
+    """The peak of the published 38 layers (12 superblocks) from the cut
+    depths: the peak falls in the first superblock's backward, where every
+    superblock's saved state is held, so each superblock adds what it
+    keeps under "dots", the difference between the depths."""
+    from repro_torch.models import transformer
+
+    n_super = transformer.block_program(treg.get_config("recurrentgemma-9b"))[2]
+    (a, pa), (b, pb) = sorted(peaks.items())
+    per_superblock = (pb - pa) / ((b - a) // 3)
+    return pa + (n_super - 1) * per_superblock
+
+
+def test_recurrentgemma_train_fits_a_card():
+    """recurrentgemma-9b train_4k at its widths at 16 x 16, cut to 5 and 8
+    layers (a few seconds each on fake tensors): the published depth's
+    peak a device, extrapolated superblock by superblock
+    (``whole_depth_peak``), within FITS_A_CARD; the RG-LRU run through
+    ``common.on_rows`` at the whole R (planted: ``_channel_split`` finding
+    no split, the path before the channel split) is not."""
+    from repro_torch.models import recurrent
+
+    clean = recurrentgemma_peaks()
+    planted = recurrentgemma_peaks((recurrent, "_channel_split", lambda t, R: None))
+    print({"clean": clean, "whole": whole_depth_peak(clean), "planted": planted,
+           "planted_whole": whole_depth_peak(planted), "bound": FITS_A_CARD})
+    assert whole_depth_peak(clean) < FITS_A_CARD < whole_depth_peak(planted)
+
+
+def test_peak_sites_sum_to_the_peak():
+    """``trace_cell(peak_sites=True)`` on REDUCED gemma2-2b's train cell and
+    xlstm-1.3b's prefill (its loops counted from one step) on a fake (2,
+    2) group: the live bytes at the peak by the line that made them sum to
+    ``peak_bytes``, the arguments among them, and the other counts are
+    those of a trace without sites."""
+    cells = (("gemma2-2b", SMALL_SHAPES["train"]),
+             ("xlstm-1.3b", ShapeCell("prefill_small", 512, 4, "prefill")))
+    for arch, shape in cells:
+        cfg, recs = small_cfg(arch, treg), {}
+        for sites in (False, True):
+            mesh = tmesh.fake_mesh((2, 2))
+            try:
+                recs[sites] = dryrun.trace_cell(cfg, shape, mesh, "xla", "cpu",
+                                                peak_sites=sites)
+            finally:
+                torch.distributed.destroy_process_group()
+        rec = recs[True]
+        where = rec.pop("peak_sites")
+        print(arch, rec["peak_bytes"], list(where.items())[:4])
+        assert sum(where.values()) == rec["peak_bytes"]
+        assert where["arguments"] == rec["argument_size_bytes"]
+        assert ({k: v for k, v in rec.items() if k != "trace_s"}
+                == {k: v for k, v in recs[False].items() if k != "trace_s"})
+
+
 def test_loop_count_equals_the_whole_trace():
     """REDUCED xlstm-1.3b prefill, B 4 x S 512 (two mLSTM chunks) on a fake
     (2, 2) group: the record with the sLSTM's and the mLSTM's loops each

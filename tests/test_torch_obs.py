@@ -66,7 +66,7 @@ def test_record_chunk_drain_and_summary_match_reference(seed):
     epoch summary equal the reference's."""
     rng = np.random.default_rng(seed)
     spec_j, spec_t = jobs.RecordSpec(ring_chunks=4), tobs.RecordSpec(ring_chunks=4)
-    ring_j, ring_t = jobs.ring_init(spec_j, 6), tobs.ring_init(spec_t, 6)
+    ring_j, ring_t = jobs.ring_init(spec_j, 6), tobs.ring_init(spec_t, 6, device="cpu")
     for i in range(7):
         c = _chunk_inputs(rng)
         if i == 3:

@@ -6,6 +6,7 @@ RG-LRU (from a carried h), each in float32 and bfloat16, weights drawn by
 ``repro_torch.models.weights.numpy_params`` for both packages.
 """
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -283,3 +284,179 @@ def test_linear_scan_is_the_loop(S):
         want.append(h)
     np.testing.assert_allclose(trec.linear_scan(a, b, h0).numpy(),
                                torch.stack(want, 1).numpy(), rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------- the RG-LRU split over "model"
+RGLRU_SPLIT = (2, 2)  # the gloo ranks' mesh: "data" x "model"
+RGLRU_GRADS = ("w_in", "w_gate", "w_rg", "w_ig", "w_out", "lam", "conv_w")
+
+
+@functools.cache
+def rglru_case():
+    """REDUCED recurrentgemma-9b's first RG-LRU unit in float32 (its
+    fields as numpy), x [4, 40, D], a carried cache (h, conv) and the
+    upstream gradients of the output and of the new cache, from numpy."""
+    tcfg = treg.get_config("recurrentgemma-9b", reduced=True).replace(dtype="float32")
+    _, sb, _, _ = tt.block_program(tcfg)
+    j = [u.kind for u in sb].index("rglru")
+    fields = {k: v[0] for k, v in weights.numpy_params(tcfg, 5)["main"][j].items()}
+    rng = np.random.default_rng(6)
+    R, W, B, S = tcfg.rglru_width, tcfg.conv1d_width, 4, 40
+
+    def draw(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+    return {"j": j, "fields": fields, "x": draw(B, S, tcfg.d_model),
+            "cache": {"h": draw(B, R), "conv": draw(B, W - 1, R)},
+            "up": {"y": draw(B, S, tcfg.d_model), "h": draw(B, R), "conv": draw(B, W - 1, R)}}
+
+
+def rglru_loss_terms(y, cache, up):
+    """sum(y * dy) + sum(h * dh) + sum(conv * dconv): its gradients are the
+    vector-Jacobian products of the upstream gradients ``up``."""
+    return ((y * up["y"]).sum() + (cache.h * up["h"]).sum()
+            + (cache.conv * up["conv"]).sum())
+
+
+@functools.cache
+def rglru_jax(carried: bool) -> dict:
+    """The JAX package's ``rglru_apply`` on ``rglru_case`` (from its cache
+    or from none): the output, the new cache and ``jax.grad`` of
+    ``rglru_loss_terms`` by x and by each weight, as numpy."""
+    case = rglru_case()
+    jcfg = jreg.get_config("recurrentgemma-9b", reduced=True).replace(dtype="float32")
+    jp = jrec.RGLRUParams(**{k: jnp.asarray(v) for k, v in case["fields"].items()})
+    c = jrec.RGLRUCache(**{k: jnp.asarray(v) for k, v in case["cache"].items()}) \
+        if carried else None
+    up = {k: jnp.asarray(v) for k, v in case["up"].items()}
+
+    def loss(p, x):
+        y, new = jrec.rglru_apply(p, x, jcfg, c)
+        return rglru_loss_terms(y, new, up), (y, new)
+
+    (_, (y, new)), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+        jp, jnp.asarray(case["x"]))
+    return {"y": f32(y), "h": f32(new.h), "conv": f32(new.conv), "grad_x": f32(gx),
+            **{f"grad_{f}": f32(getattr(gp, f)) for f in RGLRU_GRADS}}
+
+
+def rglru_port(carried: bool, mesh=None) -> dict:
+    """The port's ``rglru_apply`` on ``rglru_case`` as ``rglru_jax`` reads
+    it: on plain tensors (whole R), or over ``mesh`` (a "process" mesh of
+    this gloo group) with each weight laid out by the production rule and
+    x, the cache and the upstream gradients as the batch's rows (the
+    channel split, which it asserts was taken)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import common
+
+    case = rglru_case()
+    tcfg = treg.get_config("recurrentgemma-9b", reduced=True).replace(dtype="float32")
+    p = tt.unit_params(tcfg, tt.Unit("rglru"), case["fields"], torch.float32,
+                       master=torch.float32)
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    cache = {k: torch.from_numpy(v) for k, v in case["cache"].items()}
+    up = {k: torch.from_numpy(v) for k, v in case["up"].items()}
+    xs, split = x, []
+    if mesh is not None:
+        dm = mesh.to_device_mesh()
+        specs = sharding.param_specs(tcfg, mesh)
+        for f in trec.RGLRUParams.FIELDS:
+            name = f"main.{case['j']}.{f}"
+            p._parameters[f] = torch.nn.Parameter(
+                sharding.distribute(p._parameters[f], mesh, sharding.port_spec(name, specs[name])))
+
+        def rows(t):
+            return common.batch_layout(DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                                                          run_check=False))
+        xs, cache, up = rows(x), {k: rows(v) for k, v in cache.items()}, \
+            {k: rows(v) for k, v in up.items()}
+        orig = trec._rglru_on_channels
+
+        def watched(*args):
+            split.append(True)
+            return orig(*args)
+        trec._rglru_on_channels = watched
+    try:
+        with implicit_replication():
+            y, new = trec.rglru_apply(p, xs, tcfg, trec.RGLRUCache(**cache) if carried else None)
+            rglru_loss_terms(y, new, up).backward()
+    finally:
+        if mesh is not None:
+            trec._rglru_on_channels = orig
+    assert split == ([True] if mesh is not None else [])
+
+    def whole(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().numpy()
+
+    return {"y": whole(y), "h": whole(new.h), "conv": whole(new.conv),
+            "grad_x": x.grad.numpy(),
+            **{f"grad_{f}": whole(p._parameters[f].grad) for f in RGLRU_GRADS}}
+
+
+RGLRU_RANKS = """
+    init()
+    import test_torch_recurrent as t
+    from repro_torch.launch import mesh as tmesh
+
+    mesh = tmesh.make_mesh_like(t.RGLRU_SPLIT)
+    out = {f"{carried}/{k}": v for carried in (False, True)
+           for k, v in t.rglru_port(carried, mesh).items()}
+    np.savez(OUT, **out)
+    dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def rglru_ranks(tmp_path_factory):
+    """The gloo ranks' split runs (rank 0's arrays), by "carried/key"."""
+    from test_torch_collectives import run_ranks
+
+    return run_ranks(RGLRU_RANKS, math.prod(RGLRU_SPLIT), tmp_path_factory.mktemp("rglru"))[0]
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["from-zero", "carried"])
+def test_rglru_split_over_channels_equals_the_whole_r_run(rglru_ranks, carried):
+    """REDUCED recurrentgemma-9b's RG-LRU on 4 gloo ranks ("data" 2 x
+    "model" 2: each rank its rows and R / 2 channels, the weights laid out
+    by the production rule), from no cache (training) and from a carried
+    one (a prefill): its output, its new cache (h, conv) and the gradients
+    of x and of every weight but the norm scale through the split path
+    equal the port's one-device run at whole R and the JAX package's
+    ``rglru_apply`` and ``jax.grad``, in float32, at TOL."""
+    want, whole = rglru_jax(carried), rglru_port(carried)
+    for k, w in want.items():
+        got = rglru_ranks[f"{carried}/{k}"]
+        close(got, whole[k], "float32", f"{k}: the split against the whole-R run")
+        close(got, w, "float32", f"{k}: the split against the JAX package")
+        close(whole[k], w, "float32", f"{k}: the whole-R run against the JAX package")
+
+
+@pytest.mark.parametrize("S", [1, 2, 255, 256, 4097])
+def test_linear_scan_gradient_is_the_jax_packages(S):
+    """The scan's backward (the reverse recurrence, ``_LinearScan``) through
+    REDUCED recurrentgemma-9b's RG-LRU unit, B 1 x S tokens from a carried
+    h in float32: the gradients of x, of the carried h and of each weight
+    against ``jax.grad`` of the JAX package's ``rglru_apply`` (its
+    ``lax.associative_scan``), at TOL."""
+    jcfg, tcfg, jp, tp = unit_pair("recurrentgemma-9b", "rglru", "float32", seed=S)
+    tp = tt.unit_params(tcfg, tt.Unit("rglru"), {k: np.array(f32(v)) for k, v in jp._asdict().items()},
+                        torch.float32, master=torch.float32)
+    rng = np.random.default_rng(S)
+    x, dy = (rng.standard_normal((1, S, tcfg.d_model), dtype=np.float32) for _ in range(2))
+    h0 = rng.standard_normal((1, tcfg.rglru_width), dtype=np.float32)
+    conv = np.zeros((1, tcfg.conv1d_width - 1, tcfg.rglru_width), np.float32)
+
+    def jloss(p, x, h):
+        y, c = jrec.rglru_apply(p, x, jcfg, jrec.RGLRUCache(h=h, conv=jnp.asarray(conv)))
+        return (y * dy).sum() + c.h.sum()
+
+    gp, gx, gh = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jp, jnp.asarray(x), jnp.asarray(h0))
+    tx, th = (torch.from_numpy(a).requires_grad_(True) for a in (x, h0))
+    y, c = trec.rglru_apply(tp, tx, tcfg, trec.RGLRUCache(h=th, conv=torch.from_numpy(conv)))
+    ((y * torch.from_numpy(dy)).sum() + c.h.sum()).backward()
+    close(tx.grad, gx, "float32", "x")
+    close(th.grad, gh, "float32", "carried h")
+    for f in RGLRU_GRADS:
+        close(tp._parameters[f].grad, getattr(gp, f), "float32", f)

@@ -6,8 +6,9 @@ DTensors by ``repro_torch.dist.sharding`` (``shard_params``,
 ``shard_opt_state``; the batch and cache by ``batch_specs`` and
 ``cache_specs``) over a "process" mesh of 4 gloo ranks (data 2 x model 2)
 and of 8 (pod 2 x data 2 x model 2, the grad sync "xla" and
-"seqbalance"), at REDUCED size: gemma2-2b and deepseek-moe-16b 2 train
-steps (and at capacity factor 0.25, where each rank's rows drop
+"seqbalance"), at REDUCED size: gemma2-2b, deepseek-moe-16b and recurrentgemma-9b (its
+RG-LRU split over "model" on its channels) 2 train steps
+(deepseek-moe-16b also at capacity factor 0.25, where each rank's rows drop
 replicas), recurrentgemma-9b, deepseek-moe-16b on the pod mesh and
 granite-moe-3b-a800m with 6 experts over 4 owners (padded to 8) a
 prefill and one decode step, and so gemma2-2b with one KV head on both
@@ -66,6 +67,7 @@ CASES = {
     "gemma2-2b-2x2-xla": ("gemma2-2b", "train", (2, 2), "xla"),
     "gemma2-2b-2x2-planted": ("gemma2-2b", "train", (2, 2), "xla"),
     "deepseek-moe-16b-2x2-xla": ("deepseek-moe-16b", "train", (2, 2), "xla"),
+    "recurrentgemma-9b-2x2-xla": ("recurrentgemma-9b", "train", (2, 2), "xla"),
     "recurrentgemma-9b-2x2-serve": ("recurrentgemma-9b", "serve", (2, 2), "xla"),
     "xlstm-1.3b-2x2-grads": ("xlstm-1.3b", "grads", (2, 2), "xla"),
     "gemma2-2b-2x2x2-xla": ("gemma2-2b", "train", (2, 2, 2), "xla"),
