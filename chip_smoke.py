@@ -44,7 +44,13 @@ Phases, each printed as JSON lines:
                 a softcap also against F.scaled_dot_product_attention,
                 and the serving cases with one (FLEX_CASES) against
                 torch.nn.attention.flex_attention compiled, each library
-                call timed where it holds the case's tolerance;
+                call timed where it holds the case's tolerance; and a
+                query block at an offset against a longer key range on
+                both routes (gemma2-2b's last block of prefill_32k split
+                32 ways, window and softcap; qwen3-32b's head split, four
+                query heads on one KV head; phase 12's float32 shape),
+                where the plain version at offset 0 is shown to break the
+                row limit;
               each kernel is one Spec record driven by one loop; each new
               kernel's entry point (dataplane.cascade, ops.linkload,
               ops.flash_attention) is driven once with the launch counts
@@ -252,7 +258,8 @@ Phases, each printed as JSON lines:
               256 or 512) for DRYRUN_CELLS (gemma2-2b train_4k,
               prefill_32k and decode_32k, deepseek-moe-16b train_4k,
               recurrentgemma-9b train_4k, xlstm-1.3b prefill_32k: its
-              sLSTM loop traced one step and counted for all), on
+              sLSTM loop traced one step and counted for all,
+              qwen3-32b prefill_32k), on
               fake tensors on "cuda" (nothing allocated on the card:
               checked), against the JAX package's run_cell of the same
               cells (src/repro_torch/launch/dryrun_reference.json): each
@@ -260,14 +267,19 @@ Phases, each printed as JSON lines:
               specs and dtypes and the JAX package's to its own layout's
               (so the two differ by the listed stacked-dim leaves alone),
               every cell's FLOPs (less the flash kernel's) within
-              DRYRUN_FLOPS_LIMIT of the JAX package's, an MoE train
+              DRYRUN_FLOPS_LIMIT of the JAX package's (qwen3-32b
+              prefill_32k's, whose JAX count XLA takes from one layer,
+              within DRYRUN_PREFILL_RECKONING_LIMIT of the model's own
+              count, prefill_flops, instead), an MoE train
               cell's within DRYRUN_MOE_RECKONING_LIMIT of the model's own
               count (train_flops) a device, printed for every train cell;
+              a prefill cell's flash FLOPs on rank 0 and on its last
+              rank (traced apart) within DRYRUN_FLASH_LIMIT of the
+              model's own attention count (attention_flops) a device;
               every cell's collective bytes within DRYRUN_COLL_LIMIT of
-              the JAX package's coll_x (xlstm-1.3b prefill_32k within
-              its own limit, DRYRUN_COLL_LIMITS); every cell's collective
+              the JAX package's coll_x; every cell's collective
               ratio beside its FLOPs ratio, and its peak beside the
-              card's memory, printed; every train cell's peak within the
+              card's memory, printed; every cell's peak within the
               card's memory less SHARD_RANK_MARGIN; peak and
               collective bytes by kind printed beside the JAX package's;
               each trace's wall printed;
@@ -285,7 +297,13 @@ Phases, each printed as JSON lines:
               phase-22 peak leaves SHARD_RANK_MARGIN of the card free (a
               line with the excess for one that does not), the rank's
               masters built leaf by leaf (rank_params: deepseek's whole
-              float32 masters are 66 GB).
+              float32 masters are 66 GB).  Then rank 0 of qwen3-32b
+              prefill_32k at 16 x 16 (SHARD_RANK_PREFILL; its masters
+              131 GB whole, built leaf by leaf): one prefill step, its
+              cache made as shards and its flash attention split by the
+              query heads, its peak memory within
+              SHARD_RANK_PREFILL_SLACK of phase 22's count and under the
+              card's, the flash kernel launched.
  24. examples the examples' twins as their CLIs run on the card
               (EXAMPLES_REFERENCE, written from the JAX examples' own code
               path on the CPU): repro_torch.examples.simulate_datacenter,
@@ -578,11 +596,14 @@ def linkload_bound(case):
     return bound(nbytes(*case.args) + 3 * L * 4, lid.numel() + 10 * L)
 
 
-def flash_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs that the mask keeps, in one head."""
-    i = np.arange(S)
+def flash_pairs(S: int, causal: bool, window: int, Sk: int | None = None,
+                q_offset: int = 0) -> int:
+    """(query, key) pairs that the mask keeps, in one head: S query rows at
+    positions ``q_offset`` on against ``Sk`` keys (S where not given)."""
+    Sk = S if Sk is None else Sk
+    i = q_offset + np.arange(S)
     lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
-    hi = i + 1 if causal else np.full(S, S)
+    hi = np.minimum(i + 1, Sk) if causal else np.full(S, Sk)
     return int((hi - lo).sum())
 
 
@@ -594,7 +615,8 @@ def flash_bound(case):
 
     q, k, v = case.args
     B, S, H, hd = q.shape
-    ops = 4 * hd * flash_pairs(S, case.kw["causal"], case.kw.get("window", 0)) * B * H
+    ops = 4 * hd * B * H * flash_pairs(S, case.kw["causal"], case.kw.get("window", 0),
+                                       k.shape[1], case.kw.get("q_offset", 0))
     bf16 = q.dtype == torch.bfloat16
     ms, by = bound(nbytes(q, k, v, q), ops, BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
     return ms, by, "bf16 tensor-core peak" if bf16 else "float32 non-tensor peak", ops
@@ -751,6 +773,17 @@ FLASH_CASES = [
      dict(causal=True, window=2048), 10.0, "wgmma"),
     ("granite-moe-3b-a800m-ref", 2, 600, 24, 8, 64, "bfloat16", dict(causal=True), 10.0,
      "wgmma"),
+    # a query block at an offset (S = (its rows, the keys)), as the sharded
+    # prefill runs the flash kernel where the heads do not split over
+    # "model" at 16: gemma2-2b prefill_32k's last of 32 blocks (rank 0's
+    # second, its local layers), qwen3-32b's head split (4 query heads on
+    # one KV head) at a block of 8,192 keys, and phase 12's float32 shape
+    ("gemma2-2b-offset", 2, (1024, 32768), 8, 4, 256, "bfloat16",
+     dict(GEMMA2_LOCAL, q_offset=31744), 10.0, "wgmma"),
+    ("qwen3-32b-heads-offset", 2, (2048, 8192), 4, 1, 128, "bfloat16",
+     dict(causal=True, q_offset=6144), 10.0, "wgmma"),
+    ("gemma2-2b-offset-ref", 2, (300, 1200), 8, 4, 256, "float32",
+     dict(causal=True, window=256, softcap=50.0, q_offset=600), 3.0, "simt"),
 ]
 FLASH_MAIN = ("gemma2-2b-serve", "gemma2-2b-serve-ref")
 FLASH_LIBRARY = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
@@ -773,12 +806,14 @@ def flash_cases():
     cases = []
     for name, B, S, H, K, hd, dtype, kw, q_scale, route in FLASH_CASES:
         dt = getattr(torch, dtype)
-        g = torch.Generator(device=dev).manual_seed(S + H)
-        q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev) for h in (H, K, K))
+        Sq, S = S if isinstance(S, tuple) else (S, S)
+        g = torch.Generator(device=dev).manual_seed(S + H + kw.get("q_offset", 0))
+        q, k, v = (torch.randn((B, n, h, hd), generator=g, device=dev)
+                   for n, h in ((Sq, H), (S, K), (S, K)))
         cases.append(Case(name, ((q * q_scale).to(dt), k.to(dt), v.to(dt)),
                           dict(kw, window=kw.get("window", 0), softcap=kw.get("softcap", 0.0)),
                           {"dtype": dtype, "B": B, "S": S, "H": H, "K": K, "hd": hd,
-                           "q_scale": q_scale},
+                           "q_scale": q_scale, **({"Sq": Sq} if Sq != S else {})},
                           main=name in FLASH_MAIN,
                           library=FLASH_LIBRARY[route], ran_as=route))
     return cases
@@ -808,6 +843,8 @@ def flash_rows(case, got, want):
     err = row_rel_err(got[0], want[0])
     check(err <= limit, f"flash_attention {case.name}: a row is {err} off (limit {limit})")
     faults = {}
+    if case.kw.get("q_offset"):
+        faults["offset 0"] = dict(case.kw, q_offset=0)
     if case.kw["window"]:
         faults["window one block short"] = dict(case.kw, window=case.kw["window"] - 64)
     if case.kw["softcap"]:
@@ -834,12 +871,23 @@ def sdpa_call(case):
     if case.kw["softcap"] or case.kw["window"]:
         return None
     qt, kt, vt = (x.transpose(1, 2) for x in case.args)
+    off = case.kw.get("q_offset", 0)
+    if off:  # the block's rows of the causal mask
+        import torch
+
+        Sq, Sk = qt.shape[2], kt.shape[2]
+        mask = (torch.arange(Sk, device=qt.device)[None, :]
+                <= off + torch.arange(Sq, device=qt.device)[:, None])
+        kw, label = dict(attn_mask=mask), "F.scaled_dot_product_attention(attn_mask, enable_gqa)"
+    else:
+        kw = dict(is_causal=case.kw["causal"])
+        label = "F.scaled_dot_product_attention(is_causal, enable_gqa)"
 
     def sdpa():
         with fa.full_fp32_matmul():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=case.kw["causal"],
-                                                  enable_gqa=True).transpose(1, 2)
-    return "F.scaled_dot_product_attention(is_causal, enable_gqa)", sdpa, {}
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                  **kw).transpose(1, 2)
+    return label, sdpa, {}
 
 
 # the flash rows with a softcap that phases 12-13 serve (gemma2-2b's local
@@ -968,7 +1016,8 @@ def flash_launch(case, outs, C=None):
     lib, fn, argtypes = fa._ENTRIES[route]
     dtype = () if route == "wgmma" else (fa._DTYPES[q.dtype],)
     return c_entry(lib, fn, argtypes, (q, k, v, *outs),
-                   (*dtype, B, S, H, k.shape[2], hd, int(case.kw["causal"]), case.kw["window"]),
+                   (*dtype, B, S, k.shape[1], case.kw.get("q_offset", 0), H, k.shape[2], hd,
+                    int(case.kw["causal"]), case.kw["window"]),
                    (float(case.kw["softcap"]), hd ** -0.5))
 
 
@@ -3342,6 +3391,37 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     return 6.0 * param_count(cfg, active=True) * batch * seq + attn
 
 
+def attention_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of a prefill's self-attention, as the flash kernel does
+    them: its two products, 4 B H hd a (query, key) pair that the mask
+    keeps, over the causal (windowed) pairs of ``seq`` tokens in each
+    decoder attention layer, and over every pair of the encoder's frames
+    in each encoder layer (whisper-large-v3's non-causal encoder)."""
+    from repro_torch.models import transformer
+
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+    layers = [u for u in prelude + trailing if u.kind == "attn"]
+    layers += [u for u in sb if u.kind == "attn"] * n_super
+    pos = np.arange(seq)
+    per_pair = 4 * batch * cfg.n_heads * cfg.hd
+    total = sum(per_pair * int(np.minimum(pos + 1, u.window or seq).sum()) for u in layers)
+    if cfg.is_encoder_decoder:
+        eu, en = transformer.encoder_program(cfg)
+        total += en * sum(u.kind == "attn" for u in eu) * per_pair * cfg.encoder_frames ** 2
+    return float(total)
+
+
+def prefill_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of a decoder-only prefill less its attention's products
+    (``attention_flops``): 2 N tokens over the decoder's layers (N the
+    active parameters less the embedding, the head and the final norm),
+    plus the last position's logits, 2 B D V."""
+    assert not cfg.is_encoder_decoder, cfg.name
+    head = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2) + cfg.d_model
+    n = param_count(cfg, active=True) - head
+    return 2.0 * n * batch * seq + 2.0 * batch * cfg.d_model * cfg.vocab
+
+
 def phase_train() -> int:
     """Phase 18, the slice's main path: ``repro_torch.launch.train`` as its
     CLI runs (TRAIN_ARGV): gemma2-2b as published (26 layers, window
@@ -3476,7 +3556,8 @@ TRAIN_SYNC_ARGV = ("--arch", "gemma2-2b", "--remat", "full", "--batch", "2", "--
 # (src/repro_torch/launch/dryrun_reference.json; tests/test_torch_dryrun.py)
 DRYRUN_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"),
                 ("gemma2-2b", "decode_32k"), ("deepseek-moe-16b", "train_4k"),
-                ("recurrentgemma-9b", "train_4k"), ("xlstm-1.3b", "prefill_32k"))
+                ("recurrentgemma-9b", "train_4k"), ("xlstm-1.3b", "prefill_32k"),
+                ("qwen3-32b", "prefill_32k"))
 DRYRUN_REFERENCE = SRC / "repro_torch" / "launch" / "dryrun_reference.json"
 # the port's FLOPs a device (less the flash kernel's: XLA's count of the JAX
 # package's Pallas call holds none of it) over the JAX package's: within a
@@ -3487,6 +3568,13 @@ DRYRUN_REFERENCE = SRC / "repro_torch" / "launch" / "dryrun_reference.json"
 # "flops_ratio"), while a product left unsharded moves a count 16 or 256
 # times
 DRYRUN_FLOPS_LIMIT = 20.0
+# cells whose JAX count XLA takes from one layer: their FLOPs (less the
+# flash kernel's) are held instead within DRYRUN_PREFILL_RECKONING_LIMIT of
+# the model's own count a device (``prefill_flops``).  qwen3-32b's 64
+# layers run as one scan, whose body XLA's cost analysis counts once:
+# 4.29e12 a device at 16 x 16 against the model's 2.56e14
+DRYRUN_FLOPS_FROM_MODEL = (("qwen3-32b", "prefill_32k"),)
+DRYRUN_PREFILL_RECKONING_LIMIT = 1.25
 # a train cell's FLOPs a device over the model's own count of the step
 # (``train_flops``: 6 N_active tokens, the routed experts at the capacity
 # factor, plus causal attention; remat's recompute not counted) over the
@@ -3500,13 +3588,16 @@ DRYRUN_MOE_RECKONING_LIMIT = 2.0
 # on each device (40.1x / 28.7x), gemma2-2b's decode gathered the KV cache
 # to the query's layout (8.0x / 4.0x), its prefill moved the filled cache by
 # gathering the whole batch (5.7x / 1.9x), xlstm-1.3b's mLSTM ran its scan
-# whole on every "model" rank (29.8x / 14.5x), until each was repaired
+# whole on every "model" rank (29.8x / 14.5x) and its sLSTM reduced its
+# float32 gate inputs (6.5x / 3.4x), qwen3-32b's prefill reduced q and k
+# whole in float32 for its qk-norm and again for a flash attention
+# replicated over "model" (8.9x), until each was repaired
 DRYRUN_COLL_LIMIT = 3.0
-# cells held at a limit of their own instead, each with its reason:
-# xlstm-1.3b's sLSTM gathers its gate inputs over "model" for its loop over
-# time, which is not associative and so does not split over the sequence
-# as the mLSTM's chunks do (the port sends 6.5x / 3.4x the JAX package's)
-DRYRUN_COLL_LIMITS = {("xlstm-1.3b", "prefill_32k"): 8.0}
+# a prefill cell's flash FLOPs on rank 0 and on the last rank over the
+# model's own attention count a device (``attention_flops`` over the
+# devices): within this factor either way.  Where the heads do not split
+# over "model", every "model" rank attended its data rank's whole rows (16x)
+DRYRUN_FLASH_LIMIT = 1.25
 
 
 def ring_plan(mod, name: str, wire: str):
@@ -3811,6 +3902,25 @@ def phase_train_sync(step0_loss: float) -> int:
     return counts["cascade_tiered"]
 
 
+def last_rank_flash(arch: str, shape: str, label: str, multi: bool) -> float:
+    """The flash FLOPs of the cell's last rank (its last "model" member), in
+    a fake group of its own (the dry run reads one rank: rank 0's)."""
+    import torch
+
+    from repro_torch.launch import dryrun, mesh as tmesh
+
+    if torch.distributed.is_initialized():  # the rank-0 group of the trace before
+        torch.distributed.destroy_process_group()
+    dryrun.forget_meshes()
+    size = tmesh.make_production_mesh(multi_pod=multi).size
+    try:
+        return dryrun.run_cell(arch, shape, label, device=DEVICE, mesh=tmesh.fake_production_mesh(
+            multi_pod=multi, rank=size - 1))["flash_flops"]
+    finally:
+        torch.distributed.destroy_process_group()
+        dryrun.forget_meshes()
+
+
 def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
     """Phase 22: the port's dry run of ``cells`` (of DRYRUN_CELLS; the
     phase's lines named ``name``) on both production meshes, on fake
@@ -3819,12 +3929,16 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
     argument bytes equal to ``dryrun.expected_argument_bytes`` and the JAX
     package's to the same count in its own layout; a cell's FLOPs (less
     the flash kernel's) within a factor DRYRUN_FLOPS_LIMIT of the JAX
-    package's (where its cell is OK), and an MoE train cell's within
-    DRYRUN_MOE_RECKONING_LIMIT of ``train_flops`` a device; every cell's
-    collective bytes within DRYRUN_COLL_LIMIT of the JAX package's (or its
-    own limit of DRYRUN_COLL_LIMITS); nothing allocated on the card; no
-    kernel launched; every train cell's peak within the card's memory
-    less SHARD_RANK_MARGIN (phase 23 runs a rank of it).  Every cell's
+    package's (where its cell is OK; a cell of DRYRUN_FLOPS_FROM_MODEL
+    within DRYRUN_PREFILL_RECKONING_LIMIT of ``prefill_flops`` a device
+    instead), and an MoE train cell's within
+    DRYRUN_MOE_RECKONING_LIMIT of ``train_flops`` a device; a prefill
+    cell's flash FLOPs on rank 0 and on its last rank within
+    DRYRUN_FLASH_LIMIT of ``attention_flops`` a device (either way); every
+    cell's collective bytes within DRYRUN_COLL_LIMIT of the JAX package's;
+    nothing allocated on the card; no kernel launched; every cell's peak
+    within the card's memory less SHARD_RANK_MARGIN (phase 23 runs a rank
+    of some).  Every cell's
     collective ratio beside its FLOPs ratio, and its peak beside the
     card's memory, printed.  Returns the launch counts and each cell's
     peak bytes (phase 23 reads the train_4k cells of gemma2-2b and of
@@ -3877,19 +3991,30 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
             if rec["argument_size_bytes"] != expected:
                 failures.append(f"{key}: {rec['argument_size_bytes']} argument bytes, "
                                 f"not {expected}")
+            row["peak_limit"] = card - SHARD_RANK_MARGIN
+            if rec["peak_bytes"] > card - SHARD_RANK_MARGIN:
+                failures.append(f"{key}: {rec['peak_bytes'] / 1e9} GB at the peak, over "
+                                f"the card's memory less {SHARD_RANK_MARGIN / 1e9} GB")
             if cell.kind == "train":
                 reckoned = train_flops(cfg, cell.global_batch, cell.seq_len) / mesh.size
-                row.update(reckoned_flops=reckoned, flops_over_reckoning=rec["flops"] / reckoned,
-                           peak_limit=card - SHARD_RANK_MARGIN)
-                if rec["peak_bytes"] > card - SHARD_RANK_MARGIN:
-                    failures.append(f"{key}: {rec['peak_bytes'] / 1e9} GB at the peak, over "
-                                    f"the card's memory less {SHARD_RANK_MARGIN / 1e9} GB")
+                row.update(reckoned_flops=reckoned, flops_over_reckoning=rec["flops"] / reckoned)
                 if cfg.family == "moe" and rec["flops"] > DRYRUN_MOE_RECKONING_LIMIT * reckoned:
                     failures.append(f"{key}: FLOPs {rec['flops']:.4g}, over "
                                     f"{DRYRUN_MOE_RECKONING_LIMIT} x {reckoned:.4g}")
+            reckoned = attention_flops(cfg, cell.global_batch, cell.seq_len) / mesh.size
+            if cell.kind == "prefill" and reckoned:
+                last = last_rank_flash(arch, shape, label, multi)
+                mesh = tmesh.fake_production_mesh(multi_pod=multi)
+                row.update(reckoned_attention_flops=reckoned,
+                           flash_over_reckoning=rec["flash_flops"] / reckoned,
+                           last_rank_flash_over_reckoning=last / reckoned)
+                for who in ("flash_over_reckoning", "last_rank_flash_over_reckoning"):
+                    if not 1 / DRYRUN_FLASH_LIMIT <= row[who] <= DRYRUN_FLASH_LIMIT:
+                        failures.append(f"{key}: {who} {row[who]:.4g}, outside "
+                                        f"{DRYRUN_FLASH_LIMIT}")
             if want.get("status") == "OK":
                 ratio = (rec["flops"] - rec["flash_flops"]) / want["flops"]
-                limit = DRYRUN_COLL_LIMITS.get((arch, shape), DRYRUN_COLL_LIMIT)
+                limit = DRYRUN_COLL_LIMIT
                 row.update(flops_ratio=ratio, coll_ratio=rec["coll_x"] / want["coll_x"],
                            coll_limit=limit)
                 if row["coll_ratio"] > limit:
@@ -3898,8 +4023,16 @@ def phase_dryrun(cells=DRYRUN_CELLS, name: str = "dryrun") -> dict:
                 if want["argument_size_bytes"] != expected_jax:
                     failures.append(f"{key}: the JAX package's {want['argument_size_bytes']} "
                                     f"argument bytes, not its layout's {expected_jax}")
-                if not 1 / DRYRUN_FLOPS_LIMIT <= ratio <= DRYRUN_FLOPS_LIMIT:
+                if ((arch, shape) not in DRYRUN_FLOPS_FROM_MODEL
+                        and not 1 / DRYRUN_FLOPS_LIMIT <= ratio <= DRYRUN_FLOPS_LIMIT):
                     failures.append(f"{key}: FLOPs {ratio} of the JAX package's")
+            if (arch, shape) in DRYRUN_FLOPS_FROM_MODEL:
+                model = prefill_flops(cfg, cell.global_batch, cell.seq_len) / mesh.size
+                row["flops_over_model"] = (rec["flops"] - rec["flash_flops"]) / model
+                limit = DRYRUN_PREFILL_RECKONING_LIMIT
+                if not 1 / limit <= row["flops_over_model"] <= limit:
+                    failures.append(f"{key}: FLOPs {row['flops_over_model']:.4g} of the "
+                                    f"model's, outside {limit}")
             emit(row)
     torch.distributed.destroy_process_group()
     counts = read_counts()
@@ -4046,6 +4179,84 @@ def phase_shard_rank_cells(predicted: dict, name: str) -> dict:
         counts = {k: counts.get(k, 0) + v for k, v in got.items()}
         gc.collect()
         torch.cuda.empty_cache()
+    return counts
+
+
+# phase 23's prefill: rank 0 of this cell at its mesh's sharding with real
+# tensors, its peak within SHARD_RANK_PREFILL_SLACK of phase 22's count
+SHARD_RANK_PREFILL = ("single_pod_16x16", "qwen3-32b", "prefill_32k")  # phase 22's key
+SHARD_RANK_PREFILL_SLACK = 1e9
+
+
+def phase_shard_rank_prefill(predicted_peak: float) -> dict:
+    """Phase 23's prefill: rank 0 of SHARD_RANK_PREFILL (qwen3-32b
+    prefill_32k at 16 x 16, a fake group of 256) with real tensors on the
+    card: its float32 masters built leaf by leaf (``rank_params``: the
+    whole masters are 131 GB), its share of a random batch, one
+    ``launch.steps.make_prefill_step`` step (the cache made as this rank's
+    blocks, its flash attention split over "model" as
+    ``models.attention.flash_plan`` says).  Prints its wall, its peak memory
+    beside ``predicted_peak`` (phase 22's peak_bytes of the cell) and the
+    card's memory and its flash launches by route; fails if it does not
+    fit, if its peak lies more than SHARD_RANK_PREFILL_SLACK from the
+    prediction, or if it launched no flash kernel.  Its outputs are
+    garbage (the fake collectives) and are not checked.  Returns the
+    launch counts."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import sharding
+    from repro_torch.launch import dryrun, mesh as tmesh, steps
+    from repro_torch.models import attention
+
+    label, arch, shape = SHARD_RANK_PREFILL
+    torch.cuda.empty_cache()
+    mesh = tmesh.fake_production_mesh(multi_pod=dryrun.MESHES[label])
+    cfg, cell = registry.get_config(arch), registry.get_shape(shape)
+    t0 = time.time()
+    params = rank_params(cfg, mesh)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    inputs = {k: (torch.randint(0, cfg.vocab, s, generator=g, device=DEVICE, dtype=dt)
+                  if not dt.is_floating_point else
+                  torch.randn(s, generator=g, device=DEVICE).to(dt))
+              for k, (s, dt) in registry.input_specs(cfg, cell).items()}
+    batch = sharding.shard_batch(inputs, mesh)
+    del inputs
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    step = steps.make_prefill_step(cfg, cell.seq_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    with torch.no_grad():
+        t = time.perf_counter()
+        logits, cache = step(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts, routes = read_counts(), read_tallies().get("flash_attention", {})
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    dm = sharding.device_mesh(mesh)
+    plan = attention.flash_plan(dm, cell.global_batch, cell.seq_len, cfg.n_heads,
+                                cfg.n_kv_heads)
+    emit({"phase": "shard_rank_prefill", "nvidia_smi": card_name(), "arch": cfg.name,
+          "shape": shape, "mesh": f"{label} (rank 0 of a fake group of {mesh.size})",
+          "flash_plan": plan, "local_tokens": list(batch["tokens"].to_local().shape),
+          "build_s": build_s, "state_gb": held / 1e9, "step_wall_s": wall,
+          "peak_memory_gb": peak / 1e9, "predicted_peak_gb": predicted_peak / 1e9,
+          "peak_off_prediction_gb": (peak - predicted_peak) / 1e9,
+          "card_memory_gb": total / 1e9, "flash_routes": routes, "kernel_launches": counts})
+    del logits, cache, params, batch, step
+    torch.distributed.destroy_process_group()
+    check(peak < total, f"shard_rank_prefill: {peak / 1e9} GB at the peak, over the card's "
+                        f"{total / 1e9}")
+    check(abs(peak - predicted_peak) <= SHARD_RANK_PREFILL_SLACK,
+          f"shard_rank_prefill: {peak / 1e9} GB at the peak, {predicted_peak / 1e9} predicted")
+    check(counts["flash_attention"] > 0 and routes.get("wgmma") == counts["flash_attention"],
+          f"shard_rank_prefill: flash launches {counts['flash_attention']}, routes {routes}")
+    check(sum(counts.values()) == counts["flash_attention"],
+          f"shard_rank_prefill: other kernels launched: {counts}")
     return counts
 
 
@@ -4334,7 +4545,12 @@ def worker_train_sync() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         out[name] = timed(name, phase_shard_rank_cells,
-                          {k: v for k, v in peaks.items() if k.split("/")[1] == arch}, name)
+                          {k: v for k, v in peaks.items()
+                           if k.split("/")[1] == arch and k.endswith("/train_4k")}, name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["shard_rank_prefill"] = timed("shard_rank_prefill", phase_shard_rank_prefill,
+                                      peaks["/".join(SHARD_RANK_PREFILL)])
     return out
 
 
@@ -4344,7 +4560,8 @@ def worker_train_sync() -> dict:
 WORKERS = {"fig12": worker_fig12, "adaptive": worker_adaptive, "record": worker_record,
            "serve": worker_serve, "dryrun": worker_dryrun, "dryrun_train": worker_dryrun_train}
 # phase 22's cells in its two workers: the train cells of the MoE and
-# hybrid families apart, so that neither outlasts the serve worker
+# hybrid families and qwen3-32b's prefill apart, so that neither outlasts
+# the serve worker
 DRYRUN_SPLIT = {"dryrun": tuple(c for c in DRYRUN_CELLS if c[0] in ("gemma2-2b", "xlstm-1.3b")),
                 "dryrun_train": tuple(c for c in DRYRUN_CELLS
                                       if c[0] not in ("gemma2-2b", "xlstm-1.3b"))}
@@ -4462,7 +4679,8 @@ def main() -> int:
         emit({"phase_wall": "workers", "s": time.time() - t0})
         peak = phases["dryrun"]["peak_bytes"]["single_pod_16x16/gemma2-2b/train_4k"]
         rank_peaks = {k: v for k, v in phases["dryrun_train"]["peak_bytes"].items()
-                      if k.split("/")[1] in dict(SHARD_RANK_ARCHS) and k.endswith("/train_4k")}
+                      if k.split("/")[1] in dict(SHARD_RANK_ARCHS) and k.endswith("/train_4k")
+                      or k == "/".join(SHARD_RANK_PREFILL)}
         last, _ = run_workers(LAST_WORKERS, (repr(phases["train"]["losses"][0]), repr(peak),
                                              json.dumps(rank_peaks)))
         train_sync_launches = last["train_sync"]["train_sync"]
@@ -4483,6 +4701,7 @@ def main() -> int:
     dryrun_launches = {k: counts["dryrun"][k] + counts["dryrun_train"][k] for k in counts["dryrun"]}
     shard_rank_launches = last["train_sync"]["shard_rank"]
     shard_rank_moe_launches = last["train_sync"]["shard_rank_moe"]
+    shard_rank_prefill_launches = last["train_sync"]["shard_rank_prefill"]
     for lib, row in rows.items():
         name = row["kernel"]  # the wrapper's, which may serve several libraries
         by_path = {"fig12_sweep": sweep_counts[name], "dense_engine": dense_counts[name]}
@@ -4511,9 +4730,12 @@ def main() -> int:
                             "dryrun": dryrun_launches[name],
                             "shard_rank": shard_rank_launches[name],
                             "shard_rank_moe": shard_rank_moe_launches.get(name, 0),
+                            "shard_rank_prefill": (shard_rank_prefill_launches[name]
+                                                   if route == "wgmma" else 0),
                             "examples": examples_launches["simt"] if route == "simt" else 0})
             launches = sum(by_path[k] for k in ("serve_ref", "serve", "serve_families_ref",
-                                                "serve_families", "examples"))
+                                                "serve_families", "shard_rank_prefill",
+                                                "examples"))
             extra = {"flash_route": route}
         else:  # not on the fig12 path (0 there): the count of its own entry point
             by_path[row["path"]] = row["path_launches"]

@@ -5,10 +5,13 @@
 // (Pallas body _flash_kernel) of the JAX package.  Plain version:
 // repro_torch/kernels/flash_attention.py::flash_attention_torch.
 //
-// What it computes, for query head h (KV head h / (H / K)) and query row i:
+// What it computes, for query head h (KV head h / (H / K)) and query row i
+// of Sq, at position p = q_offset + i among the Sk keys (q_offset = 0 and
+// Sq = Sk: the JAX kernel's call; else the rows [q_offset, q_offset + Sq)
+// of that call over Sk queries, a device's block of a split sequence):
 //   s[j]  = (q[i] * hd^-0.5) . k[j]           (the scale on q, before the product)
 //   s[j]  = softcap * tanh(s[j] / softcap)   (if softcap; before the mask)
-//   s[j]  = -1e30 where j > i (causal) or i - j >= window (if window)
+//   s[j]  = -1e30 where j > p (causal) or p - j >= window (if window)
 //   out   = sum_j softmax(s)[j] v[j], by the online recurrence over key
 //           blocks: m = max(m, rowmax), alpha = exp(m_old - m),
 //           l = l * alpha + rowsum(p), acc = acc * alpha + p v, and
@@ -71,11 +74,12 @@ constexpr size_t smem_floats() {
 // NJ = hd / 16: each thread owns output columns tx + 16 * jd, jd < NJ
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads) flash_kernel(
-    const T* __restrict__ q,   // [B, S, H, hd]
-    const T* __restrict__ k,   // [B, S, K, hd]
-    const T* __restrict__ v,   // [B, S, K, hd]
-    T* __restrict__ out,       // [B, S, H, hd]
-    int S, int H, int K, int causal, int window, float softcap, float sm_scale) {
+    const T* __restrict__ q,   // [B, Sq, H, hd]
+    const T* __restrict__ k,   // [B, Sk, K, hd]
+    const T* __restrict__ v,   // [B, Sk, K, hd]
+    T* __restrict__ out,       // [B, Sq, H, hd]
+    int Sq, int Sk, int q_off, int H, int K, int causal, int window, float softcap,
+    float sm_scale) {
   constexpr int HD = 16 * NJ;
   constexpr int QP = HD + 1;
   constexpr int PP = kBK + 1;
@@ -96,8 +100,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   for (int idx = tid; idx < kBQ * HD; idx += kThreads) {
     int r = idx / HD, d = idx % HD;
     int s = q0 + r;
-    Qs[r * QP + d] = s < S ? to_float(q[(((size_t)b * S + s) * H + h) * HD + d]) * sm_scale
-                           : 0.0f;
+    Qs[r * QP + d] = s < Sq ? to_float(q[(((size_t)b * Sq + s) * H + h) * HD + d]) * sm_scale
+                            : 0.0f;
   }
 
   float m[4], l[4], acc[4][NJ];
@@ -109,11 +113,12 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     for (int jd = 0; jd < NJ; ++jd) acc[i][jd] = 0.0f;
   }
 
-  const int n_kb = (S + kBK - 1) / kBK;
+  const int p0 = q_off + q0;  // the position of the block's first row among the keys
+  const int n_kb = (Sk + kBK - 1) / kBK;
   int kb_hi = n_kb;
-  if (causal) kb_hi = min(n_kb, (q0 + kBQ + kBK - 1) / kBK);
+  if (causal) kb_hi = min(n_kb, (p0 + kBQ + kBK - 1) / kBK);
   int kb_lo = 0;
-  if (window > 0) kb_lo = max(0, q0 - window + 1) / kBK;
+  if (window > 0) kb_lo = max(0, p0 - window + 1) / kBK;
 
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
     const int k0 = kb * kBK;
@@ -122,8 +127,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
       int c = idx / HD, d = idx % HD;
       int j = k0 + c;
       float kv = 0.0f, vv = 0.0f;
-      if (j < S) {
-        size_t off = (((size_t)b * S + j) * K + kvh) * HD + d;
+      if (j < Sk) {
+        size_t off = (((size_t)b * Sk + j) * K + kvh) * HD + d;
         kv = to_float(k[off]);
         vv = to_float(v[off]);
       }
@@ -152,14 +157,14 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = p0 + ty + 16 * i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
         float x = s[i][j];
         if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-        bool ok = kp < S;
+        bool ok = kp < Sk;
         if (causal) ok = ok && kp <= qp;
         if (window > 0) ok = ok && (qp - kp) < window;
         x = ok ? x : kNegInf;
@@ -199,17 +204,17 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int sq = q0 + ty + 16 * i;
-    if (sq >= S) continue;
+    if (sq >= Sq) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    T* o = out + (((size_t)b * S + sq) * H + h) * HD;
+    T* o = out + (((size_t)b * Sq + sq) * H + h) * HD;
 #pragma unroll
     for (int jd = 0; jd < NJ; ++jd) store(o + tx + 16 * jd, acc[i][jd] * inv);
   }
 }
 
 template <typename T, int NJ>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-           int K, int causal, int window, float softcap, float sm_scale,
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+           int q_off, int H, int K, int causal, int window, float softcap, float sm_scale,
            cudaStream_t stream) {
   const size_t smem = smem_floats<NJ>() * sizeof(float);
   auto kernel = flash_kernel<T, NJ>;
@@ -218,39 +223,44 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
-                                           S, H, K, causal, window, softcap, sm_scale);
+                                           Sq, Sk, q_off, H, K, causal, window, softcap,
+                                           sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-             int K, int hd, int causal, int window, float softcap, float sm_scale,
-             cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+             int q_off, int H, int K, int hd, int causal, int window, float softcap,
+             float sm_scale, cudaStream_t st) {
+#define FLASH_LAUNCH(NJ)                                                                  \
+  launch<T, NJ>(q, k, v, o, B, Sq, Sk, q_off, H, K, causal, window, softcap, sm_scale, st)
   switch (hd) {
-    case 16: return launch<T, 1>(q, k, v, o, B, S, H, K, causal, window, softcap, sm_scale, st);
-    case 32: return launch<T, 2>(q, k, v, o, B, S, H, K, causal, window, softcap, sm_scale, st);
-    case 64: return launch<T, 4>(q, k, v, o, B, S, H, K, causal, window, softcap, sm_scale, st);
-    case 128: return launch<T, 8>(q, k, v, o, B, S, H, K, causal, window, softcap, sm_scale, st);
-    case 256: return launch<T, 16>(q, k, v, o, B, S, H, K, causal, window, softcap, sm_scale, st);
+    case 16: return FLASH_LAUNCH(1);
+    case 32: return FLASH_LAUNCH(2);
+    case 64: return FLASH_LAUNCH(4);
+    case 128: return FLASH_LAUNCH(8);
+    case 256: return FLASH_LAUNCH(16);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_LAUNCH
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output alike)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output alike); q and the
+// output [B, Sq, H, hd], k and v [B, Sk, K, hd], q_offset + Sq <= Sk
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype,
-    int B, int S, int H, int K, int hd, int causal, int window, float softcap,
-    float sm_scale, void* stream) {
+    int B, int Sq, int Sk, int q_offset, int H, int K, int hd, int causal, int window,
+    float softcap, float sm_scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, S, H, K, hd, causal, window, softcap,
-                           sm_scale, st);
+    return dispatch<float>(q, k, v, out, B, Sq, Sk, q_offset, H, K, hd, causal, window,
+                           softcap, sm_scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, S, H, K, hd, causal, window,
-                                   softcap, sm_scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, q_offset, H, K, hd, causal,
+                                   window, softcap, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,11 +9,13 @@
 // Plain version: repro_torch/kernels/flash_attention.py::
 // flash_attention_torch.  Route: kernels/flash_attention.py::flash_route.
 //
-// What it computes, for query head h (KV head h / (H / K)) and query row i,
-// as the JAX kernel does:
+// What it computes, for query head h (KV head h / (H / K)) and query row i
+// of Sq, at position p = q_offset + i among the Sk keys, as the JAX kernel
+// does (q_offset = 0 and Sq = Sk: its call; else rows [q_offset, q_offset
+// + Sq) of that call over Sk queries, a device's block of a split sequence):
 //   s[j]  = hd^-0.5 * (q[i] . k[j])            (the product in fp32)
 //   s[j]  = softcap * tanh(s[j] / softcap)    (if softcap; before the mask)
-//   s[j]  = -1e30 where j > i (causal), i - j >= window (if window), j >= S
+//   s[j]  = -1e30 where j > p (causal), p - j >= window (if window), j >= Sk
 //   out   = sum_j softmax(s)[j] v[j], by the online recurrence over key
 //           tiles, finally acc / max(l, 1e-30), rounded to bfloat16.
 // The scale is applied to the fp32 scores, not to q in bfloat16 (rounding
@@ -52,7 +54,7 @@
 //   80 / 160 / 192 KB at hd 64 / 128 / 256, under the 227 KB a block may
 //   use, so one CTA per SM.
 // - TMA tensor maps over the JAX layout, built on the host at each call:
-//   q as the 4-D tensor (hd, H, S, B), k and v as (hd, K, S, B), boxes of
+//   q as the 4-D tensor (hd, H, Sq, B), k and v as (hd, K, Sk, B), boxes of
 //   (64, 1, rows, 1) with the 128-byte swizzle; a wider head is 2 or 4
 //   boxes of 64 columns.  Rows past S are filled with zeros by the TMA
 //   unit (a ragged S), and keys past S are masked.  The driver's
@@ -318,11 +320,12 @@ struct Tiles {
 
 template <int HD, int BK>
 __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
-    const __grid_constant__ CUtensorMap tq,   // (hd, H, S, B)
-    const __grid_constant__ CUtensorMap tk,   // (hd, K, S, B)
-    const __grid_constant__ CUtensorMap tv,   // (hd, K, S, B)
-    __nv_bfloat16* __restrict__ out,          // [B, S, H, hd]
-    int S, int H, int K, int causal, int window, float softcap, float sm_scale) {
+    const __grid_constant__ CUtensorMap tq,   // (hd, H, Sq, B)
+    const __grid_constant__ CUtensorMap tk,   // (hd, K, Sk, B)
+    const __grid_constant__ CUtensorMap tv,   // (hd, K, Sk, B)
+    __nv_bfloat16* __restrict__ out,          // [B, Sq, H, hd]
+    int Sq, int Sk, int q_off, int H, int K, int causal, int window, float softcap,
+    float sm_scale) {
   using T = Tiles<HD, BK>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -336,9 +339,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / K);
-  const int n_kb = (S + BK - 1) / BK;
-  const int kb_hi = causal ? min(n_kb, (q0 + kBQ + BK - 1) / BK) : n_kb;
-  const int kb_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int p0 = q_off + q0;  // the position of the block's first row among the keys
+  const int n_kb = (Sk + BK - 1) / BK;
+  const int kb_hi = causal ? min(n_kb, (p0 + kBQ + BK - 1) / BK) : n_kb;
+  const int kb_lo = window > 0 ? max(0, p0 - window + 1) / BK : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -374,7 +378,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
   const int cw = threadIdx.x / 128;        // rows q0 + 64 cw ... + 63
   const int ct = threadIdx.x % 128;
   const int lane = ct % 32;
-  const int r_lo = q0 + 64 * cw;
+  const int r_lo = p0 + 64 * cw;                      // positions among the keys
   const int row0 = r_lo + 16 * (ct / 32) + lane / 4;  // and row0 + 8
   const int col0 = 2 * (lane % 4);
   const bool capped = softcap > 0.0f;
@@ -414,7 +418,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
     // scores in log2 units, softcap before the mask, the mask only where
     // the tile crosses the diagonal, the window's edge or S
     const int k0 = kb * BK;
-    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > r_lo) ||
+    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > r_lo) ||
                         (window > 0 && r_lo + 63 - k0 >= window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -424,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
       if (masked) {
         const int key = k0 + 8 * (i / 4) + col0 + (i & 1);
         const int row = row0 + 8 * r;
-        bool ok = key < S;
+        bool ok = key < Sk;
         if (causal) ok = ok && key <= row;
         if (window > 0) ok = ok && row - key < window;
         y = ok ? y : kNegInf;
@@ -477,7 +481,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
     __syncwarp();
   }
 
-  // epilogue: acc / max(l, 1e-30), rounded to bf16, rows past S dropped
+  // epilogue: acc / max(l, 1e-30), rounded to bf16, rows past Sq dropped
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -486,9 +490,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row < S) {
-      __nv_bfloat16* dst = out + ((static_cast<size_t>(b) * S + row) * H + h) * HD + col0;
+    const int row = row0 + 8 * r - q_off;  // the output's row
+    if (row < Sq) {
+      __nv_bfloat16* dst = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD + col0;
 #pragma unroll
       for (int c = 0; c < HD / 8; ++c) {
         const __nv_bfloat162 v =
@@ -541,35 +545,42 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd,
 }
 
 template <int HD, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int K,
-           int causal, int window, float softcap, float sm_scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+           int q_off, int H, int K, int causal, int window, float softcap, float sm_scale,
+           cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, B, S, H, HD, kBQ);
-  if (err == 0) err = make_map(&tk, k, B, S, K, HD, BK);
-  if (err == 0) err = make_map(&tv, v, B, S, K, HD, BK);
+  int err = make_map(&tq, q, B, Sq, H, HD, kBQ);
+  if (err == 0) err = make_map(&tk, k, B, Sk, K, HD, BK);
+  if (err == 0) err = make_map(&tv, v, B, Sk, K, HD, BK);
   if (err != 0) return err;
   auto kernel = flash_sm90_kernel<HD, BK>;
   const int smem = Tiles<HD, BK>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, S, H, K, causal,
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  __nv_bfloat16* out = (__nv_bfloat16*)o;
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, out, Sq, Sk, q_off, H, K, causal,
                                            window, softcap, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, S, H, hd], k and v [B, S, K, hd], out [B, S, H, hd], all bfloat16,
-// contiguous and 16-byte aligned; hd in {64, 128, 256}
+// q [B, Sq, H, hd], k and v [B, Sk, K, hd], out [B, Sq, H, hd], all
+// bfloat16, contiguous and 16-byte aligned; hd in {64, 128, 256};
+// q_offset + Sq <= Sk
 extern "C" int flash_attention_sm90_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int S, int H, int K,
-    int hd, int causal, int window, float softcap, float sm_scale, void* stream) {
+    const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+    int q_offset, int H, int K, int hd, int causal, int window, float softcap, float sm_scale,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+#define FLASH_LAUNCH(HD, BK)                                                              \
+  launch<HD, BK>(q, k, v, out, B, Sq, Sk, q_offset, H, K, causal, window, softcap, sm_scale, st)
   switch (hd) {
-    case 64: return launch<64, 128>(q, k, v, out, B, S, H, K, causal, window, softcap, sm_scale, st);
-    case 128: return launch<128, 128>(q, k, v, out, B, S, H, K, causal, window, softcap, sm_scale, st);
-    case 256: return launch<256, 64>(q, k, v, out, B, S, H, K, causal, window, softcap, sm_scale, st);
+    case 64: return FLASH_LAUNCH(64, 128);
+    case 128: return FLASH_LAUNCH(128, 128);
+    case 256: return FLASH_LAUNCH(256, 64);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_LAUNCH
 }

@@ -449,34 +449,83 @@ def relayout(t, places):
     return common.from_local(out, mesh, dst, t.shape)
 
 
-def shard_cache(cache: dict, cfg, mesh, batch: int, max_len: int, rows: bool = False) -> dict:
-    """A cache of ``model.init_cache(params, cfg, batch, max_len)`` with each
-    tensor a DTensor with its ``cache_specs`` placements (less the stacked
-    dim, ``port_spec``), or with ``rows`` laid out as the batch
+def empty_cache(cfg, mesh, batch: int, max_len: int, rows: bool = False, device=None) -> dict:
+    """The empty cache of ``model.init_cache(params, cfg, batch, max_len)``
+    (each leaf at its initial value: zeros, the sLSTM's stabilizer at -10),
+    each tensor a DTensor laid out by ``cache_specs`` (less the stacked
+    dim, ``port_spec``), or with ``rows`` as the batch
     (``common.batch_placements``: the prefill's working cache, which its
-    units fill where their rows lie): a plain tensor distributed, a DTensor
-    moved by ``relayout``; the structure and the ints (a KV cache's
-    ``pos``) kept."""
-    from torch.distributed.tensor import distribute_tensor
+    units fill where their rows lie), of which only this
+    device's block is ever allocated, on ``device``: the whole batch's
+    cache, 275 GB at qwen3-32b prefill_32k, is never made on a device.
+    The ints (a KV cache's ``pos``) as ``init_cache`` makes them."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     specs = cache_specs(cfg, mesh, batch, max_len)
     dm = device_mesh(mesh)
+    dtype = getattr(torch, cfg.dtype)
+
+    def unit(u, group: str, j: int):
+        shapes = transformer.unit_cache_init(cfg, u, batch, max_len, dtype, device="meta")
+        with common.real_tensors():  # one entry of each leaf: its initial value
+            values = transformer.unit_cache_init(cfg, u, 1, 1, dtype, device="cpu")
+
+        def make(f, leaf, value):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            to = (common.batch_placements(dm, leaf.shape[0]) if rows else
+                  _cache_placements(specs, mesh, f"{group}.{j}.{f}"))
+            with common.real_tensors():
+                local = compute_local_shape_and_global_offset(leaf.shape, dm, to)[0]
+                fill = value.flatten()[0].item()
+                assert bool((value == fill).all()), f"{group}.{j}.{f} starts at several values"
+            block = torch.full(local, fill, dtype=leaf.dtype, device=device)
+            return common.from_local(block, dm, to, leaf.shape)
+        if hasattr(shapes, "_asdict"):
+            return type(shapes)(**{f: make(f, a, getattr(values, f))
+                                   for f, a in shapes._asdict().items()})
+        return tuple(make(f, a, b) for f, (a, b) in enumerate(zip(shapes, values)))
+
+    prelude, sb, n_super, trailing = transformer.block_program(cfg)
+    return {"prelude": tuple(unit(u, "prelude", j) for j, u in enumerate(prelude)),
+            "main": [tuple(unit(u, "main", j) for j, u in enumerate(sb))
+                     for _ in range(n_super)],
+            "trailing": tuple(unit(u, "trailing", j) for j, u in enumerate(trailing))}
+
+
+def _cache_placements(specs: dict, mesh, name: str) -> tuple:
+    """The placements of cache leaf ``name`` under ``cache_specs``' specs
+    (less the stacked dim, ``port_spec``)."""
+    return placements(port_spec(name, specs[name]), mesh)
+
+
+def shard_cache(cache: dict, cfg, mesh, batch: int, max_len: int) -> dict:
+    """A sharded prefill's filled cache (DTensors laid out as its rows) with
+    each tensor moved by ``relayout`` to its ``cache_specs`` placements
+    (less the stacked dim, ``port_spec``); the structure and the ints (a
+    KV cache's ``pos``) kept.  The superblocks are taken out of
+    ``cache["main"]`` as they are moved, and the groups out of ``cache``,
+    so that each leaf's old layout is freed once its new one is made (the
+    filled cache's two layouts are never held whole together)."""
+    specs = cache_specs(cfg, mesh, batch, max_len)
 
     def unit(c, group: str, j: int):
         def put(f, leaf):
             if not isinstance(leaf, torch.Tensor):
                 return leaf
-            to = (common.batch_placements(dm, leaf.shape[0]) if rows else
-                  placements(port_spec(f"{group}.{j}.{f}", specs[f"{group}.{j}.{f}"]), mesh))
-            if common.is_dtensor(leaf):
-                return relayout(leaf, to)
-            return distribute_tensor(leaf.detach(), dm, to, **common.no_source())
+            return relayout(leaf, _cache_placements(specs, mesh, f"{group}.{j}.{f}"))
         if hasattr(c, "_asdict"):
             return type(c)(**{f: put(f, v) for f, v in c._asdict().items()})
         return tuple(put(f, v) for f, v in enumerate(c))
 
-    return {"prelude": tuple(unit(c, "prelude", j) for j, c in enumerate(cache["prelude"])),
-            "main": [tuple(unit(c, "main", j) for j, c in enumerate(sb))
-                     for sb in cache["main"]],
-            "trailing": tuple(unit(c, "trailing", j)
-                              for j, c in enumerate(cache["trailing"]))}
+    out = {}
+    for group in ("prelude", "trailing"):
+        units, cache[group] = cache[group], ()
+        out[group] = tuple(unit(c, group, j) for j, c in enumerate(units))
+        del units
+    main, out["main"] = cache["main"], []
+    for i in range(len(main)):
+        sb, main[i] = main[i], None
+        out["main"].append(tuple(unit(c, "main", j) for j, c in enumerate(sb)))
+        del sb
+    return out

@@ -18,6 +18,13 @@ package's: q [B, S, H, hd], k and v [B, S, K, hd] with H a multiple of K
 softmax runs in float32.  Both kernels mask a ragged edge themselves, so
 S need not be a multiple of a block.  ``flash_attention.launches`` counts
 every launch and ``flash_attention.route_launches`` each route's.
+
+A query block at an offset: q [B, Sq, H, hd] against k and v [B, Sk, K,
+hd] with ``q_offset`` + Sq <= Sk gives rows [q_offset, q_offset + Sq) of
+the attention of Sk queries over the Sk keys (query row i at position
+q_offset + i for the causal mask and the window).  A sequence split over
+devices runs each device's block of queries so; ``q_offset`` = 0 and Sq =
+Sk is the JAX kernel's own call, launched as it was.
 """
 from __future__ import annotations
 
@@ -37,9 +44,9 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # route -> (library, C entry, its argument types)
 _ENTRIES = {
     "simt": ("flash_attention", "flash_attention_launch",
-             (_p,) * 4 + (_i,) * 8 + (_f,) * 2 + (_p,)),
+             (_p,) * 4 + (_i,) * 10 + (_f,) * 2 + (_p,)),
     "wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch",
-              (_p,) * 4 + (_i,) * 7 + (_f,) * 2 + (_p,)),
+              (_p,) * 4 + (_i,) * 9 + (_f,) * 2 + (_p,)),
 }
 
 
@@ -64,22 +71,30 @@ def full_fp32_matmul():
         torch.set_float32_matmul_precision(prev)
 
 
+def check_offset(Sq: int, Sk: int, q_offset: int) -> None:
+    """A query block of Sq rows at ``q_offset`` must lie inside the Sk keys."""
+    if q_offset < 0 or Sq > Sk or q_offset + Sq > Sk:
+        raise ValueError(f"{Sq} query rows at offset {q_offset} do not lie inside {Sk} keys")
+
+
 def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
-                          softcap: float = 0.0):
+                          softcap: float = 0.0, q_offset: int = 0):
     """Plain PyTorch version of the kernel, mirroring
     ``kernels/ref.py::flash_attention_ref``: the full score matrix in
-    float32, in true float32 products on the card too."""
+    float32, in true float32 products on the card too; q's rows at
+    positions ``q_offset`` on against k's and v's Sk keys."""
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    K, Sk = k.shape[2], k.shape[1]
+    check_offset(S, Sk, q_offset)
     G = H // K
     qg = q.reshape(B, S, K, G, hd).to(torch.float32)
     with full_fp32_matmul():
         scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(torch.float32)) * (hd ** -0.5)
         if softcap:
             scores = softcap * torch.tanh(scores / softcap)
-        i = torch.arange(S, device=q.device)[:, None]
-        j = torch.arange(S, device=q.device)[None, :]
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        i = q_offset + torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(Sk, device=q.device)[None, :]
+        mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
         if causal:
             mask &= j <= i
         if window:
@@ -91,7 +106,7 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
+                    softcap: float = 0.0, q_offset: int = 0):
     """Flash attention: the CUDA kernel of ``flash_route`` for CUDA tensors,
     the plain version for CPU tensors.  It has no backward, so it refuses
     inputs that autograd records (a launch would return an output with no
@@ -101,27 +116,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError("flash_attention has no backward: it refuses inputs that "
                            "require grad")
     dev = q.device
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
     if dev.type == "cpu":
         return flash_attention_torch(q, k, v, **kw)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {dev}")
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    K, Sk = k.shape[2], k.shape[1]
     route = flash_route(q.dtype, hd)
     if K < 1 or H % K:
         raise ValueError(f"{H} query heads do not split into {K} KV heads")
     if window < 0 or softcap < 0:
         raise ValueError("window and softcap must be >= 0")
+    check_offset(S, Sk, q_offset)
     build.check("q", q, q.dtype, (B, S, H, hd), dev)
-    build.check("k", k, q.dtype, (B, S, K, hd), dev)
-    build.check("v", v, q.dtype, (B, S, K, hd), dev)
+    build.check("k", k, q.dtype, (B, Sk, K, hd), dev)
+    build.check("v", v, q.dtype, (B, Sk, K, hd), dev)
     out = torch.empty_like(q)
     if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("the wgmma route's TMA needs 16-byte aligned q, k and v")
     lib, name, argtypes = _ENTRIES[route]
     fn = build.entry(lib, name, argtypes)
-    shape = (B, S, H, K, hd, int(causal), int(window), float(softcap), hd ** -0.5)
+    shape = (B, S, Sk, int(q_offset), H, K, hd, int(causal), int(window), float(softcap),
+             hd ** -0.5)
     dtype = () if route == "wgmma" else (_DTYPES[q.dtype],)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -10,7 +10,10 @@ Flash attention is a ``torch.library`` custom op,
 whole: its fake implementation (``register_fake``) gives the output's
 shape under ``FakeTensorMode`` without launching anything, and
 ``register_flash_sharding`` gives DTensor its rule (batch and heads
-sharded, no communication; replicated where the heads do not split).
+sharded, no communication; replicated where the heads do not split).  A
+query block at an offset (``q_offset``, against a longer key range) is a
+device's block of a sequence split over devices, which the caller
+(``models.attention``) launches on its local tensors.
 Its real implementation is the wrapper of ``kernels.flash_attention``, so
 the same kernel launches as without the op.
 """
@@ -24,14 +27,15 @@ from repro_torch.kernels import flash_attention as _fa, linkload as _ll
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
-              softcap: float) -> torch.Tensor:
+              softcap: float, q_offset: int = 0) -> torch.Tensor:
     # contiguous, as the kernel's own output (a DTensor views its local shard)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap).contiguous()
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                               q_offset=q_offset).contiguous()
 
 
 @_flash_op.register_fake
-def _flash_fake(q, k, v, causal, window, softcap):
+def _flash_fake(q, k, v, causal, window, softcap, q_offset=0):
+    _fa.check_offset(q.shape[1], k.shape[1], q_offset)
     return torch.empty_like(q)
 
 
@@ -46,16 +50,17 @@ def register_flash_sharding() -> None:
     output replicated, or sharded alike on the batch dim, or on the heads
     dim where the query and the KV heads split evenly over the shards the
     inputs come with (query head h reads KV head h // (H / K), which a
-    contiguous split of both keeps).  No rule moves data: the caller
-    (``models.attention``) lays the inputs out first."""
+    contiguous split of both keeps; the KV heads may be fewer than the
+    query heads' shards, a device's KV head repeated).  No rule moves data:
+    the caller (``models.attention``) lays the inputs out first."""
     if register_flash_sharding.done:
         return
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def rule(q, k, v, causal, window, softcap):
-        rest = [None, None, None]
+    def rule(q, k, v, causal, window, softcap, q_offset=0):
+        rest = [None, None, None, None]
         out = [([Replicate()], [Replicate()] * 3 + rest), ([Shard(0)], [Shard(0)] * 3 + rest)]
         n = 1
         for d, p in enumerate(q.placements):
@@ -88,16 +93,19 @@ def _placed(arrays, dtypes, device):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, device=None):
+                    softcap: float = 0.0, q_offset: int = 0, device=None):
     """Causal GQA attention with an optional sliding window and tanh
     softcap: q [B, S, H, hd], k and v [B, S, K, hd], float32 or bfloat16;
-    returns q's dtype and shape."""
+    returns q's dtype and shape.  With ``q_offset`` q [B, Sq, H, hd] is the
+    block of rows [q_offset, q_offset + Sq) against k and v [B, Sk, K, hd]
+    (``kernels.flash_attention``)."""
     if torch.is_grad_enabled() and any(getattr(t, "requires_grad", False) for t in (q, k, v)):
         raise RuntimeError("flash_attention has no backward: it refuses inputs that "
                            "require grad")
     if not any(_is_dtensor(t) for t in (q, k, v)):
         q, k, v = _placed((q, k, v), (None, None, None), device)
-    return torch.ops.repro_torch.flash_attention(q, k, v, causal, int(window), float(softcap))
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, int(window), float(softcap),
+                                                 int(q_offset))
 
 
 def linkload(link_ids, rates, queue, capacity, *, n_links: int, kmin: float = 400e3,

@@ -24,7 +24,9 @@ shards and records, as the JAX package's record does:
   * ``argument_size_bytes``, ``output_size_bytes``, ``temp_size_bytes`` and
     ``peak_bytes``: the bytes of the live local tensors of one device (each
     storage once): the step's inputs, its outputs, the most held at once
-    above the inputs, and that most;
+    above the inputs, and that most (for a decode cell also while its
+    cache is made, ``cache_build_peak_bytes`` the most the construction
+    held: a prefill step makes its cache inside the step);
   * ``collectives`` by kind (all-gather, all-reduce, reduce-scatter,
     all-to-all, collective-permute), each its ``count`` and the bytes of
     its results on one device, as ``collective_bytes`` sums each HLO
@@ -103,18 +105,25 @@ def _tensors(tree):
     return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
-def _flash_flops(q, k, v, causal, window, softcap) -> int:
-    """The flash kernel's products: the scores and their product with v,
-    2 * 2 * B * H * hd a (query, key) pair the mask keeps (the kernel skips
-    the blocks it drops)."""
-    B, S, H, hd = q.shape
+def flash_pairs(Sq: int, Sk: int, q_offset: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the flash kernel's mask keeps for Sq query
+    rows at positions ``q_offset`` on against Sk keys (the kernel skips the
+    blocks it drops)."""
     if not causal:
-        pairs = S * S
-    elif not window or window >= S:
-        pairs = S * (S + 1) // 2
-    else:
-        pairs = window * (window + 1) // 2 + (S - window) * window
-    return 4 * B * H * pairs * hd
+        return Sq * Sk
+
+    def upto(n):  # the pairs of query rows 0 .. n - 1
+        w = window if window and window < n else n
+        return w * (w + 1) // 2 + (n - w) * w
+
+    return upto(q_offset + Sq) - upto(q_offset)
+
+
+def _flash_flops(q, k, v, causal, window, softcap, q_offset=0) -> int:
+    """The flash kernel's products: the scores and their product with v,
+    2 * 2 * B * H * hd a (query, key) pair the mask keeps."""
+    B, Sq, H, hd = q.shape
+    return 4 * B * H * hd * flash_pairs(Sq, k.shape[1], q_offset, causal, window)
 
 
 class Counter(TorchDispatchMode):
@@ -170,6 +179,8 @@ class Counter(TorchDispatchMode):
         bytes if it was new, else 0.  With ``peak_sites`` the storage is
         keyed by ``site``, or by the line of the port that made it and the
         line that called it (``_site``)."""
+        if t.device.type == "meta":  # shapes only (a cache's leaves): no memory on a device
+            return 0
         st = t.untyped_storage()
         key = st._cdata
         if key in self._sizes:
@@ -299,14 +310,15 @@ def _loops_counted(counter):
 
     slstm, mlstm = recurrent._slstm_scan, recurrent._mlstm_scan
 
-    def slstm_scan(gx, c, n, h, m, r):
+    def slstm_scan(gx, c, n, h, m, r, b=None):
         S = gx.shape[1]
         if S < 2 or torch.is_grad_enabled():
-            return slstm(gx, c, n, h, m, r)
+            return slstm(gx, c, n, h, m, r, b)
         held = _nbytes(h)  # each state tensor [B, H, hd]
         counter.adjust((S + 2) * held)  # h_0 .. h_{S-2}; c, n, m before the last step
         since = counter.readings()
-        state = recurrent._slstm_cell(recurrent.SLSTMCache(c=c, n=n, h=h, m=m), gx[:, 0], r)
+        g = gx[:, 0] if b is None else gx[:, 0].to(torch.float32) + b
+        state = recurrent._slstm_cell(recurrent.SLSTMCache(c=c, n=n, h=h, m=m), g, r)
         counter.add(since, S - 1)
         counter.adjust(-3 * held)  # the last step's predecessor state freed
         hs = torch.stack([state.h] * S, dim=1)
@@ -359,6 +371,25 @@ def storage_bytes(tensors) -> int:
     return sum(seen.values())
 
 
+def forget_meshes() -> None:
+    """DTensor's caches of sharding propagation and redistribution plans
+    emptied: they key a mesh by its shape and ranks, so a fake group of
+    another rank in this process would be given the earlier group's
+    meshes (their process groups destroyed).  Call it between the traces
+    of two ranks in one process."""
+    from torch.distributed.tensor import DTensor, _redistribute
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for fn in (prop.propagate_op_sharding, getattr(prop, "_propagate_tensor_meta_cached", None),
+               getattr(_redistribute, "_gen_transform_infos", None)):
+        if hasattr(fn, "cache_clear"):
+            fn.cache_clear()
+    if hasattr(_redistribute, "clear_redistribute_planner_cache"):
+        _redistribute.clear_redistribute_planner_cache()
+    if hasattr(torch._C, "_clear_DTensor_sharding_propagator_cache"):  # its C++ fast path's
+        torch._C._clear_DTensor_sharding_propagator_cache()
+
+
 # ------------------------------------------------------------------- a cell
 def _inputs(cfg, shape, device) -> dict:
     """The cell's model inputs (``registry.input_specs``), zeros."""
@@ -367,24 +398,27 @@ def _inputs(cfg, shape, device) -> dict:
 
 
 def _build(cfg, shape, mesh, grad_sync: str, device):
-    """(the step, its arguments) of a cell on fake tensors, the state
-    sharded over ``mesh``."""
+    """(the step, its arguments, the Counter of a decode cell's cache
+    construction or ``None``) of a cell on fake tensors, the state sharded
+    over ``mesh``."""
     if shape.kind == "train":
         state = steps.init_state(cfg, 0, device=device)
         sharding.shard_params(state["params"], cfg, mesh)
         state["opt"] = sharding.shard_opt_state(state["opt"], cfg, mesh)
         plan = collectives.PathPlan(n_chunks=4) if grad_sync == "seqbalance" else None
         step = steps.make_train_step(cfg, opt_mod.AdamWConfig(), mesh, grad_sync, plan)
-        return step, (state, sharding.shard_batch(_inputs(cfg, shape, device), mesh))
+        return step, (state, sharding.shard_batch(_inputs(cfg, shape, device), mesh)), None
     # float32 masters, cast at each use, as the JAX package serves them
     params = sharding.shard_params(model.init_params(cfg, 0, device=device, trainable=True),
                                    cfg, mesh)
     if shape.kind == "prefill":
         step = steps.make_prefill_step(cfg, shape.seq_len)
-        return step, (params, sharding.shard_batch(_inputs(cfg, shape, device), mesh))
-    cache = steps.serving_cache(params, cfg, shape.global_batch, shape.seq_len)
+        return step, (params, sharding.shard_batch(_inputs(cfg, shape, device), mesh)), None
+    made = Counter()  # the cache's construction, as a prefill's is counted in its step
+    with made:
+        cache = steps.serving_cache(params, cfg, shape.global_batch, shape.seq_len)
     tokens = sharding.shard_batch(_inputs(cfg, shape, device), mesh)["tokens"]
-    return steps.make_serve_step(cfg), (params, tokens, cache)
+    return steps.make_serve_step(cfg), (params, tokens, cache), made
 
 
 def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
@@ -411,12 +445,16 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
         device = "cuda" if torch.cuda.is_available() else "cpu"
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True):
-        step, args = _build(cfg, shape, mesh, grad_sync, device)
+        step, args, made = _build(cfg, shape, mesh, grad_sync, device)
         counter = Counter(sites, peak_sites)
         arguments = local_tensors(args)
         for t in arguments:
             counter.track(t, "arguments")
         arg_bytes = counter.live
+        # a decode cell's peak while its cache is made: the other arguments
+        # held, and the most its construction held
+        built = (arg_bytes - storage_bytes(local_tensors(args[-1])) + made.peak
+                 if made is not None else 0)
         rounds, sent = collectives.permute_rounds, collectives.permute_bytes
         whole = recurrent._slstm_scan, recurrent._mlstm_scan
         if loop_count:
@@ -434,7 +472,7 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
     coll["collective-permute"] += collectives.permute_bytes - sent
     coll["count"] += permutes
     coll["total"] = sum(coll[k] for k in COLLECTIVE_OPS)
-    extra = {}
+    extra = {} if made is None else {"cache_build_peak_bytes": float(made.peak)}
     if sites:
         extra["collective_sites"] = {f"{kind} {where}": float(n) for (kind, where), n in
                                      sorted(counter.sites.items(), key=lambda kv: -kv[1])}
@@ -451,7 +489,7 @@ def trace_cell(cfg, shape, mesh, grad_sync: str = "xla", device=None,
         "argument_size_bytes": float(arg_bytes),
         "output_size_bytes": float(out_bytes),
         "temp_size_bytes": float(counter.peak - arg_bytes),
-        "peak_bytes": float(counter.peak),
+        "peak_bytes": float(max(counter.peak, built)),
         "collectives": coll,
         "collective_counts": {**counter.counts,
                               "collective-permute": counter.counts["collective-permute"]

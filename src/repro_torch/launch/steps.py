@@ -351,15 +351,15 @@ def _map_cache(fn, cache):
 def serving_cache(params, cfg, batch: int, max_len: int):
     """The empty cache of ``batch`` rows laid out as ``make_prefill_step``
     returns it for sharded ``params``: ``cache_specs`` over the mesh one
-    pod runs on, for its share of the rows, lifted over the whole mesh."""
+    pod runs on, for its share of the rows, lifted over the whole mesh;
+    each leaf made as its device's block (``sharding.empty_cache``)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     rows = torch.zeros((batch, 1), dtype=torch.int32, device=params.device)
     params, share, mesh, _, lift, _ = _serving(params, {"tokens": rows})
     B = share["tokens"].shape[0]
     with implicit_replication():
-        cache = sharding.shard_cache(model.init_cache(params, cfg, B, max_len), cfg, mesh, B,
-                                     max_len)
+        cache = sharding.empty_cache(cfg, mesh, B, max_len, device=params.device)
     return _map_cache(lift, cache)
 
 
@@ -371,8 +371,9 @@ def make_prefill_step(cfg, max_len: int):
     into a cache laid out for its share (``serving_cache``), its MoE units
     routing every pod's rows.  The units fill a cache laid out as their
     rows (the recurrent states start there, and nothing moves to write
-    it), which ``dist.sharding.relayout`` then moves once to
-    ``cache_specs``."""
+    it), made as each device's block (``sharding.empty_cache``), which
+    ``dist.sharding.relayout`` then moves once to ``cache_specs``, leaf by
+    leaf, each rows copy freed as it goes."""
 
     def prefill_step(params, batch):
         if not _sharded(params):
@@ -382,8 +383,7 @@ def make_prefill_step(cfg, max_len: int):
         params, batch, mesh, _, lift, pods = _serving(params, batch)
         B = next(iter(batch.values())).shape[0]
         with implicit_replication(), moe.routed_over(pods):
-            cache = sharding.shard_cache(model.init_cache(params, cfg, B, max_len), cfg, mesh,
-                                         B, max_len, rows=True)
+            cache = sharding.empty_cache(cfg, mesh, B, max_len, rows=True, device=params.device)
             logits, cache = model.prefill(params, cfg, batch, max_len, cache=cache)
         cache = sharding.shard_cache(cache, cfg, mesh, B, max_len)
         return lift(logits), _map_cache(lift, cache)

@@ -67,13 +67,16 @@ def _out(x, out, wo):
 
 def _qkv(p: AttnParams, x, positions, cfg):
     q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    return _normed(q, p.q_norm, positions, cfg), _normed(k, p.k_norm, positions, cfg), \
+        v.contiguous()
+
+
+def _normed(t, scale, positions, cfg):
+    """q or k [B, S, heads, hd] after the qk-norm (qwen3's; its mean over hd)
+    and RoPE at ``positions``: contiguous, as the kernel's TMA reads it."""
     if cfg.qk_norm:
-        q = common.rms_norm(q, p.q_norm)
-        k = common.rms_norm(k, p.k_norm)
-    # contiguous [B, S, H, hd], as the kernel's TMA reads them
-    q = common.rope(q, positions, cfg.rope_theta).contiguous()
-    k = common.rope(k, positions, cfg.rope_theta).contiguous()
-    return q, k, v.contiguous()
+        t = common.rms_norm(t, scale)
+    return common.rope(t, positions, cfg.rope_theta).contiguous()
 
 
 def _sdpa(q, k, v, mask, cfg):
@@ -184,36 +187,155 @@ def _attend(q, k, v, mask, cfg):
 def _self_attention(q, k, v, cfg, window: int, causal: bool, plain: bool = False):
     """Self-attention over the whole sequence: the flash kernel (its plain
     version on CPU tensors, or where ``plain``).  As in the JAX package a
-    window applies to causal attention only."""
+    window applies to causal attention only.  DTensors come laid out by
+    ``_sharded_self_attention`` (the op's rule moves nothing)."""
     kw = dict(causal=causal, window=window if causal else 0, softcap=cfg.attn_softcap)
     if plain:
         return fa.flash_attention_torch(q, k, v, **kw)
     if common.is_dtensor(q):
-        q, k, v = _flash_layout(q, k, v)
+        ops.register_flash_sharding()
     return ops.flash_attention(q, k, v, **kw)
 
 
-def _flash_layout(q, k, v):
-    """DTensor q, k, v laid out for the flash op's rule
-    (``ops.register_flash_sharding``): the batch over the mesh's
-    data-parallel dims, the heads over "model" where both the query and the
-    KV heads split over it (not gemma2-2b's 8 and 4 on 16), else replicated
-    there."""
+def flash_plan(mesh, B: int, S: int, H: int, K: int) -> str:
+    """How a sharded prefill's flash attention splits over the mesh's
+    "model" dim of M members (the batch over the data-parallel dims in
+    every case):
+
+      "heads"     the query and the KV heads where both divide (or no
+                  "model" dim of more than one member);
+      "kv_heads"  the query heads where they divide and each device's H / M
+                  consecutive heads read one KV head (the group H / K a
+                  multiple of H / M): k and v whole on each device, which
+                  passes the kernel its one KV head (qwen3-32b,
+                  granite-3-8b, nemotron-4-15b, internvl2-26b and
+                  recurrentgemma-9b at 16);
+      "sequence"  else the queries, S in 2M blocks, device r taking blocks
+                  r and 2M - 1 - r (``sequence_blocks``) against every key
+                  (gemma2-2b's 8 and 4 heads, whisper-large-v3's 20,
+                  granite-moe-3b-a800m's 24 and 8 at 16);
+      "replicated" else (S not in 2M blocks): every "model" member attends
+                  the whole batch's rows."""
+    names = mesh.mesh_dim_names
+    M = mesh.size(names.index("model")) if "model" in names else 1
+    if H % M == 0 and K % M == 0:
+        return "heads"
+    if H % M == 0 and M % K == 0:
+        return "kv_heads"
+    return "sequence" if S % (2 * M) == 0 else "replicated"
+
+
+def sequence_blocks(S: int, M: int, r: int) -> tuple:
+    """(start, rows) of member r's two query blocks of S split into 2M:
+    blocks r and 2M - 1 - r, so that each member's causal work is the same
+    (with contiguous blocks the last would do 2M - 1 times the first's)."""
+    b = S // (2 * M)
+    return (r * b, b), ((2 * M - 1 - r) * b, b)
+
+
+def _placed_for_flash(t, mesh, model):
+    """A DTensor [B, S, heads, hd] laid out as the flash op takes it: the
+    batch as the residual stream's (``common.batch_placements``), and on
+    "model" (where the mesh has it) the placement ``model``."""
+    out = common.batch_placements(mesh, t.shape[0])
+    if "model" in mesh.mesh_dim_names:
+        out[mesh.mesh_dim_names.index("model")] = model
+    return t.redistribute(mesh, out)
+
+
+def _sharded_self_attention(p: AttnParams, x, h, cfg, window: int, causal: bool,
+                            plain: bool = False):
+    """x + self-attention of the normed DTensor stream h [B, S, D] where
+    autograd does not record (a sharded prefill), split over "model" as
+    ``flash_plan`` says; returns (x + out, k, v), k and v [B, S, K, hd] as
+    the cache keeps them (reduced once over "model": split over it by the
+    heads, else whole).  q, k and v reach their layout before the qk-norm
+    and RoPE (the norm's mean over hd is then a device's own, and no
+    float32 copy of q or k crosses "model"); q by a reduce-scatter of its
+    partial sums where "model" splits the heads or the sequence."""
     from torch.distributed.tensor import Replicate, Shard
 
-    ops.register_flash_sharding()
+    mesh = h.device_mesh
+    B, S, _ = h.shape
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    positions = torch.arange(S, device=h.device)[None, :]
+    q, k, v = _proj(h, p.wq), _proj(h, p.wk), _proj(h, p.wv)
+    plan = flash_plan(mesh, B, S, H, K)
+    heads = Shard(2) if plan == "heads" else Replicate()
+    k, v = (_placed_for_flash(t, mesh, heads) for t in (k, v))
+    k, v = _normed(k, p.k_norm, positions, cfg), v.contiguous()
+    if plan == "sequence":
+        return _on_sequence(p, x, q, k, v, cfg, window, causal, plain), k, v
+    q = _normed(_placed_for_flash(q, mesh, Replicate() if plan == "replicated" else Shard(2)),
+                p.q_norm, positions, cfg)
+    ka, va = (_device_kv_head(t, H) for t in (k, v)) if plan == "kv_heads" else (k, v)
+    out = _self_attention(q, ka, va, cfg, window, causal, plain)
+    return _out(x, out, p.wo), k, v
+
+
+def _device_kv_head(t, H: int):
+    """k or v [B, S, K, hd], whole over "model", as the flash op takes it
+    against q split over "model" by its heads where each device's heads
+    read one KV head: [B, S, M, hd] split over "model", device r's block
+    its KV head (r * (H / M)) // (H / K) (the KV heads repeated, each as
+    many times as devices read it)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    m = mesh.mesh_dim_names.index("model")
+    M, r = mesh.size(m), mesh.get_local_rank(m)
+    j = r * (H // M) // (H // t.shape[2])
+    places = list(t.placements)
+    places[m] = Shard(2)
+    return common.from_local(t.to_local()[:, :, j:j + 1].contiguous(), mesh, places,
+                             (t.shape[0], t.shape[1], M, t.shape[3]))
+
+
+def _on_sequence(p: AttnParams, x, q, k, v, cfg, window: int, causal: bool, plain: bool):
+    """x + the attention of q [B, S, H, hd] (as ``_proj`` made it) over k and v
+    (whole over "model", normed), with "model" splitting the queries:
+    device r's blocks r and 2M - 1 - r (``sequence_blocks``) reduced onto
+    it by one reduce-scatter (sliced where q is whole), normed and rotated
+    there, each attended as a query block at its offset against the keys;
+    then its rows' output projection (``wo`` gathered whole) and one
+    all-gather of the products back to the rows' layout."""
+    from torch.distributed.tensor import Replicate
+
     mesh = q.device_mesh
-    B, H, K = q.shape[0], q.shape[2], k.shape[2]
-    dp, out = 1, []
-    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
-        if name == "model":
-            out.append(Shard(2) if H % n == 0 and K % n == 0 else Replicate())
-        elif B % (dp * n) == 0:
-            dp *= n
-            out.append(Shard(0))
+    m = mesh.mesh_dim_names.index("model")
+    M, r = mesh.size(m), mesh.get_local_rank(m)
+    B, S, H, hd = q.shape
+    group = mesh.get_group(m).group_name
+    c10d = torch.ops._c10d_functional
+    model = q.placements[m]
+    q = _placed_for_flash(q, mesh, model if model.is_partial() else Replicate())
+    ql = q.to_local()
+    b, Bl = S // (2 * M), ql.shape[0]
+    blocks = ql.view(Bl, 2 * M, b, H, hd).transpose(0, 1)  # [2M, Bl, b, H, hd]
+    if model.is_partial():
+        order = [j for i in range(M) for j in (i, 2 * M - 1 - i)]  # member i's pair at 2i
+        ql = c10d.wait_tensor(c10d.reduce_scatter_tensor(
+            blocks[order].view(M, 2 * Bl * b, H, hd), "sum", M, group)).view(2, Bl, b, H, hd)
+    else:
+        ql = blocks[[r, 2 * M - 1 - r]]
+    del q, blocks
+    kl, vl = k.to_local(), v.to_local()
+    kw = dict(causal=causal, window=window if causal else 0, softcap=cfg.attn_softcap)
+    wo = common.whole(p.wo).reshape(H * hd, -1)
+    scale = common.whole(p.q_norm) if cfg.qk_norm else None
+    ys = []
+    for j, (start, n) in enumerate(sequence_blocks(S, M, r)):
+        pos = torch.arange(start, start + n, device=ql.device)[None, :]
+        qj = _normed(ql[j], scale, pos, cfg)
+        if plain:
+            out = fa.flash_attention_torch(qj, kl, vl, q_offset=start, **kw)
         else:
-            out.append(Replicate())
-    return tuple(t.redistribute(mesh, out) for t in (q, k, v))
+            out = ops.flash_attention(qj, kl, vl, q_offset=start, **kw)
+        ys.append(out.reshape(Bl, n, H * hd) @ wo)
+    got = c10d.wait_tensor(c10d.all_gather_into_tensor(torch.stack(ys), M, group))
+    back = [2 * t if t < M else 2 * (2 * M - 1 - t) + 1 for t in range(2 * M)]
+    y = got.view(2 * M, Bl, b, -1)[back].transpose(0, 1).reshape(Bl, S, -1)
+    return x + common.from_local(y, mesh, common.batch_placements(mesh, B), x.shape)
 
 
 def causal_mask(Sq: int, window: int = 0, device=None) -> torch.Tensor:
@@ -263,6 +385,9 @@ def apply_full(p: AttnParams, x, cfg, *, window: int = 0, is_causal: bool = True
     B, S, D = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     h = common.rms_norm(x, p.ln)
+    if kv_override is None and common.is_dtensor(h) and not common.records(
+            h, *p.parameters()):
+        return _sharded_self_attention(p, x, h, cfg, window, is_causal)[0]
     if kv_override is None:
         q, k, v = _qkv(p, h, positions, cfg)
         if common.records(q, k, v):
@@ -308,11 +433,11 @@ def apply_prefill(p: AttnParams, x, cfg, cache: KVCache, *, window: int = 0,
     B, S, D = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     h = common.rms_norm(x, p.ln)
-    q, k, v = _qkv(p, h, positions, cfg)
-    if common.is_dtensor(q):  # the cache keeps k and v as the kernel takes them: reduced once
-        q, k, v = _flash_layout(q, k, v)
-    out = _self_attention(q, k, v, cfg, window, True, plain)
-    y = _out(x, out, p.wo)
+    if common.is_dtensor(h):  # the cache keeps k and v as laid out for the kernel
+        y, k, v = _sharded_self_attention(p, x, h, cfg, window, True, plain)
+    else:
+        q, k, v = _qkv(p, h, positions, cfg)
+        y = _out(x, _self_attention(q, k, v, cfg, window, True, plain), p.wo)
     Sc = cache.k.shape[2]
     k, v = k.transpose(1, 2), v.transpose(1, 2)  # head-major
     if S >= Sc:  # keep last Sc entries, ring-aligned

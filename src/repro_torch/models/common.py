@@ -94,6 +94,12 @@ def gathered_on(t, dims):
     return t if out == list(t.placements) else t.redistribute(t.device_mesh, out)
 
 
+def whole(t):
+    """A DTensor gathered whole on this device (a weight a device's code
+    takes whole), as a plain tensor; a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def fsdp_gathered(t):
     """A DTensor weight as a step uses it: gathered whole over the
     data-parallel mesh dims ("data", "pod"), still split over "model"

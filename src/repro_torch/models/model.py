@@ -279,7 +279,7 @@ def prefill(params: Params, cfg, batch, max_len: int, *, plain_attention: bool =
     if cache is None:
         cache = init_cache(params, cfg, x.shape[0], max_len)
     x, cache, _ = _run_decoder(params, cfg, x, "prefill", cache=cache, ctx=ctx)
-    x = common.rms_norm(x[:, -1:], params.final_norm)
+    x = common.rms_norm(common.batch_layout(x)[:, -1:], params.final_norm)
     return logits_fn(params, cfg, x)[:, 0], cache
 
 

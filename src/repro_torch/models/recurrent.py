@@ -184,14 +184,55 @@ def mlstm_carry(C0, n0, runs):
     return C, n
 
 
+def mlstm_compose(a, b):
+    """The run a followed by the run b, each (C, n, F) as ``mlstm_run_end``
+    gives it: (e^Fb C_a + C_b, e^Fb n_a + n_b, F_a + F_b).  Associative, so
+    that runs compose in any grouping (up to summation order)."""
+    Ca, na, Fa = a
+    Cb, nb, Fb = b
+    e = torch.exp(Fb)
+    return e[..., None, None] * Ca + Cb, e[..., None] * na + nb, Fa + Fb
+
+
+def _exchange(t, peer: int, M: int, group: str):
+    """``t`` sent to member ``peer`` of the mesh dim's group of M, and what
+    ``peer`` sends back (a pairwise exchange, as one all-to-all)."""
+    c10d = torch.ops._c10d_functional
+    split = [t.numel() if j == peer else 0 for j in range(M)]
+    return c10d.wait_tensor(c10d.all_to_all_single(t.reshape(-1), split, split, group))
+
+
+def mlstm_prefix(run, M: int, r: int, group: str):
+    """(the runs of members 0 .. r - 1 composed, or ``None`` for member 0;
+    every member's run composed), for member r of M (a power of two) whose
+    own run is ``run`` (``mlstm_run_end``'s (C, n, F)): log2(M) rounds of
+    a pairwise exchange, member r with r XOR d, each sending the runs its
+    half has composed so far (the recursive-doubling scan), where gathering
+    every member's end state would move M of them to each."""
+    shapes = [t.shape for t in run]
+    sizes = [t.numel() for t in run]
+    prefix, total, d = None, run, 1
+    while d < M:
+        peer = r ^ d
+        got = _exchange(torch.cat([t.reshape(-1) for t in total]), peer, M, group)
+        theirs = tuple(a.view(sh) for a, sh in zip(got.split(sizes), shapes))
+        if peer < r:
+            prefix = theirs if prefix is None else mlstm_compose(theirs, prefix)
+            total = mlstm_compose(theirs, total)
+        else:
+            total = mlstm_compose(total, theirs)
+        d *= 2
+    return prefix, total
+
+
 def _sequence_split(t, S: int):
     """The index of the "model" mesh dim over which a DTensor prefill's
-    mLSTM splits its sequence, or ``None`` (a plain tensor; no "model" dim
-    of more than one member; or S / its size not a whole number of
-    256-token chunks).  Chunks start at multiples of 256 from position 0,
-    and the reference's scale quirk makes a chunk's output depend on where
-    it starts, so a split that would cut a chunk between ranks is never
-    taken: the rows path runs instead."""
+    mLSTM and sLSTM split the sequence, or ``None`` (a plain tensor; no
+    "model" dim of more than one member, or of a size not a power of two;
+    or S / its size not a whole number of 256-token chunks).  Chunks start
+    at multiples of 256 from position 0, and the reference's scale quirk
+    makes a chunk's output depend on where it starts, so a split that would
+    cut a chunk between ranks is never taken: the rows path runs instead."""
     if not common.is_dtensor(t):
         return None
     names = t.device_mesh.mesh_dim_names
@@ -199,68 +240,82 @@ def _sequence_split(t, S: int):
         return None
     m = names.index("model")
     n = t.device_mesh.size(m)
-    return m if n > 1 and S % (n * MLSTM_CHUNK) == 0 else None
+    return m if n > 1 and not n & (n - 1) and S % (n * MLSTM_CHUNK) == 0 else None
 
 
-def _mlstm_on_sequence(p: MLSTMParams, x, u, uc, z, C0, n0, m: int, scale: float):
-    """The mLSTM's prefill on DTensors split over the sequence on "model"
-    (mesh dim ``m``, of M members).  u, uc and z (split over "model" on
-    their features) come to each rank for its own contiguous run of S / M
-    tokens (whole chunks) by an all-to-all each, and q, k, v and the gates are
-    products of them with the whole weights (gathered over "model"): each
-    token's products are then whole dot products, as on one device, where
-    partial sums over "model" would move the mLSTM's inputs by a rounding
-    each (its gates and denominators turn a relative 1e-7 there into 1e-4
-    of the logits at 512 tokens), and fewer bytes move than a
-    reduce-scatter of q, k and v in float32.  Each rank runs its chunks
-    from the zero state (``mlstm_run_end``); the runs' end states are
-    gathered over "model", and each rank's carry in is their exclusive
-    prefix from (C0, n0) (``mlstm_carry``), from which it runs
-    ``_mlstm_scan``.  The group norm, the gate and ``w_down`` (whole) run
-    on the rank's tokens, and the residual returns through
-    ``batch_layout``.  Returns (x + out, the state after the last token,
-    on every rank, laid out as the rows)."""
+def _sequence_layouts(x, m: int):
+    """(the rows' placements, the sequence's: the rows' with "model" mesh dim
+    ``m`` splitting dim 1) of the stream x [B, S, D]."""
     from torch.distributed.tensor import Shard
 
+    rows = common.batch_placements(x.device_mesh, x.shape[0])
+    seq = list(rows)
+    seq[m] = Shard(1)
+    return rows, seq
+
+
+def _own_tokens(x, m: int):
+    """This member's contiguous S / M tokens of the stream x [B, S, D] as a
+    local tensor [B_local, S / M, D]: sliced where x is whole over "model"
+    (the rows' layout), as it is where x comes split over the sequence."""
     mesh = x.device_mesh
-    B, S, _ = x.shape
+    rows, seq = _sequence_layouts(x, m)
+    if list(x.placements) == seq:
+        return x.to_local()
     M, r = mesh.size(m), mesh.get_local_rank(m)
-    rows = common.batch_placements(mesh, B)
-    seq, features = list(rows), list(rows)
-    seq[m], features[m] = Shard(1), Shard(2)
+    n = x.shape[1] // M
+    return common.laid_out(x, mesh, rows).to_local()[:, r * n:(r + 1) * n]
+
+
+def _mlstm_on_sequence(p: MLSTMParams, x, cache, m: int, scale: float):
+    """The mLSTM's prefill on DTensors split over the sequence on "model"
+    (mesh dim ``m``, of M members): each member runs its own contiguous S /
+    M tokens (whole chunks) through the whole block, with the weights
+    gathered whole (the products each token's whole dot products, as on
+    one device, where partial sums over "model" would move the mLSTM's
+    inputs by a rounding each: its gates and denominators turn a relative
+    1e-7 there into 1e-4 of the logits at 512 tokens).  The causal conv
+    takes the previous member's last W - 1 inputs (one small all-gather
+    of each member's); each member's run of chunks from the zero state
+    (``mlstm_run_end``) is composed with the others' by ``mlstm_prefix``,
+    and it scans its chunks from the carry of the runs before it.  The
+    stream stays split over the sequence (the next block takes it so).  The
+    states after the last token, on every member, are written into the
+    storage of the cache's (``cache``: the prefill's working cache, laid
+    out as the rows).  Returns (x + out, the new cache, laid out as the
+    rows)."""
+    mesh = x.device_mesh
+    M, r = mesh.size(m), mesh.get_local_rank(m)
+    rows, seq = _sequence_layouts(x, m)
     group = mesh.get_group(m).group_name
-    ops = torch.ops._c10d_functional
-    def mine(t):  # [Bl, S, P / M] -> this rank's tokens [Bl, S / M, P]
-        t = t.redistribute(mesh, features).to_local()
-        Bl, _, Pm = t.shape
-        t = ops.wait_tensor(ops.all_to_all_single(
-            t.view(Bl, M, S // M, Pm).transpose(0, 1).contiguous(), [1] * M, [1] * M, group))
-        return t.permute(1, 2, 0, 3).reshape(Bl, S // M, M * Pm)  # from rank j: features j
-
-    u, uc, z = (mine(t) for t in (u, uc, z))
-    Bl = u.shape[0]
-
-    def whole(w):
-        return w.full_tensor() if common.is_dtensor(w) else w
-
-    wq, wk, wv = (whole(w) for w in (p.wq, p.wk, p.wv))
+    c10d = torch.ops._c10d_functional
+    xl = _own_tokens(x, m)
+    Bl, n = xl.shape[:2]
+    h_in = common.rms_norm(xl, common.whole(p.ln))
+    u, z = h_in @ common.whole(p.w_up), h_in @ common.whole(p.w_gate)
+    W = p.conv_w.shape[0]
+    tails = c10d.wait_tensor(c10d.all_gather_into_tensor(
+        u[:, n - (W - 1):].contiguous(), M, group)).view(M, Bl, W - 1, -1)
+    C0, n0, conv = (common.laid_out(t, mesh, rows).to_local() for t in cache)
+    uc, _ = causal_conv1d(u, common.whole(p.conv_w), tails[r - 1] if r else conv)
+    uc = F.silu(uc)
+    wq, wk, wv = (common.whole(w) for w in (p.wq, p.wk, p.wv))
     P, H, hd = wq.shape
-    q, k, v = ((t @ w.reshape(P, -1)).view(Bl, S // M, H, hd).to(torch.float32)
+    q, k, v = ((t @ w.reshape(P, -1)).view(Bl, n, H, hd).to(torch.float32)
                for t, w in ((uc, wq), (uc, wk), (u, wv)))
-    i, logf = _gate_values(torch.matmul(uc, whole(p.w_if)).to(torch.float32))
-    C0, n0 = (common.laid_out(t, mesh, rows).to_local() for t in (C0, n0))
-    run = torch.cat([t.reshape(Bl, -1) for t in mlstm_run_end(k, v, i, logf)], dim=1)
-    every = ops.wait_tensor(ops.all_gather_into_tensor(run, M, group)).view(M, Bl, -1)
-    runs = [tuple(a.view(Bl, H, *([hd] * dims)) for a, dims in
-                  zip(every[j].split((H * hd * hd, H * hd, H), dim=1), (2, 1, 0)))
-            for j in range(M)]
-    Cr, nr = mlstm_carry(C0, n0, runs[:r])
+    i, logf = _gate_values(torch.matmul(uc, common.whole(p.w_if)).to(torch.float32))
+    before, total = mlstm_prefix(mlstm_run_end(k, v, i, logf), M, r, group)
+    Cr, nr = mlstm_carry(C0, n0, [] if before is None else [before])
     h, _, _ = _mlstm_scan(q, k, v, i, logf, Cr, nr, scale=scale)
-    C1, n1 = mlstm_carry(C0, n0, runs)
-    h = common.rms_norm(h.to(x.dtype), whole(p.gn) - 1.0)  # per-head group norm
-    y = (h.reshape(Bl, S // M, -1) * F.silu(z)) @ whole(p.w_down)
-    y = common.batch_layout(common.from_local(y, mesh, seq, x.shape))
-    return x + y, *(common.from_local(t, mesh, rows, (B, *t.shape[1:])) for t in (C1, n1))
+    C1, n1 = mlstm_carry(C0, n0, [total])
+    C0.copy_(C1)  # the working cache's storage: no second copy of the states is kept
+    n0.copy_(n1)
+    conv.copy_(tails[M - 1])
+    h = common.rms_norm(h.to(x.dtype), common.whole(p.gn) - 1.0)  # per-head group norm
+    y = (h.reshape(Bl, n, -1) * F.silu(z)) @ common.whole(p.w_down)
+    return (common.from_local(xl + y, mesh, seq, x.shape),
+            MLSTMCache(*(common.from_local(t, mesh, rows, c.shape)
+                         for t, c in zip((C0, n0, conv), cache))))
 
 
 def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
@@ -273,23 +328,24 @@ def mlstm_apply(p: MLSTMParams, x, cfg, cache: MLSTMCache | None = None,
     device runs its own rows' chunks (``common.on_rows``)."""
     B, S, D = x.shape
     dt = x.dtype
+    H, hd = p.wq.shape[1], p.wq.shape[2]
+    scale = hd ** -0.5
+    m = (None if decode or cache is None or common.records(x, *p.parameters())
+         else _sequence_split(x, S))
+    if m is not None:
+        with common.span("recurrent.mlstm"):
+            return _mlstm_on_sequence(p, x, cache, m, scale)
+    x = common.batch_layout(x)
     h_in = common.rms_norm(x, p.ln)
     u = common.matmul(h_in, p.w_up)
     z = common.matmul(h_in, p.w_gate)
     uc, conv_new = causal_conv1d(u, p.conv_w, cache.conv if cache is not None else None)
     uc = F.silu(uc)
-    H, hd = p.wq.shape[1], p.wq.shape[2]
-    scale = hd ** -0.5
     if cache is not None:
         C0, n0 = cache.C, cache.n
     else:
         C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
         n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
-    m = None if decode or common.records(x, *p.parameters()) else _sequence_split(x, S)
-    if m is not None:
-        with common.span("recurrent.mlstm"):
-            y, C1, n1 = _mlstm_on_sequence(p, x, u, uc, z, C0, n0, m, scale)
-        return y, MLSTMCache(C=C1, n=n1, conv=conv_new)
     q = _proj(uc, p.wq).to(torch.float32)
     k = _proj(uc, p.wk).to(torch.float32)
     v = _proj(u, p.wv).to(torch.float32)
@@ -370,11 +426,15 @@ def _slstm_cell(state: SLSTMCache, gx, r) -> SLSTMCache:
     return SLSTMCache(c=c_new, n=n_new, h=h_new, m=m_new)
 
 
-def _slstm_scan(gx, c, n, h, m, r):
-    """The loop over time: (h at every step [B, S, H, hd], the last state)."""
+def _slstm_scan(gx, c, n, h, m, r, b=None):
+    """The loop over time: (h at every step [B, S, H, hd], the last state).
+    With ``b`` gx holds the products in the compute dtype, each step's taken
+    to float32 and b added as it is read (the same numbers as adding b to
+    the whole float32 gx, of which no copy is then held)."""
     state, hs = SLSTMCache(c=c, n=n, h=h, m=m), []
     for t in range(gx.shape[1]):  # decode: S == 1
-        state = _slstm_cell(state, gx[:, t], r)
+        g = gx[:, t] if b is None else gx[:, t].to(torch.float32) + b
+        state = _slstm_cell(state, g, r)
         hs.append(state.h)
     return torch.stack(hs, dim=1), state
 
@@ -384,9 +444,58 @@ def _slstm_ffn(hs, w_up1, w_up2, w_down):
     return (F.silu(hs @ w_up1) * (hs @ w_up2)) @ w_down
 
 
+def _slstm_on_sequence(p: SLSTMParams, x, cache, m: int):
+    """The sLSTM's prefill on DTensors where the stream splits over the
+    sequence on "model" (mesh dim ``m``, of M members; ``_sequence_split``).
+    Only its loop runs over time; the gate product and the FFN act on each
+    position alone.  So each member takes the gate product of its own S /
+    M tokens with the whole weight, one all-gather over "model" makes the
+    products whole in the compute dtype (never the float32 gate inputs),
+    every member runs the loop over its data rank's rows (each step's
+    inputs taken to float32 with the bias as read), and the group norm and
+    the FFN (whole weights) run on its own tokens: the stream stays split
+    over the sequence.  Returns (x + out, the state after the last token,
+    laid out as the rows)."""
+    mesh = x.device_mesh
+    _, S, D = x.shape
+    M, r = mesh.size(m), mesh.get_local_rank(m)
+    rows, seq = _sequence_layouts(x, m)
+    group = mesh.get_group(m).group_name
+    c10d = torch.ops._c10d_functional
+    xl = _own_tokens(x, m)
+    Bl, n = xl.shape[:2]
+    w = common.whole(p.w)
+    H, hd = w.shape[1], w.shape[3]
+    gx = common.rms_norm(xl, common.whole(p.ln)) @ w.reshape(D, -1)  # [Bl, n, 4 H hd]
+    every = c10d.wait_tensor(c10d.all_gather_into_tensor(gx, M, group))
+    gx = every.view(M, Bl, n, -1).transpose(0, 1).reshape(Bl, S, H, 4, hd)
+    del every
+    rr = common.whole(p.r).reshape(H, hd, 4 * hd)
+    state = (common.laid_out(t, mesh, rows).to_local() for t in cache)
+    with common.span("recurrent.slstm"):
+        hs, state = _slstm_scan(gx, *state, rr, common.whole(p.b))
+    del gx
+    hs = common.rms_norm(hs[:, r * n:(r + 1) * n].to(x.dtype), common.whole(p.gn) - 1.0)
+    ffn = (common.whole(t) for t in (p.w_up1, p.w_up2, p.w_down))
+    y = _slstm_ffn(hs.reshape(Bl, n, D), *ffn)
+    return (common.from_local(xl + y, mesh, seq, x.shape),
+            SLSTMCache(*(common.from_local(t, mesh, rows, c.shape)
+                         for t, c in zip(state, cache))))
+
+
 def slstm_apply(p: SLSTMParams, x, cfg, cache: SLSTMCache | None = None,
                 decode: bool = False):
+    """The sLSTM block: the gate product, the loop over time and the gated
+    FFN; returns (x + out, new cache).  A DTensor prefill whose stream
+    splits over the sequence (``_sequence_split``), where autograd does not
+    record, runs ``_slstm_on_sequence``; else each device runs its own
+    rows' loop (``common.on_rows``)."""
     B, S, D = x.shape
+    m = (None if decode or cache is None or common.records(x, *p.parameters())
+         else _sequence_split(x, S))
+    if m is not None:
+        return _slstm_on_sequence(p, x, cache, m)
+    x = common.batch_layout(x)
     dt = x.dtype
     h_in = common.rms_norm(x, p.ln)
     H, hd = p.r.shape[0], p.r.shape[1]

@@ -142,6 +142,10 @@ def unit_cache_init(cfg, u: Unit, batch, max_len, dtype, device=None):
 
 _RECURRENT = {"mlstm": recurrent.mlstm_apply, "slstm": recurrent.slstm_apply,
               "rglru": recurrent.rglru_apply}
+# units whose prefill lays the stream out itself: a sharded prefill may
+# keep the stream split over the sequence from one such unit to the next
+# (``recurrent._sequence_split``); every other unit takes it as the rows
+SEQUENCE_UNITS = ("mlstm", "slstm")
 
 
 def unit_apply(u: Unit, p, x, cfg, mode: str, cache, ctx: dict[str, Any]):
@@ -202,7 +206,9 @@ def apply_units(params, x, cfg, units, mode, cache=None, ctx=None):
     new_caches, aux = [], 0.0
     for j, u in enumerate(units):
         c = cache[j] if cache is not None else None
-        x, nc, a = unit_apply(u, params[j], common.batch_layout(x), cfg, mode, c, ctx)
+        if not (mode == "prefill" and u.kind in SEQUENCE_UNITS):
+            x = common.batch_layout(x)
+        x, nc, a = unit_apply(u, params[j], x, cfg, mode, c, ctx)
         new_caches.append(nc)
         aux = aux + a
     return x, tuple(new_caches), aux

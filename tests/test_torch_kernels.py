@@ -201,6 +201,37 @@ def test_flash_entry_point_on_the_cpu():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=3e-5)
 
 
+OFFSET_CASES = [  # (B, Sk, H, K, hd, q_offset, Sq, kw)
+    (1, 256, 2, 2, 32, 64, 64, {}), (2, 256, 4, 1, 16, 192, 64, {}),
+    (1, 256, 2, 2, 32, 100, 100, dict(window=48)), (1, 200, 4, 2, 16, 136, 64, dict(window=32)),
+    (1, 256, 2, 1, 32, 128, 128, dict(softcap=30.0)),
+    (2, 192, 4, 2, 16, 40, 100, dict(window=64, softcap=10.0)),
+    (1, 128, 2, 2, 32, 32, 64, dict(causal=False))]
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=lambda c: f"{c[5]}+{c[6]}of{c[1]}")
+def test_flash_plain_at_an_offset_is_the_reference_rows(case):
+    """The plain flash with a query block at an offset: rows [q_offset,
+    q_offset + Sq) of ``repro.kernels.ref.flash_attention_ref`` over the
+    whole sequence, float32 to 1e-5 (causal, windowed, softcapped and not
+    causal; the key range longer than the block)."""
+    B, Sk, H, K, hd, off, Sq, kw = case
+    q, k, v = _qkv(10 + off, B, Sk, H, K, hd)
+    want = np.asarray(jref.flash_attention_ref(*(jnp.asarray(a) for a in (q, k, v)), **kw))
+    got = tfa.flash_attention(torch.as_tensor(q[:, off:off + Sq]), torch.as_tensor(k),
+                              torch.as_tensor(v), q_offset=off, **kw).numpy()
+    np.testing.assert_allclose(got, want[:, off:off + Sq], atol=1e-5, rtol=1e-5)
+    through_op = ops.flash_attention(q[:, off:off + Sq], k, v, q_offset=off, device="cpu", **kw)
+    np.testing.assert_array_equal(through_op.numpy(), got)
+
+
+@pytest.mark.parametrize("off,Sq,Sk", [(-1, 8, 16), (9, 8, 16), (0, 17, 16)])
+def test_flash_refuses_a_block_outside_the_keys(off, Sq, Sk):
+    q, k = torch.zeros((1, Sq, 2, 16)), torch.zeros((1, Sk, 2, 16))
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, k, k, q_offset=off)
+
+
 # ------------------------------------------------- routes and cluster sizes
 @pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

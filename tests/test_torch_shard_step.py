@@ -14,9 +14,13 @@ granite-moe-3b-a800m with 6 experts over 4 owners (padded to 8) a
 prefill and one decode step, and so gemma2-2b with one KV head on both
 meshes (the production condition: the KV heads do not split over
 "model", so the cache's batch does, and decode attends there; the filled
-cache moved by ``sharding.relayout``) and xlstm-1.3b at S = 512 on (2, 2)
-(its mLSTM prefill split over the sequence, a 256-token chunk a "model"
-rank).  Each is held,
+cache moved by ``sharding.relayout``; its flash prefill each device's
+query heads against their one KV head), gemma2-2b with three query heads
+on one KV head on both meshes (the flash prefill split over the sequence,
+two mirrored query blocks a "model" rank, through the windowed layers),
+qwen3-32b with one KV head on (2, 2) (its qk-norm on the query heads split
+over "model") and xlstm-1.3b at S = 512 on (2, 2) (its mLSTM prefill split
+over the sequence, a 256-token chunk a "model" rank).  Each is held,
 in float32, within ``chip_smoke.TRAIN_TOL`` (loss, nll, grad norm, lr,
 each leaf's update) or ``compare.SERVE_TOL`` (the logits against each
 row's RMS) against
@@ -86,16 +90,25 @@ CASES = {
     "gemma2-2b@kv1-2x2-serve": ("gemma2-2b@kv1", "serve", (2, 2), "xla"),
     "gemma2-2b@kv1-2x2x2-serve": ("gemma2-2b@kv1", "serve", (2, 2, 2), "xla"),
     "xlstm-1.3b-2x2-serve512": ("xlstm-1.3b", "serve", (2, 2), "xla"),
+    "gemma2-2b@seq-2x2-serve": ("gemma2-2b@seq", "serve", (2, 2), "xla"),
+    "gemma2-2b@seq-2x2x2-serve": ("gemma2-2b@seq", "serve", (2, 2, 2), "xla"),
+    "qwen3-32b@kv1-2x2-serve": ("qwen3-32b@kv1", "serve", (2, 2), "xla"),
 }
 # the REDUCED configurations changed for a case ("arch@variant" -> the
 # fields replaced, "moe" the moe fields): a capacity factor at which the
 # batch drops replicas on each rank; experts that do not split over the 4
 # owners of a (2, 2, 2) mesh (pod x data: 6 padded to 8); one KV head, which
 # does not split over "model", as gemma2-2b's 4 do not over 16 (the cache's
-# batch then lies over "model", and decode attends there)
+# batch then lies over "model", and decode attends there); three query
+# heads on one KV head, none of which splits over "model" (the prefill's
+# flash attention then splits the queries over the sequence, as gemma2-2b's
+# 8 and 4 heads on 16); qwen3-32b's qk-norm with one KV head (the query
+# heads split over "model", each device reading the one KV head)
 VARIANTS = {"deepseek-moe-16b@cf0.25": {"moe": {"capacity_factor": 0.25}},
             "granite-moe-3b-a800m@6-experts": {"moe": {"n_experts": 6}},
-            "gemma2-2b@kv1": {"n_kv_heads": 1}}
+            "gemma2-2b@kv1": {"n_kv_heads": 1},
+            "gemma2-2b@seq": {"n_heads": 3, "n_kv_heads": 1},
+            "qwen3-32b@kv1": {"n_kv_heads": 1}}
 STEPS, BATCH, SEQ, SEED, CHUNKS, MAX_LEN = 2, 8, 16, 0, 2, 32
 # a serve case's prompt length where it is not SEQ: xlstm-1.3b's mLSTM
 # split over the sequence needs whole 256-token chunks on each "model" rank
